@@ -19,12 +19,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import eval as jax_eval  # noqa: E402
 from sinnerf_tpu.data.synthetic import make_llff_scene as jax_make_llff_scene  # noqa: E402
-from sinnerf_tpu.models.nerf import export_torch_state, init_nerf_params  # noqa: E402
+from sinnerf_tpu.models.nerf import export_torch_state  # noqa: E402
 from sinnerf_tpu.render import renderer as jax_renderer  # noqa: E402
 from sinnerf_tpu_torch import eval as port_eval  # noqa: E402
 from sinnerf_tpu_torch.data.depth_io import read_pfm  # noqa: E402
 from sinnerf_tpu_torch.data.synthetic import make_llff_scene  # noqa: E402
-from sinnerf_tpu_torch.models.nerf import nerf_from_state, state_dict_from_jax  # noqa: E402
+from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax  # noqa: E402
 from sinnerf_tpu_torch.render import renderer as port_renderer  # noqa: E402
 from sinnerf_tpu_torch.train.checkpoints import save_torch_nerf_checkpoint  # noqa: E402
 
@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _params(seed):
-    p = jax.tree_util.tree_map(np.array, init_nerf_params(jax.random.key(seed)))
+    p = random_params(np.random.default_rng(seed))
     p["sigma"]["b"] = p["sigma"]["b"] + np.float32(0.3)  # a partly opaque field
     return p
 
@@ -75,23 +75,23 @@ def test_render_chunked_matches_jax_pallas(level_params, rays, n_importance):
 def test_stochastic_plain_render_matches_jax_xla(level_params, rays):
     """The plain path with perturb, sigma noise and pdf draws passed in, vs
     JAX's xla path on the draws its key gives (renderer.py:234)."""
-    s, k = 8, 8
+    s, k, n = 8, 8, rays.shape[0]
     key = jax.random.key(3)
     jset = jax_renderer.RenderSettings(n_samples=s, n_importance=k, perturb=1.0, noise_std=0.5, mlp_impl="xla")
-    want = jax_renderer.render_rays(jax.tree_util.tree_map(jnp.asarray, level_params), jnp.asarray(rays), key, jset)
-    k_perturb, k_noise_c, k_pdf, k_noise_f = jax.random.split(key, 4)
-    n = rays.shape[0]
+    want = jax.jit(jax_renderer.render_rays, static_argnums=3)(
+        jax.tree_util.tree_map(jnp.asarray, level_params), jnp.asarray(rays), key, jset)
 
-    def t(a):
-        return torch.from_numpy(np.array(a))
+    @jax.jit
+    def draws(key):
+        k_perturb, k_noise_c, k_pdf, k_noise_f = jax.random.split(key, 4)
+        return (jax.random.uniform(k_perturb, (n, s)), jax.random.normal(k_noise_c, (n, s)),
+                jax.random.uniform(k_pdf, (n, k)), jax.random.normal(k_noise_f, (n, s + k)))
 
+    perturb_u, noise_coarse, pdf_u, noise_fine = (torch.from_numpy(np.array(a)) for a in draws(key))
     got = port_renderer.render_rays(
         _models(level_params), torch.from_numpy(rays),
         port_renderer.RenderSettings(n_samples=s, n_importance=k, perturb=1.0, noise_std=0.5, mlp_impl="xla"),
-        perturb_u=t(jax.random.uniform(k_perturb, (n, s))),
-        noise_coarse=t(jax.random.normal(k_noise_c, (n, s))),
-        pdf_u=t(jax.random.uniform(k_pdf, (n, k))),
-        noise_fine=t(jax.random.normal(k_noise_f, (n, s + k))),
+        perturb_u=perturb_u, noise_coarse=noise_coarse, pdf_u=pdf_u, noise_fine=noise_fine,
     )
     for name in want:
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), rtol=1e-4, atol=1e-4, err_msg=name)

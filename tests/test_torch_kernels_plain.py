@@ -13,18 +13,26 @@ sums in order; near the 1e-5 pdf guard an ulp moves a sample).
 Tests marked ``cuda`` build and launch the CUDA kernels and skip without a
 card."""
 
-import jax
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from sinnerf_tpu.models.nerf import init_nerf_params
 from sinnerf_tpu.ops.fused_render_t import fused_render_level as jax_render_level
 from sinnerf_tpu.ops.fused_sample_pdf_t import fused_sample_pdf_merge as jax_pdf_merge
-from sinnerf_tpu_torch.models.nerf import nerf_from_state, state_dict_from_jax
+from sinnerf_tpu_torch.core.activations import shifted_softplus, widened_sigmoid
+from sinnerf_tpu_torch.core.composite import composite
+from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
+from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
+from sinnerf_tpu_torch.ops import fused_mlp
 from sinnerf_tpu_torch.ops.fused_render import fused_render_level, render_level_plain
 from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge, sample_pdf_merge_plain
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 N_RAYS, S = 111, 12  # not a tile multiple; S not a multiple of 8
 RENDER_CASES = [("float32", False), ("float32", True), ("bfloat16", False)]
@@ -33,7 +41,7 @@ PDF_CASES = [(77, 8, 8), (64, 10, 12), (33, 64, 64), (40, 16, 1)]
 
 @pytest.fixture(scope="module")
 def params():
-    p = jax.tree_util.tree_map(np.array, init_nerf_params(jax.random.key(21)))
+    p = random_params(np.random.default_rng(21))
     p["sigma"]["b"] = p["sigma"]["b"] + np.float32(0.3)  # a partly opaque field
     return p
 
@@ -126,6 +134,68 @@ def test_cpu_wrappers_do_not_count_launches(params, render_inputs):
 
 
 # --------------------------------------------------------------------------
+# chip_smoke.py's bfloat16 limits: rounding passes, planted faults fail
+# --------------------------------------------------------------------------
+
+
+def _render_bf16(model, rays, z, fault):
+    """``render_level_plain`` in bfloat16 restated, with one fault planted:
+    a legitimate other summation order, products rounded to bf16, or a cast
+    point left out."""
+    v = fused_mlp.weight_views(fused_mlp.pack_weights(model, torch.bfloat16))
+    n, s = z.shape
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    x_pe = positional_encoding_recurrence(o[:, None] + d[:, None] * z[..., None], 10).reshape(n * s, -1)
+    d_pe = positional_encoding_recurrence(d, 4)[:, None].expand(n, s, -1).reshape(n * s, -1)
+
+    def dot(a, name):
+        w = v[name]
+        if fault == "bf16 products":
+            return (a.bfloat16() @ w.T).float()
+        if fault == "other sum order":
+            k = a.shape[-1] // 2
+            return a[:, k:].float() @ w[:, k:].float().T + a[:, :k].float() @ w[:, :k].float().T
+        return a.float() @ w.float().T
+
+    def relu_cast(y, layer):
+        y = torch.relu(y)
+        return y if fault == "layer 7 not cast" and layer == 7 else y.bfloat16()
+
+    x = fused_mlp.pe_concat(x_pe, fused_mlp.XYZ_PAD, torch.bfloat16)
+    h = x
+    for i in range(1, 9):
+        a = dot(h, f"w{i}") if i != 5 else dot(h, "w5h") + dot(x, "w5x")
+        h = relu_cast(a + v[f"b{i}"], i)
+    sigma = (dot(h, "wsig") + v["bsig"])[:, 0]
+    f = dot(h, "wfin") + v["bfin"]
+    f = f if fault == "final not cast" else f.bfloat16()
+    a_d = dot(f, "wdh") + dot(fused_mlp.pe_concat(d_pe, fused_mlp.DIR_PAD, torch.bfloat16), "wdx") + v["bd"]
+    rgb = widened_sigmoid(dot(shifted_softplus(a_d).bfloat16(), "wrgb") + v["brgb"])
+    comp = composite(rgb.view(n, s, 3), sigma.view(n, s), z, d)
+    return comp.rgb, comp.depth, comp.weights
+
+
+@pytest.fixture(scope="module")
+def smoke_field():
+    """chip_smoke.py's first K1 check field, at fewer rays."""
+    rays, z = chip_smoke.make_rays(np.random.default_rng(0), 256, 32, "cpu")
+    model = chip_smoke.make_model(1, "cpu")
+    return model, rays, z, render_level_plain(model, rays, z, True, False, "bfloat16")
+
+
+@pytest.mark.parametrize("fault", ["none", "other sum order", "bf16 products", "final not cast", "layer 7 not cast"])
+def test_bf16_limits_pass_rounding_and_fail_planted_faults(smoke_field, fault):
+    model, rays, z, want = smoke_field
+    got = _render_bf16(model, rays, z, fault)
+    max_err, mean_err = chip_smoke.k1_error(got, want)
+    max_tol, mean_tol = chip_smoke.K1_TOL["bfloat16"]
+    if fault in ("none", "other sum order"):
+        assert max_err <= max_tol and mean_err <= mean_tol, (max_err, mean_err)
+    else:
+        assert max_err > max_tol or mean_err > mean_tol, (max_err, mean_err)
+
+
+# --------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
 
@@ -139,8 +209,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-def test_render_kernel_matches_plain(cuda_device, params, render_inputs, compute_dtype, tol):
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_render_kernel_matches_plain(cuda_device, params, render_inputs, compute_dtype):
     rays, z = render_inputs
     model = nerf_from_state(state_dict_from_jax(params)).to(cuda_device)
     r, zz = torch.from_numpy(rays).to(cuda_device), torch.from_numpy(z).to(cuda_device)
@@ -149,8 +219,9 @@ def test_render_kernel_matches_plain(cuda_device, params, render_inputs, compute
     torch.cuda.synchronize()
     assert fused_render_level.launches == before + 1
     want = render_level_plain(model, r, zz, True, True, compute_dtype)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=tol, atol=tol * 6)
+    max_err, mean_err = chip_smoke.k1_error(got, want)
+    max_tol, mean_tol = chip_smoke.K1_TOL[compute_dtype]
+    assert max_err <= max_tol and mean_err <= mean_tol, (max_err, mean_err)
 
 
 @pytest.mark.cuda

@@ -8,20 +8,20 @@ bf16 value, 2^-8 relative, propagates through eight layers)."""
 import re
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sinnerf_tpu.core.encoding import positional_encoding
-from sinnerf_tpu.models.nerf import export_torch_state, init_nerf_params, nerf_apply
+from sinnerf_tpu.models.nerf import export_torch_state, nerf_apply
 from sinnerf_tpu.train.checkpoints import load_torch_nerf_checkpoint as jax_load_ckpt
 from sinnerf_tpu_torch.core.encoding import positional_encoding as t_pe
 from sinnerf_tpu_torch.models.nerf import (
     NeRF,
     jax_from_state_dict,
     nerf_from_state,
+    random_params,
     state_dict_from_jax,
 )
 from sinnerf_tpu_torch.ops import fused_mlp
@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "sinnerf_tpu_torch" / "csrc"
 
 @pytest.fixture(scope="module")
 def params():
-    p = jax.tree_util.tree_map(np.array, init_nerf_params(jax.random.key(3)))
+    p = random_params(np.random.default_rng(3))
     p["sigma"]["b"] = p["sigma"]["b"] + np.float32(0.3)
     return p
 
