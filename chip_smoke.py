@@ -17,14 +17,33 @@ Phases, any failure exits non-zero without the final result line:
    rays x 64 -> 192), timing each launch and its plain version; then hold
    the kernel render of the whole image against the plain render path and
    time it;
-5. the main path: ``sinnerf_tpu_torch.eval`` on the val and test splits at
-   64 + 128 samples in bfloat16 and float32, with every launch count set to
-   0 just before and read just after; check PSNR and PNGs;
-6. print one ``kernels`` JSON line, then, last,
+5. the eval main path: ``sinnerf_tpu_torch.eval`` on the val and test
+   splits at 64 + 128 samples in bfloat16 and float32, with every launch
+   count set to 0 just before and read just after; check PSNR and PNGs;
+6. hold K3 (``fused_render_level_train``), forward and backward, against
+   its plain versions, float32 and bfloat16, with and without noise, white
+   background on and off, with nonzero cotangents on all three outputs, at
+   small shapes (1000 x 12, 333 x 9, the 56x70 and 63x84 patches); the
+   backward's sums are order-dependent, so the spread of its gradient over
+   two runs on the same inputs is printed;
+7. the same at the training path's own shapes and inputs: the 16,384 rays of
+   a Step-1 batch x S = 64 and 192 as ``train_step`` chains them (K3-fwd,
+   K2 with drawn ``u``, K3-fwd, then both backwards), timing each launch and
+   its plain version;
+8. the training main path: ``train_step`` (4 bundles of 4096 rays, 64 + 128
+   samples, depth, photometric and smoothness losses, Adam at 2e-4) in
+   bfloat16 and float32: a first step whose parameter gradients are held
+   against a ``train_step`` on the plain path (``mlp_impl="xla"``) with the
+   same draws, then 3 timed steps with every launch count set to 0 just
+   before and read just after (per step K3-fwd 2, K3-bwd 2, K2 1); the loss
+   must be finite and fall on the fixed batch;
+9. print one ``kernels`` JSON line, then, last,
    ``{"ok": true, "device": {...}}``.
 
-Errors are max and mean absolute differences of rgb, weights and depth (as a
-share of the far bound).  Kernel and plain version cast at the same points;
+Errors of renders are max and mean absolute differences of rgb, weights and
+depth (as a share of the far bound).  Errors of gradients are per parameter
+leaf: the largest difference over the leaf's largest entry, and the relative
+L2 difference; the worst leaf is held to the limit.  Kernel and plain version cast at the same points;
 in bfloat16 an f32 sum taken in another order can round an activation to the
 neighbouring bf16 value, which the max sees and the mean hardly does.  A
 cast point missed shifts every point, which the mean sees (the planted
@@ -64,6 +83,33 @@ K2_TOL = (1e-5, 1e-6)  # rtol, atol; measured bit-equal
 # kernel render path vs plain render path on a whole image: (max, mean);
 # measured max 2.0e-6, mean 2.5e-7 (float32) and 7.3e-5, 3.6e-7 (bfloat16)
 IMAGE_TOL = {"float32": (2e-5, 1e-6), "bfloat16": (1e-3, 2e-6)}
+# multiply-adds per point of the training backward: recompute, dgrad (no
+# gradient to x or the direction PE) and wgrad (the direction-PE block once
+# per ray)
+MAC_PER_POINT_BWD = 593_408 + 556_544 + 589_312
+TRAIN_RAYS, TRAIN_PATCH = 4096, 64  # a Step-1 batch: 4 bundles of 4096 rays
+TRAIN_STEPS = 3
+# The trained field starts opaque: its rays are absorbed before their last
+# sample.  That sample's interval is 1e10 long, so its alpha is a step
+# function of sigma that no gradient sees; on a half-empty random field the
+# steps that flip it move the loss more than the gradient does.
+TRAIN_SIGMA_SHIFT = 3.0
+# K3-fwd vs its plain version (outputs and residuals): (max, mean), as K1
+K3_FWD_TOL = K1_TOL
+# gradients, worst leaf: (largest difference over the leaf's largest entry,
+# relative L2).  A ReLU mask or a bf16 rounding that flips between two sum
+# orders changes one unit's delta at one point by its whole size, so the
+# gradient's error is far above the forward's; fewer points average less.
+# Measured on an H100 (PERF.md): float32 up to (4.3e-4, 2.8e-4) (5292 rays x
+# S = 9 of tests/test_torch_train_kernels.py; chip_smoke's own shapes stay
+# below 3.2e-5), bfloat16 up to (7.9e-4, 5.7e-4); the first limits were 1e-3
+# and 3e-2.
+K3_BWD_TOL = {"float32": (2e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}
+# first train_step: kernel path vs plain path gradients, worst leaf.  The
+# plain path rounds at other points in bfloat16 (autograd sends the weight
+# gradients through its bf16 casts).  Measured: float32 (1.5e-4, 1.6e-4),
+# bfloat16 (2.2e-3, 1.0e-3); the first limits were 1e-3 and 3e-2.
+STEP_GRAD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}
 
 
 class Failed(Exception):
@@ -94,21 +140,21 @@ def timed(fn, reps: int):
     return out, start.elapsed_time(end) / reps
 
 
-def make_params(seed: int):
+def make_params(seed: int, sigma_shift: float = 0.3):
     """Reference-width NeRF params from a numpy seed; the sigma head is
     shifted so that the random field is partly opaque (a field that is all
     empty composites to zeros and checks nothing)."""
     from sinnerf_tpu_torch.models.nerf import random_params
 
     p = random_params(np.random.default_rng(seed))
-    p["sigma"]["b"] = p["sigma"]["b"] + np.float32(0.3)
+    p["sigma"]["b"] = p["sigma"]["b"] + np.float32(sigma_shift)
     return p
 
 
-def make_model(seed: int, device):
+def make_model(seed: int, device, sigma_shift: float = 0.3):
     from sinnerf_tpu_torch.models.nerf import nerf_from_state, state_dict_from_jax
 
-    return nerf_from_state(state_dict_from_jax(make_params(seed))).to(device).eval()
+    return nerf_from_state(state_dict_from_jax(make_params(seed, sigma_shift))).to(device).eval()
 
 
 def make_rays(rng, n: int, s: int, device):
@@ -139,6 +185,25 @@ def k1_error(got, ref, far: float = 6.0):
 
 def hold(what: str, err, tol) -> None:
     print(f"{what}: max err {err[0]:.3e} (tol {tol[0]:.0e}), mean {err[1]:.3e} (tol {tol[1]:.0e})")
+    if not (err[0] <= tol[0] and err[1] <= tol[1]):
+        raise Failed(f"{what} disagrees with its plain version")
+
+
+def grad_errors(got, ref):
+    """Worst leaf of two lists of gradient tensors: (largest absolute
+    difference over the reference leaf's largest entry, relative L2)."""
+    worst_max = worst_l2 = 0.0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or not bool(g.isfinite().all()):
+            raise Failed(f"gradient leaf of shape {tuple(g.shape)} (want {tuple(r.shape)}) or non-finite values")
+        diff = g.double() - r.double()
+        worst_max = max(worst_max, (diff.abs().max() / (r.abs().max().double() + 1e-30)).item())
+        worst_l2 = max(worst_l2, (diff.norm() / (r.double().norm() + 1e-30)).item())
+    return worst_max, worst_l2
+
+
+def hold_grads(what: str, err, tol) -> None:
+    print(f"{what}: worst leaf max/|max| {err[0]:.3e} (tol {tol[0]:.0e}), rel L2 {err[1]:.3e} (tol {tol[1]:.0e})")
     if not (err[0] <= tol[0] and err[1] <= tol[1]):
         raise Failed(f"{what} disagrees with its plain version")
 
@@ -356,11 +421,268 @@ def phase_eval(device, workdir: str, root: str, ckpt: str, splits):
     return out
 
 
+def k3_bound(n: int, s: int, cd: str, backward: bool):
+    from sinnerf_tpu_torch.ops.fused_mlp import BIAS_SIZE, WEIGHT_SIZE
+
+    wbytes = WEIGHT_SIZE * (2 if cd == "bfloat16" else 4) + BIAS_SIZE * 4
+    ray_in = n * 6 * 4 + 2 * n * s * 4           # rays, depths, noise
+    residuals = 2 * n * s * 4 + n * s * 3 * 4    # weights, alphas, per-sample rgb
+    if backward:
+        flops = 2.0 * MAC_PER_POINT_BWD * n * s
+        nbytes = ray_in + residuals + wbytes + n * 4 * 4 + n * s * 4 + (WEIGHT_SIZE + BIAS_SIZE) * 4
+    else:
+        flops = 2.0 * MAC_PER_POINT * n * s
+        nbytes = ray_in + wbytes + n * 4 * 4 + residuals
+    t_ops, t_bytes = flops / PEAK_FLOPS[cd] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cotangents(out, target):
+    """Nonzero cotangents on all three outputs: those of
+    sum((rgb - target)^2) + 0.1 sum(depth^2) + 0.01 sum(weights^2)."""
+    rgb, depth, weights = out[:3]
+    return 2.0 * (rgb - target), 0.2 * depth, 0.02 * weights
+
+
+def k3_check(model, rays, z, noise, target, cd: str, white_back: bool, what: str, reps: int = 0):
+    """K3-fwd and K3-bwd on one set of inputs against their plain versions.
+    Returns the kernel forward's outputs, the errors and, with ``reps``, the
+    times (ms) of both kernels and both plain versions."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights, torch_dtype, unpack_grads
+
+    packed = pack_weights(model, torch_dtype(cd))
+    n, s = z.shape
+    far = rays[:, 7].max().item() if rays.shape[1] > 7 else 6.0
+    out = frt.launch_train_fwd(packed, rays[:, :6].contiguous(), z, noise, True, white_back)
+    torch.cuda.synchronize()
+    ref = frt.render_level_train_forward_plain(packed, rays[:, :6], z, noise, True, white_back)
+    if out[0].shape != (n, 3) or out[1].shape != (n,) or out[2].shape != (n, s):
+        raise Failed(f"{what}: output shapes {[tuple(o.shape) for o in out[:3]]}")
+    err_f = k1_error(out[:3], ref[:3], far)
+    err_res = k1_error((out[4], out[3]), (ref[4], ref[3]), 1.0)  # rgb_s, alphas
+    err_f = (max(err_f[0], err_res[0]), max(err_f[1], err_res[1]))
+    hold(f"{what} fwd", err_f, K3_FWD_TOL[cd])
+
+    args = (packed, rays[:, :6].contiguous(), z, noise, out[2], out[3], out[4], *cotangents(out, target), True, white_back)
+    got = unpack_grads(*frt.launch_train_bwd(*args))
+    torch.cuda.synchronize()
+    again = unpack_grads(*frt.launch_train_bwd(*args))
+    want = unpack_grads(*frt.render_level_train_backward_plain(*args))
+    err_b = grad_errors(got, want)
+    spread = grad_errors(again, got)
+    hold_grads(f"{what} bwd (two runs differ by {spread[0]:.1e}, {spread[1]:.1e})", err_b, K3_BWD_TOL[cd])
+    times = None
+    if reps:
+        r6 = args[1]
+        times = dict(
+            fwd=timed(lambda: frt.launch_train_fwd(packed, r6, z, noise, True, white_back), reps)[1],
+            bwd=timed(lambda: frt.launch_train_bwd(*args), reps)[1],
+            fwd_plain=timed(lambda: frt.render_level_train_forward_plain(packed, r6, z, noise, True, white_back), 1)[1],
+            bwd_plain=timed(lambda: frt.render_level_train_backward_plain(*args), 1)[1],
+        )
+    return out, err_f, err_b, spread, times
+
+
+def merge_worst(worst, cd, err_f, err_b, spread):
+    w = worst.setdefault(cd, dict(fwd=(0.0, 0.0), bwd=(0.0, 0.0), spread=(0.0, 0.0)))
+    for key, err in (("fwd", err_f), ("bwd", err_b), ("spread", spread)):
+        w[key] = tuple(max(a, b) for a, b in zip(w[key], err))
+
+
+def phase_k3_checks(device, rng):
+    import torch
+
+    model = make_model(2, device)
+    worst = {}
+    # 1000 and 333 rays are no tile multiple; 56x70 and 63x84 are patch sizes;
+    # S = 12 and 9 are no multiple of 8
+    for n, s, white_back, use_noise in ((1000, 12, True, True), (333, 9, False, False),
+                                        (56 * 70, 16, True, False), (63 * 84, 8, False, True)):
+        rays, z = make_rays(rng, n, s, device)
+        noise = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32, device=device) if use_noise else None
+        target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
+        for cd in ("float32", "bfloat16"):
+            what = f"K3 {cd:8s} n={n:5d} S={s:3d} white_back={int(white_back)} noise={int(use_noise)}"
+            _, err_f, err_b, spread, _ = k3_check(model, rays, z, noise, target, cd, white_back, what)
+            merge_worst(worst, cd, err_f, err_b, spread)
+    return worst
+
+
+def make_train_batch(rng, device):
+    """A synthetic Step-1 batch with the sampler's schema at the shapes of
+    the JAX package's ``bench.py::bench_train_step``: batch 1, 4096 random
+    and 4096 projected rays, two 64x64 patches."""
+    import torch
+
+    n, ps = TRAIN_RAYS, TRAIN_PATCH
+
+    def rays(m):
+        o = rng.normal(size=(m, 3))
+        d = rng.normal(size=(m, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return np.concatenate([o, d, np.full((m, 1), 2.0), np.full((m, 1), 6.0)], axis=1).reshape(1, m, 8)
+
+    def pos(*shape):
+        return rng.uniform(2.0, 6.0, size=shape)
+
+    batch = {
+        "rays": rays(n),
+        "rgbs": rng.uniform(size=(1, n, 3)),
+        "depth": pos(1, n, 1),
+        "rays_proj": rays(n),
+        "depth_proj": pos(1, n, 1),
+        "real_patch": rng.uniform(size=(1, 3, ps, ps)),
+        "rays_full": rays(ps * ps),
+        "warp_patch": rng.uniform(size=(1, 3, ps, ps)),
+        "warp_patch_depth": pos(1, ps * ps, 1) * (rng.uniform(size=(1, ps * ps, 1)) > 0.5),
+        "depth_ray": rays(ps * ps),
+        "depth_gt": pos(1, ps * ps, 1),
+        "depth_ray_rgb": rng.uniform(size=(1, ps * ps, 3)),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in batch.items()}
+
+
+def train_config(cd: str, mlp_impl: str = "pallas"):
+    from sinnerf_tpu_torch.render.renderer import RenderSettings
+    from sinnerf_tpu_torch.train.step import TrainConfig
+
+    settings = RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=1.0, noise_std=1.0,
+                              white_back=True, compute_dtype=cd, mlp_impl=mlp_impl)
+    return TrainConfig(render=settings, depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5,
+                       imsize=TRAIN_PATCH)
+
+
+def make_draws(rng, n: int, device):
+    import torch
+
+    from sinnerf_tpu_torch.train.step import RenderDraws
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return RenderDraws(
+        perturb_u=t(rng.uniform(size=(n, N_SAMPLES))), noise_coarse=t(rng.normal(size=(n, N_SAMPLES))),
+        pdf_u=t(rng.uniform(size=(n, N_IMPORTANCE))), noise_fine=t(rng.normal(size=(n, N_SAMPLES + N_IMPORTANCE))),
+    )
+
+
+def phase_train_path(device, rng, batch, draws):
+    """K3 and K2 at the training path's shapes, on the inputs ``train_step``
+    gives each launch: the batch's 16,384 rays, S = 64 then 192."""
+    import torch
+
+    from sinnerf_tpu_torch.core.sampling import stratified_z_vals
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge, sample_pdf_merge_plain
+
+    rays = torch.cat([batch[k].reshape(-1, 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")])
+    n = rays.shape[0]
+    target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
+    models = {"coarse": make_model(20, device), "fine": make_model(21, device)}
+    out = {"k3": {}, "k2": []}
+    for cd in ("bfloat16", "float32"):
+        worst, launches = {}, []
+        z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], N_SAMPLES, False, 1.0, u=draws.perturb_u)
+        for level, noise in (("coarse", draws.noise_coarse), ("fine", draws.noise_fine)):
+            s = z.shape[1]
+            res, err_f, err_b, spread, ms = k3_check(
+                models[level], rays, z, noise, target, cd, True, f"path K3 {cd:8s} {level:6s} n={n} S={s:3d}", reps=3)
+            merge_worst(worst, cd, err_f, err_b, spread)
+            bounds = {d: k3_bound(n, s, cd, d == "bwd") for d in ("fwd", "bwd")}
+            print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
+                  f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
+            launches.append(dict(shape=f"{n}x{s}", ms=ms, bounds=bounds))
+            if level == "coarse":
+                w_c = res[2]
+                z_all, k2_ms = timed(lambda: fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, draws.pdf_u, False), 10)
+                ref, plain_ms = timed(lambda: in_chunks(
+                    lambda zz, ww, uu: sample_pdf_merge_plain(zz, ww, N_IMPORTANCE, uu, False), n, z, w_c, draws.pdf_u), 3)
+                out["k2"].append(dict(shape=f"{n}x{N_SAMPLES}+{N_IMPORTANCE}", ms=k2_ms, plain_ms=plain_ms,
+                                      bound_ms=k2_bound(n, N_SAMPLES, N_IMPORTANCE),
+                                      err=k2_error(z_all, ref, f"path K2 {cd:8s} n={n} drawn u ({k2_ms:.3f} ms, "
+                                                               f"plain {plain_ms:.3f} ms)")))
+                z = z_all
+        out["k3"][cd] = dict(launches=launches, **worst[cd])
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(device, batch, draws):
+    """The training main path: ``train_step`` at full width."""
+    import argparse
+
+    import torch
+
+    from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
+    from sinnerf_tpu_torch.train.optimizers import get_optimizer
+    from sinnerf_tpu_torch.train.step import TrainState, train_step
+
+    hp = argparse.Namespace(optimizer="adam", lr=2e-4, momentum=0.9, weight_decay=0.0)
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        def new_state():
+            models = {"coarse": make_model(30, device, TRAIN_SIGMA_SHIFT).train(),
+                      "fine": make_model(31, device, TRAIN_SIGMA_SHIFT).train()}
+            params = [p for m in models.values() for p in m.parameters()]
+            return TrainState(models=models, opt_g=get_optimizer(hp, params))
+
+        def grads(state):
+            return [p.grad.clone() for m in state.models.values() for p in m.parameters()]
+
+        # first step: the kernel path's gradients against the plain path's
+        state = new_state()
+        state, aux = train_step(state, batch, train_config(cd), 0.0, draws)
+        torch.cuda.synchronize()
+        losses = [aux["metrics"]["train/loss"].item()]
+        plain, plain_aux = train_step(new_state(), batch, train_config(cd, "xla"), 0.0, draws)
+        err = grad_errors(grads(state), grads(plain))
+        print(f"train_step {cd}: first loss {losses[0]:.6f} (plain path {plain_aux['metrics']['train/loss'].item():.6f})")
+        hold_grads(f"train_step {cd:8s} first step's gradients, kernel path vs plain path", err, STEP_GRAD_TOL[cd])
+        del plain, plain_aux
+        torch.cuda.empty_cache()
+
+        counters = (launch_train_fwd, launch_train_bwd, fused_sample_pdf_merge)
+        for c in counters:
+            c.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            state, aux = train_step(state, batch, train_config(cd), 0.0, draws)
+            losses.append(aux["metrics"]["train/loss"])
+        end.record()
+        end.synchronize()
+        counts = tuple(c.launches for c in counters)
+        step_ms = start.elapsed_time(end) / TRAIN_STEPS
+        losses = [float(x) for x in losses]
+        print(f"train_step {cd}: {step_ms:.2f} ms per step; launches over {TRAIN_STEPS} steps: K3-fwd {counts[0]}, "
+              f"K3-bwd {counts[1]}, K2 {counts[2]}; loss {' -> '.join(f'{x:.6f}' for x in losses)}")
+        if counts != (2 * TRAIN_STEPS, 2 * TRAIN_STEPS, TRAIN_STEPS):
+            raise Failed(f"train_step {cd}: launch counts {counts}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise Failed(f"train_step {cd}: the loss did not fall: {losses}")
+        if state.step != 1 + TRAIN_STEPS:
+            raise Failed(f"train_step {cd}: step counter {state.step}")
+        out[cd] = dict(counts=counts, step_ms=step_ms, losses=losses, grad_err=err)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", choices=("all", "eval", "train"), default="all",
+                        help="'eval' (phases 2-5) or 'train' (6-8) alone check a change quickly; only 'all', "
+                             "the default, prints the kernels line and the final result line")
+    phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
@@ -386,16 +708,26 @@ def main() -> int:
                 usage = [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(os.path.basename(log), *usage, sep="\n  ")
         rng = np.random.default_rng(0)
-        k1_err = phase_k1_checks(device, rng)
-        k2_err = phase_k2_checks(device, rng)
-        splits = (("bfloat16", ("val", "test")), ("float32", ("val", "test")))
-        with tempfile.TemporaryDirectory() as workdir:
-            root, ckpt = make_scene(workdir)
-            path = phase_path(device, root, ckpt)
-            ev = phase_eval(device, workdir, root, ckpt, splits)
+        if phases != "train":
+            k1_err = phase_k1_checks(device, rng)
+            k2_err = phase_k2_checks(device, rng)
+            splits = (("bfloat16", ("val", "test")), ("float32", ("val", "test")))
+            with tempfile.TemporaryDirectory() as workdir:
+                root, ckpt = make_scene(workdir)
+                path = phase_path(device, root, ckpt)
+                ev = phase_eval(device, workdir, root, ckpt, splits)
+        if phases != "eval":
+            k3_err = phase_k3_checks(device, rng)
+            batch = make_train_batch(rng, device)
+            draws = make_draws(rng, 4 * TRAIN_RAYS, device)
+            tpath = phase_train_path(device, rng, batch, draws)
+            train = phase_train(device, batch, draws)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    if phases != "all":
+        print(f"phases '{phases}' passed in {time.perf_counter() - t0:.1f} s; no result line for a partial run")
+        return 0
 
     kernels = []
     for cd in ("bfloat16", "float32"):
@@ -413,19 +745,40 @@ def main() -> int:
             per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in launches},
             image_ms=path["image"][cd]["ms"], image_err=path["image"][cd]["err"], images=ev["launches"][cd][2],
         ))
-    k2 = path["k2"]
+    for cd in ("bfloat16", "float32"):
+        p, t = tpath["k3"][cd], train[cd]
+        for i, (d, line, tol) in enumerate((("fwd", 86, K3_FWD_TOL[cd]), ("bwd", 164, K3_BWD_TOL[cd]))):
+            err = tuple(max(a, b) for a, b in zip(k3_err[cd][d], p[d]))
+            rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
+            entry = dict(
+                name=f"fused_render_level_train_{d}[{cd}]", route="cuda",
+                source="sinnerf_tpu_torch/csrc/fused_render_train.cu",
+                replaces=f"sinnerf_tpu/ops/fused_render_train_t.py:{line}",
+                launches=t["counts"][i], max_abs_err=err[0], tolerance=tol,
+                ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
+                bound_by=p["launches"][0]["bounds"][d][1], library_ms=None,
+                per_launch={x["shape"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for x, r in zip(p["launches"], rows)},
+                step_ms=t["step_ms"], steps=TRAIN_STEPS,
+            )
+            if d == "fwd":
+                entry.update(mean_abs_err=err[1])
+            else:  # max_abs_err is the worst leaf's largest difference over its largest entry
+                entry.update(rel_l2_err=err[1], run_to_run=max(k3_err[cd]["spread"], p["spread"]),
+                             step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
+            kernels.append(entry)
+    k2 = path["k2"] + tpath["k2"]
     kernels.append(dict(
         name="fused_sample_pdf_merge", route="cuda",
         source="sinnerf_tpu_torch/csrc/fused_sample_pdf.cu",
         replaces="sinnerf_tpu/ops/fused_sample_pdf_t.py:61",
-        launches=sum(ev["launches"][cd][1] for cd in ev["launches"]),
+        launches=sum(ev["launches"][cd][1] for cd in ev["launches"]) + sum(train[cd]["counts"][2] for cd in train),
         max_abs_err=max([k2_err] + [x["err"] for x in k2]), tolerance=f"{K2_TOL[1]} + {K2_TOL[0]}|z|",
         ms=mean_of(k2, "ms"), plain_ms=mean_of(k2, "plain_ms"), bound_ms=mean_of(k2, "bound_ms"),
         bound_by="bytes", library_ms=None,
-        per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in k2[:2]},
+        per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in k2[:2] + tpath["k2"][:1]},
     ))
-    print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over the eval path's "
-          f"launches of one image; no single PyTorch call computes either kernel's function")
+    print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
+          f"(K1: one eval image; K3: one train step; K2: both); no single PyTorch call computes any kernel's function")
     print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

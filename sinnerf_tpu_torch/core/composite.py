@@ -9,7 +9,7 @@ background.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,29 +26,44 @@ def ray_norm(rays_d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(sq[:, 0:1] + sq[:, 1:2] + sq[:, 2:3])
 
 
+def intervals(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    """``(z_{s+1} - z_s) * ||d||`` (N, S), with ``1e10 * ||d||`` on the last."""
+    deltas = z_vals[..., 1:] - z_vals[..., :-1]
+    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], dim=-1)
+    return deltas * ray_norm(rays_d)
+
+
+def compute_alphas_weights(
+    sigmas: torch.Tensor,
+    z_vals: torch.Tensor,
+    rays_d: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``alpha_i = 1 - exp(-delta_i relu(sigma_i))`` and
+    ``w_i = alpha_i * prod_{j<i} (1 - alpha_j + 1e-10)``, both (N, S).
+
+    sigmas/z_vals (N, S); rays_d (N, 3) unnormalized.  ``noise`` (N, S), when
+    given, is added to sigma before the ReLU (the caller scales it by
+    ``noise_std``).
+    """
+    if noise is not None:
+        sigmas = sigmas + noise
+    alphas = 1.0 - torch.exp(-intervals(z_vals, rays_d) * torch.relu(sigmas))
+    shifted = torch.cat(
+        [torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-10], dim=-1
+    )
+    transmittance = torch.cumprod(shifted, dim=-1)[..., :-1]
+    return alphas, alphas * transmittance
+
+
 def compute_weights(
     sigmas: torch.Tensor,
     z_vals: torch.Tensor,
     rays_d: torch.Tensor,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``w_i = alpha_i * prod_{j<i} (1 - alpha_j + 1e-10)``.
-
-    sigmas/z_vals (N, S); rays_d (N, 3) unnormalized.  ``noise`` (N, S), when
-    given, is added to sigma before the ReLU (the caller scales it by
-    ``noise_std``).
-    """
-    deltas = z_vals[..., 1:] - z_vals[..., :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], dim=-1)
-    deltas = deltas * ray_norm(rays_d)
-    if noise is not None:
-        sigmas = sigmas + noise
-    alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
-    shifted = torch.cat(
-        [torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-10], dim=-1
-    )
-    transmittance = torch.cumprod(shifted, dim=-1)[..., :-1]
-    return alphas * transmittance
+    """The compositing weights of ``compute_alphas_weights``."""
+    return compute_alphas_weights(sigmas, z_vals, rays_d, noise)[1]
 
 
 def composite(

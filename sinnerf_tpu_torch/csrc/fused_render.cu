@@ -3,19 +3,9 @@
 //
 // Replaces the TPU kernel sinnerf_tpu/ops/fused_render_t.py::_render_kernel
 // (:61), called through fused_render_level (:124).  Wrapper, plain version and
-// launch counter: ops/fused_render.py.
-//
-// Each block owns TILE consecutive rays and loops over the S samples.  For
-// each sample it forms xyz = o + d z, computes the recurrence PE in f32 (the
-// direction PE once per ray, before the loop), runs the MLP of nerf_mlp.cuh
-// with the activation tile in shared memory, and composites in registers:
-// thread p of the block carries ray p's rgb, depth, weight sum and
-// transmittance across the samples.  The per-sample weights are written
-// (N, S) row-major, one row per ray, for the resample kernel.
-//
-// Compositing follows fused_render_t.py:84-120: delta = (z_{s+1} - z_s)*||d||
-// with 1e10*||d|| on the last sample; alpha = 1 - exp(-delta relu(sigma));
-// T *= 1 - alpha + 1e-10; white background rgb += 1 - sum(w).
+// launch counter: ops/fused_render.py.  The body is render_level.cuh's
+// render_tile, which the training forward kernel shares; its note says how a
+// block walks its rays and samples.
 //
 // Bound: compute.  593,408 multiply-adds (1.19 MFLOP) per point; a 504x378
 // image at 64 + 128 samples is 190,512 x (64 + 192) = 48.8M points, 58 TFLOP:
@@ -24,7 +14,7 @@
 // hundred bytes per ray plus the 1.2/2.4 MB of weights, read from L2.  The
 // design keeps everything per point on chip; the weights are re-read from L2
 // by every block for every sample, TILE points per read.
-#include "nerf_mlp.cuh"
+#include "render_level.cuh"
 
 using namespace nerf;
 
@@ -35,70 +25,8 @@ render_kernel(const float* __restrict__ rays, const float* __restrict__ z,
               float* __restrict__ rgb_out, float* __restrict__ depth_out,
               float* __restrict__ w_out, int n, int S, int new_act, int white_back) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tile<T> t = carve<T>(smem);
-  const int tid = threadIdx.x;
-  const int ray0 = blockIdx.x * TILE;
-
-  // rays of the tile; rays past n get o = 0, d = (0, 0, 1), z = 1 (unread)
-  for (int i = tid; i < TILE * 6; i += THREADS) {
-    const int p = i / 6, c = i % 6;
-    t.rays[i] = ray0 + p < n ? rays[(size_t)(ray0 + p) * 6 + c] : (c == 5 ? 1.f : 0.f);
-  }
-  if (tid < TILE) {
-    t.xpe[tid * Ld<T>::X + XYZ_CH] = to_cd<T>(0.f);
-    for (int c = DIR_CH; c < DIR_PAD; ++c) t.dpe[tid * Ld<T>::D + c] = to_cd<T>(0.f);
-  }
-  __syncthreads();
-  if (tid < TILE * 3) {
-    const int p = tid / 3, c = tid % 3;
-    pe_channel<T>(t.rays[p * 6 + 3 + c], c, N_FREQS_DIR, t.dpe + p * Ld<T>::D);
-  }
-
-  // compositing state of ray tid (threads tid < TILE)
-  const int my = ray0 + tid;
-  const bool live = tid < TILE && my < n;
-  float dnorm = 0.f, trans = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, wsum = 0.f;
-  if (tid < TILE) {
-    const float dx = t.rays[tid * 6 + 3], dy = t.rays[tid * 6 + 4], dz = t.rays[tid * 6 + 5];
-    dnorm = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
-  }
-
-  for (int s = 0; s < S; ++s) {
-    if (tid < TILE * 3) {
-      const int p = tid / 3, c = tid % 3;
-      const float zs = ray0 + p < n ? z[(size_t)(ray0 + p) * S + s] : 1.f;
-      const float x = __fadd_rn(t.rays[p * 6 + c], __fmul_rn(t.rays[p * 6 + 3 + c], zs));
-      pe_channel<T>(x, c, N_FREQS_XYZ, t.xpe + p * Ld<T>::X);
-    }
-    __syncthreads();
-    mlp_tile<T>(t, W, B, new_act != 0);
-    if (live) {
-      const float zs = z[(size_t)my * S + s];
-      float delta = s == S - 1 ? 1e10f : __fsub_rn(z[(size_t)my * S + s + 1], zs);
-      delta = __fmul_rn(delta, dnorm);
-      const float alpha = __fsub_rn(1.f, expf(__fmul_rn(-delta, fmaxf(t.sig[tid], 0.f))));
-      const float w = __fmul_rn(alpha, trans);
-      w_out[(size_t)my * S + s] = w;
-      acc_r = __fadd_rn(acc_r, __fmul_rn(w, t.rgb[tid * 3 + 0]));
-      acc_g = __fadd_rn(acc_g, __fmul_rn(w, t.rgb[tid * 3 + 1]));
-      acc_b = __fadd_rn(acc_b, __fmul_rn(w, t.rgb[tid * 3 + 2]));
-      acc_d = __fadd_rn(acc_d, __fmul_rn(w, zs));
-      wsum = __fadd_rn(wsum, w);
-      trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f));
-    }
-  }
-  if (live) {
-    if (white_back) {
-      const float bg = __fsub_rn(1.f, wsum);
-      acc_r = __fadd_rn(acc_r, bg);
-      acc_g = __fadd_rn(acc_g, bg);
-      acc_b = __fadd_rn(acc_b, bg);
-    }
-    rgb_out[(size_t)my * 3 + 0] = acc_r;
-    rgb_out[(size_t)my * 3 + 1] = acc_g;
-    rgb_out[(size_t)my * 3 + 2] = acc_b;
-    depth_out[my] = acc_d;
-  }
+  render_tile<T, false>(rays, z, nullptr, W, B, rgb_out, depth_out, w_out, nullptr, nullptr,
+                        n, S, new_act, white_back, smem);
 }
 
 template <typename T>

@@ -1,0 +1,561 @@
+// K3: the training render of one level, forward and backward.
+//
+// Replaces the TPU kernels of sinnerf_tpu/ops/fused_render_train_t.py:
+// _train_fwd_kernel (:86, called through _run_fwd :417) and _train_bwd_kernel
+// (:164, called through _frlt_bwd :509).  Wrapper (a torch.autograd.Function),
+// plain versions and launch counters: ops/fused_render_train.py.
+//
+// K3-fwd is render_level.cuh's render_tile with TRAIN set: K1's work plus the
+// sigma noise, and alpha and rgb stored per sample beside w as residuals.
+// Bound: operations, 593,408 multiply-adds per point, as K1.
+//
+// K3-bwd computes the gradients of the 14 packed weight blocks and 12 biases
+// from the cotangents of (rgb, depth, weights); rays, depths and noise get no
+// gradient.  Per sample s of a ray (fused_render_train_t.py:26-29):
+//   c_s       = <g_rgb, rgb_s> + g_depth z_s + g_w_s - white_back sum(g_rgb)
+//   dL/da_s   = c_s T_s - S_s / max(1 - a_s + 1e-10, 1e-10),  S_s = sum_{j>s} c_j w_j
+//   dL/dsig_s = dL/da_s (1 - a_s) delta_s [sigma_s + noise_s > 0]
+//   dL/drgb_s = w_s g_rgb
+// A block owns TILE consecutive rays at a time (a persistent grid walks the
+// ray tiles).  Stage A: thread p walks ray p's samples downwards and writes
+// -S_s/u_s to a (N, S) buffer.  Stage B, upwards over the samples: recompute
+// the MLP with the forward's own routine (mlp_tile, so sigma and with it the
+// gate round as they did in the forward), then backpropagate layer by layer.
+//
+// Bound: operations.  Per point 593,408 multiply-adds of recompute, 556,544
+// of dgrad (no gradient reaches x or the direction PE) and 589,312 of wgrad
+// (the direction-PE block once per ray): 3.48 MFLOP per point.
+//
+// What the design does about the three things that do not fit:
+// * Activations.  The backward needs x, h1..h8, f and the direction branch
+//   of the whole tile at once; in bf16 that is 327 KB, more than a block's
+//   shared memory.  The recompute runs in shared memory exactly as the
+//   forward does and copies each layer's output to a per-block scratch in
+//   global memory (9 x TILE x 256, 0.3 MB in bf16, 0.6 MB in f32), which a
+//   block reads back within microseconds, from L2.  The deltas ping-pong
+//   between two shared-memory tiles (the activation tile is free once the
+//   recompute is done).
+// * The gradient accumulator.  594,560 f32 sums (2.4 MB) fit in no block.
+//   Each block reduces a layer's dW over its TILE points in registers
+//   (wmma accumulators in bf16, a register-blocked FMA loop in f32) and adds
+//   the tile's sum to the one global accumulator with red.global.add.f32
+//   (atomicAdd whose result is unused).  The order of those adds changes from
+//   run to run, so the gradient's last bits do.  That is 594,560 adds per 64
+//   points; a later version can reduce over more points per flush.
+// * The direction-PE block (wdx).  Its input is constant along a ray, so the
+//   f32 sum over samples of the cast delta is kept per ray (global scratch)
+//   and contracted with the direction PE once per ray tile, in f32.
+//
+// Cast points follow _train_bwd_kernel: every delta is cast to the compute
+// dtype before both of its products; ReLU masks read the cast activation;
+// sums run in f32.
+#include "render_level.cuh"
+
+using namespace nerf;
+
+// ------------------------------------------------------------------- K3-fwd
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+train_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                 const float* __restrict__ noise, const T* __restrict__ W,
+                 const float* __restrict__ B, float* __restrict__ rgb_out,
+                 float* __restrict__ depth_out, float* __restrict__ w_out,
+                 float* __restrict__ alpha_out, float* __restrict__ rgb_s_out,
+                 int n, int S, int new_act, int white_back) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  render_tile<T, true>(rays, z, noise, W, B, rgb_out, depth_out, w_out, alpha_out, rgb_s_out,
+                       n, S, new_act, white_back, smem);
+}
+
+// ------------------------------------------------------------------- K3-bwd
+constexpr int N_KEPT = 9;  // h1..h8 and the output of xyz_encoding_final
+
+// Per-block scratch in global memory: the kept activations [N_KEPT][TILE][Ld::A]
+// in the compute dtype, the direction layer's f32 pre-activation [TILE][HALF]
+// and the per-ray f32 sum of its delta [TILE][HALF].
+template <typename T>
+struct BwdScratch {
+  static constexpr size_t KEPT = (size_t)N_KEPT * TILE * Ld<T>::A;
+  static constexpr size_t BYTES = KEPT * sizeof(T) + 2 * TILE * HALF * sizeof(float);
+};
+
+// Shared memory of the backward: the forward's tile, one more delta tile and
+// the per-point head cotangents (da_rgb [TILE][3], g_sig [TILE]) and rgb
+// pre-activation [TILE][3].
+template <typename T>
+constexpr size_t bwd_smem_bytes() {
+  return tile_bytes<T>() + sizeof(T) * TILE * Ld<T>::A + sizeof(float) * 7 * TILE;
+}
+
+template <typename T>
+struct Keep {
+  const T* act;  // the tile's activations (shared memory)
+  T* kept;
+  float* dpre;
+  float* rpre;
+  __device__ void layer_done(int i) const {
+    T* dst = kept + (size_t)(i - 1) * TILE * Ld<T>::A;
+    for (int e = threadIdx.x; e < TILE * WIDTH; e += THREADS) {
+      const int at = (e / WIDTH) * Ld<T>::A + e % WIDTH;
+      dst[at] = act[at];
+    }
+  }
+  __device__ float* dir_pre() const { return dpre; }
+  __device__ float* rgb_pre() const { return rpre; }
+};
+
+// Epilogues of a dgrad product: what becomes of the f32 sum v at point p,
+// channel k before it is cast.
+struct EpiNone {
+  __device__ float operator()(int, int, float v) const { return v; }
+};
+template <typename T>
+struct EpiMask {  // ReLU mask of the cast activation h
+  const T* h;
+  __device__ float operator()(int p, int k, float v) const {
+    return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
+  }
+};
+template <typename T>
+struct EpiSigmaMask {  // + g_sig[p] wsig[k], then the mask of h8
+  const T* h;
+  const float* gsig;
+  const T* wsig;
+  __device__ float operator()(int p, int k, float v) const {
+    v = __fadd_rn(v, __fmul_rn(gsig[p], to_f(wsig[k])));
+    return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
+  }
+};
+
+// ---- dgrad: dst[p][k] = cast(epi(sum_o D[p][o] Wg[o][k])), k < WIDTH.
+// D (shared) is [TILE][ldd] with O channels; Wg is the (O, WIDTH) row-major
+// weight block; dst is another [TILE][Ld::A] tile.
+template <int O, typename Epi>
+__device__ void dgrad_f32(const float* D, int ldd, const float* __restrict__ Wg, const Epi& epi,
+                          float* dst) {
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int o = 0; o < O; ++o) {
+    float a[8], w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = D[(ty * 8 + i) * ldd + o];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[j] = __ldg(Wg + (size_t)o * WIDTH + tx + 32 * j);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = ty * 8 + i, k = tx + 32 * j;
+      dst[p * Ld<float>::A + k] = epi(p, k, acc[i][j]);
+    }
+  __syncthreads();
+}
+
+using FragBRow = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
+using FragACol = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
+
+template <int O, typename Epi>
+__device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, const Epi& epi,
+                           bf16* dst, float* scratch) {
+  constexpr int NT = WIDTH / 16 / WARPS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  FragAcc acc[TILE / 16][NT];
+#pragma unroll
+  for (int m = 0; m < TILE / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) wm::fill_fragment(acc[m][n], 0.f);
+  for (int o0 = 0; o0 < O; o0 += 16) {
+    FragBRow b[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      wm::load_matrix_sync(b[n], Wg + (size_t)o0 * WIDTH + (warp * NT + n) * 16, WIDTH);
+#pragma unroll
+    for (int m = 0; m < TILE / 16; ++m) {
+      FragA a;
+      wm::load_matrix_sync(a, D + m * 16 * ldd + o0, ldd);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) wm::mma_sync(acc[m][n], a, b[n], acc[m][n]);
+    }
+  }
+  float* sc = scratch + warp * 256;
+#pragma unroll
+  for (int m = 0; m < TILE / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      wm::store_matrix_sync(sc, acc[m][n], 16, wm::mem_row_major);
+      __syncwarp();
+      const int k0 = (warp * NT + n) * 16;
+      for (int e = lane; e < 256; e += 32) {
+        const int p = m * 16 + (e >> 4), k = k0 + (e & 15);
+        dst[p * Ld<bf16>::A + k] = to_cd<bf16>(epi(p, k, sc[e]));
+      }
+      __syncwarp();
+    }
+  __syncthreads();
+}
+
+template <typename T, int O, typename Epi>
+__device__ __forceinline__ void dgrad(const Tile<T>& t, const T* D, const T* Wg, const Epi& epi,
+                                      T* dst) {
+  if constexpr (std::is_same<T, float>::value)
+    dgrad_f32<O>(D, Ld<T>::A, Wg, epi, dst);
+  else
+    dgrad_bf16<O>(D, Ld<T>::A, Wg, epi, dst, t.scratch);
+}
+
+// ---- wgrad: dW[o][k] += sum_p D[p][o] A[p][k], o < O, k < KIN.  D (shared)
+// is the cast delta tile, A the cast layer input (shared, or the block's
+// global scratch: read with plain loads, it was written in this launch).
+// The tile's sum goes to the global accumulator with one add per element.
+template <int O, int KIN>
+__device__ void wgrad_f32(const float* D, int ldd, const float* A, int lda, float* dW) {
+  constexpr int NJ = KIN / 32;
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  for (int q = 0; q < O / 64; ++q) {
+    const int o0 = q * 64 + ty * 8;
+    float acc[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int p = 0; p < TILE; ++p) {
+      float d[8], a[NJ];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = D[p * ldd + o0 + i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) a[j] = A[p * lda + tx + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(d[i], a[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) atomicAdd(dW + (size_t)(o0 + i) * KIN + tx + 32 * j, acc[i][j]);
+  }
+}
+
+template <int O, int KIN>
+__device__ void wgrad_bf16(const bf16* D, int ldd, const bf16* A, int lda, float* dW,
+                           float* scratch) {
+  constexpr int MPW = O / 16 / WARPS;  // rows of 16 outputs per warp
+  constexpr int NG = 4;                // fragments of 16 inputs per pass
+  static_assert(MPW >= 1 && (KIN / 16) % NG == 0, "wgrad tile shape");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sc = scratch + warp * 256;
+  for (int n0 = 0; n0 < KIN / 16; n0 += NG) {
+    FragAcc acc[MPW][NG];
+#pragma unroll
+    for (int m = 0; m < MPW; ++m)
+#pragma unroll
+      for (int g = 0; g < NG; ++g) wm::fill_fragment(acc[m][g], 0.f);
+    for (int p0 = 0; p0 < TILE; p0 += 16) {
+      FragACol a[MPW];  // (o, p) = D[p][o]: the delta tile read column-major
+#pragma unroll
+      for (int m = 0; m < MPW; ++m)
+        wm::load_matrix_sync(a[m], D + p0 * ldd + (warp * MPW + m) * 16, ldd);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        FragBRow b;
+        wm::load_matrix_sync(b, A + p0 * lda + (n0 + g) * 16, lda);
+#pragma unroll
+        for (int m = 0; m < MPW; ++m) wm::mma_sync(acc[m][g], a[m], b, acc[m][g]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MPW; ++m)
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        wm::store_matrix_sync(sc, acc[m][g], 16, wm::mem_row_major);
+        __syncwarp();
+        float* out = dW + (size_t)((warp * MPW + m) * 16) * KIN + (n0 + g) * 16;
+        for (int e = lane; e < 256; e += 32) atomicAdd(out + (size_t)(e >> 4) * KIN + (e & 15), sc[e]);
+        __syncwarp();
+      }
+  }
+}
+
+template <typename T, int O, int KIN>
+__device__ __forceinline__ void wgrad(const Tile<T>& t, const T* D, const T* A, int lda, float* dW) {
+  if constexpr (std::is_same<T, float>::value)
+    wgrad_f32<O, KIN>(D, Ld<T>::A, A, lda, dW);
+  else
+    wgrad_bf16<O, KIN>(D, Ld<T>::A, A, lda, dW, t.scratch);
+}
+
+// db[o] += sum_p D[p][o], in f32.
+template <typename T, int O>
+__device__ void bias_grad(const T* D, float* db) {
+  for (int o = threadIdx.x; o < O; o += THREADS) {
+    float s = 0.f;
+    for (int p = 0; p < TILE; ++p) s = __fadd_rn(s, to_f(D[p * Ld<T>::A + o]));
+    atomicAdd(db + o, s);
+  }
+}
+
+// c_s = dL/dw_s of one sample.
+__device__ __forceinline__ float weight_cotangent(const float* __restrict__ rgb_s, float gr, float gg,
+                                                  float gb, float gd, float zs, float gw, float gsum,
+                                                  int white_back) {
+  float c = __fadd_rn(__fadd_rn(__fmul_rn(gr, rgb_s[0]), __fmul_rn(gg, rgb_s[1])), __fmul_rn(gb, rgb_s[2]));
+  c = __fadd_rn(__fadd_rn(c, __fmul_rn(gd, zs)), gw);
+  return white_back ? __fsub_rn(c, gsum) : c;
+}
+
+template <typename T>
+constexpr int bwd_blocks_per_sm() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, bwd_blocks_per_sm<T>())
+train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                 const float* __restrict__ noise, const T* __restrict__ W,
+                 const float* __restrict__ B, const float* __restrict__ w_res,
+                 const float* __restrict__ a_res, const float* __restrict__ rgb_res,
+                 const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
+                 const float* __restrict__ g_w, float* dsig_part, unsigned char* scratch,
+                 float* dW, float* dB, int n, int S, int new_act, int white_back) {
+  constexpr int LA = Ld<T>::A, LX = Ld<T>::X, LD = Ld<T>::D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Tile<T> t = carve<T>(smem);
+  T* const extra = reinterpret_cast<T*>(smem + tile_bytes<T>());  // the second delta tile
+  float* const darg = reinterpret_cast<float*>(extra + TILE * LA);  // [TILE][3] cast da_rgb
+  float* const gsig = darg + 3 * TILE;                               // [TILE] cast dL/dsigma
+  float* const rpre = gsig + TILE;                                   // [TILE][3] rgb pre-activation
+
+  unsigned char* const mine = scratch + (size_t)blockIdx.x * BwdScratch<T>::BYTES;
+  T* const kept = reinterpret_cast<T*>(mine);
+  float* const dpre = reinterpret_cast<float*>(mine + BwdScratch<T>::KEPT * sizeof(T));
+  float* const dad = dpre + TILE * HALF;
+  const Keep<T> keep{t.act, kept, dpre, rpre};
+  const auto kept_layer = [&](int i) { return kept + (size_t)(i - 1) * TILE * LA; };  // h_i, f = 9
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int ray0 = tile * TILE;
+    __syncthreads();  // the previous tile's readers of rays, dpe and dad are done
+    const float dnorm = load_rays_and_dir_pe<T>(t, rays, ray0, n);
+    const int my = ray0 + tid;
+    const bool live = tid < TILE && my < n;
+    float gr = 0.f, gg = 0.f, gb = 0.f, gd = 0.f, gsum = 0.f;
+    if (live) {
+      gr = g_rgb[(size_t)my * 3 + 0];
+      gg = g_rgb[(size_t)my * 3 + 1];
+      gb = g_rgb[(size_t)my * 3 + 2];
+      gd = g_depth[my];
+      gsum = __fadd_rn(__fadd_rn(gr, gg), gb);
+      // stage A, downwards: -S_s / u_s with S_s the suffix sum of c_j w_j
+      float suffix = 0.f;
+      for (int s = S - 1; s >= 0; --s) {
+        const size_t at = (size_t)my * S + s;
+        const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, gd, z[at], g_w[at], gsum, white_back);
+        const float u = fmaxf(__fadd_rn(__fsub_rn(1.f, a_res[at]), 1e-10f), 1e-10f);
+        dsig_part[at] = __fdiv_rn(-suffix, u);
+        suffix = __fadd_rn(suffix, __fmul_rn(c, w_res[at]));
+      }
+    }
+    for (int e = tid; e < TILE * HALF; e += THREADS) dad[e] = 0.f;
+
+    // stage B, upwards
+    float trans = 1.f;
+    for (int s = 0; s < S; ++s) {
+      sample_pe<T>(t, z, ray0, n, S, s);
+      mlp_tile<T, Keep<T>>(t, W, B, new_act != 0, keep);
+      if (tid < TILE) {
+        float ds = 0.f, dr[3] = {0.f, 0.f, 0.f};
+        if (live) {
+          const size_t at = (size_t)my * S + s;
+          const float delta = interval(z + (size_t)my * S, S, s, dnorm);
+          const float w_s = w_res[at], a_s = a_res[at];
+          const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, gd, z[at], g_w[at], gsum, white_back);
+          const float da_alpha = __fadd_rn(__fmul_rn(c, trans), dsig_part[at]);
+          float sig = t.sig[tid];
+          if (noise != nullptr) sig = __fadd_rn(sig, noise[at]);
+          if (sig > 0.f) ds = __fmul_rn(__fmul_rn(da_alpha, __fsub_rn(1.f, a_s)), delta);
+          const float g3[3] = {gr, gg, gb};
+          for (int ch = 0; ch < 3; ++ch) {
+            const float a = rpre[tid * 3 + ch];
+            float dact;
+            if (new_act) {
+              const float tt = tanhf(__fmul_rn(0.5f, a));
+              dact = __fmul_rn(0.2505f, __fsub_rn(1.f, __fmul_rn(tt, tt)));
+            } else {
+              const float sg = sigmoid(a);
+              dact = __fmul_rn(sg, __fsub_rn(1.f, sg));
+            }
+            dr[ch] = __fmul_rn(__fmul_rn(w_s, g3[ch]), dact);
+          }
+          trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a_s), 1e-10f));
+        }
+        gsig[tid] = to_f(to_cd<T>(ds));
+        for (int ch = 0; ch < 3; ++ch) darg[tid * 3 + ch] = to_f(to_cd<T>(dr[ch]));
+      }
+      __syncthreads();
+
+      // rgb head and direction layer: da_d = cast(wrgb^T da_rgb * act'(a_d))
+      for (int e = tid; e < TILE * HALF; e += THREADS) {
+        const int p = e / HALF, k = e % HALF;
+        float dd = __fmul_rn(to_f(W[WRGB + k]), darg[p * 3]);
+        dd = fmaf(to_f(W[WRGB + HALF + k]), darg[p * 3 + 1], dd);
+        dd = fmaf(to_f(W[WRGB + 2 * HALF + k]), darg[p * 3 + 2], dd);
+        const float a = dpre[e];
+        const float slope = new_act ? sigmoid(__fsub_rn(a, 1.f)) : (a > 0.f ? 1.f : 0.f);
+        const T v = to_cd<T>(__fmul_rn(dd, slope));
+        extra[p * LA + k] = v;
+        dad[e] = __fadd_rn(dad[e], to_f(v));
+      }
+      for (int e = tid; e < 3 * HALF; e += THREADS) {  // dwrgb = da_rgb^T d_act
+        const int ch = e / HALF, k = e % HALF;
+        float sum = 0.f;
+        for (int p = 0; p < TILE; ++p) sum = fmaf(darg[p * 3 + ch], to_f(t.act[p * LA + k]), sum);
+        atomicAdd(dW + WRGB + e, sum);
+      }
+      if (tid < 3 || tid == 32) {  // dbrgb, dbsig
+        float sum = 0.f;
+        for (int p = 0; p < TILE; ++p) sum = __fadd_rn(sum, tid < 3 ? darg[p * 3 + tid] : gsig[p]);
+        atomicAdd(dB + (tid < 3 ? BRGB + tid : BSIG), sum);
+      }
+      __syncthreads();  // da_d is whole; d_act in t.act has been read
+
+      const T* h8 = kept_layer(8);
+      bias_grad<T, HALF>(extra, dB + BD);
+      wgrad<T, HALF, WIDTH>(t, extra, kept_layer(9), LA, dW + WDH);
+      dgrad<T, HALF>(t, extra, W + WDH, EpiNone(), t.act);  // df
+      bias_grad<T, WIDTH>(t.act, dB + BFIN);
+      wgrad<T, WIDTH, WIDTH>(t, t.act, h8, LA, dW + WFIN);
+      for (int k = tid; k < WIDTH; k += THREADS) {  // dwsig = g_sig^T h8
+        float sum = 0.f;
+        for (int p = 0; p < TILE; ++p) sum = fmaf(gsig[p], to_f(h8[p * LA + k]), sum);
+        atomicAdd(dW + WSIG + k, sum);
+      }
+      dgrad<T, WIDTH>(t, t.act, W + WFIN, EpiSigmaMask<T>{h8, gsig, W + WSIG}, extra);  // da8
+
+      // the trunk, layers 8 down to 1: the delta of layer l is in ``cur``
+      constexpr int WOFF[9] = {0, W1, W2, W3, W4, W5H, W6, W7, W8};
+      constexpr int BOFF[9] = {0, B1, B2, B3, B4, B5, B6, B7, B8};
+      T* cur = extra;
+      T* other = t.act;
+      for (int l = 8; l >= 1; --l) {
+        bias_grad<T, WIDTH>(cur, dB + BOFF[l]);
+        if (l == 5) wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W5X);
+        if (l == 1) {
+          wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W1);
+          break;
+        }
+        wgrad<T, WIDTH, WIDTH>(t, cur, kept_layer(l - 1), LA, dW + WOFF[l]);
+        dgrad<T, WIDTH>(t, cur, W + WOFF[l], EpiMask<T>{kept_layer(l - 1)}, other);
+        T* const swap = cur;
+        cur = other;
+        other = swap;
+      }
+      __syncthreads();  // every reader of xpe, the deltas and the kept layers is done
+    }
+
+    // dwdx = (sum_s da_d)^T d_pe, one f32 product per ray tile
+    for (int e = tid; e < HALF * DIR_PAD; e += THREADS) {
+      const int o = e / DIR_PAD, c = e % DIR_PAD;
+      float sum = 0.f;
+      for (int p = 0; p < TILE; ++p) sum = fmaf(dad[p * HALF + o], to_f(t.dpe[p * LD + c]), sum);
+      atomicAdd(dW + WDX + e, sum);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launches
+template <typename T>
+static int launch_fwd(const void* rays, const void* z, const void* noise, const void* w, const void* b,
+                      void* rgb, void* depth, void* weights, void* alpha, void* rgb_s, int n, int s,
+                      int new_act, int white_back, void* stream) {
+  const size_t bytes = tile_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(train_fwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (n == 0) return 0;
+  const dim3 grid((n + TILE - 1) / TILE);
+  train_fwd_kernel<T><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)rays, (const float*)z, (const float*)noise, (const T*)w, (const float*)b,
+      (float*)rgb, (float*)depth, (float*)weights, (float*)alpha, (float*)rgb_s, n, s, new_act,
+      white_back);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_bwd(const void* rays, const void* z, const void* noise, const void* w, const void* b,
+                      const void* w_res, const void* a_res, const void* rgb_res, const void* g_rgb,
+                      const void* g_depth, const void* g_w, void* dsig_part, void* scratch, void* dw,
+                      void* db, int n, int s, int blocks, int new_act, int white_back, void* stream) {
+  const size_t bytes = bwd_smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (n == 0) return 0;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const dim3 grid(n_tiles < blocks ? n_tiles : blocks);
+  train_bwd_kernel<T><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)rays, (const float*)z, (const float*)noise, (const T*)w, (const float*)b,
+      (const float*)w_res, (const float*)a_res, (const float*)rgb_res, (const float*)g_rgb,
+      (const float*)g_depth, (const float*)g_w, (float*)dsig_part, (unsigned char*)scratch,
+      (float*)dw, (float*)db, n, s, new_act, white_back);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// rays (n, 6) f32 [o, d]; z (n, s) f32 ascending; noise (n, s) f32 or null;
+// w packed weights (bf16 when use_bf16, else f32); b packed f32 biases.
+// Writes rgb (n, 3), depth (n,), weights (n, s) and the residuals alpha
+// (n, s) and rgb_s (n, s, 3), all f32.  Returns the launch's cudaError_t.
+int fused_render_level_train_fwd(const void* rays, const void* z, const void* noise, const void* w,
+                                 const void* b, void* rgb, void* depth, void* weights, void* alpha,
+                                 void* rgb_s, int n, int s, int use_bf16, int new_act, int white_back,
+                                 void* stream) {
+  if (use_bf16)
+    return launch_fwd<bf16>(rays, z, noise, w, b, rgb, depth, weights, alpha, rgb_s, n, s, new_act,
+                            white_back, stream);
+  return launch_fwd<float>(rays, z, noise, w, b, rgb, depth, weights, alpha, rgb_s, n, s, new_act,
+                           white_back, stream);
+}
+
+// Bytes of global scratch one block of the backward needs.
+long long fused_render_level_train_bwd_scratch_bytes(int use_bf16) {
+  return (long long)(use_bf16 ? BwdScratch<bf16>::BYTES : BwdScratch<float>::BYTES);
+}
+
+// The forward's inputs and residuals (weights, alpha, rgb_s) and the
+// cotangents g_rgb (n, 3), g_depth (n,), g_w (n, s) -> dw (packed weight
+// layout, f32) and db (packed bias layout), both ADDED INTO: zero them first.
+// dsig_part is (n, s) f32 scratch; scratch holds ``blocks`` times
+// fused_render_level_train_bwd_scratch_bytes, and at most ``blocks`` blocks
+// are launched.
+int fused_render_level_train_bwd(const void* rays, const void* z, const void* noise, const void* w,
+                                 const void* b, const void* w_res, const void* a_res,
+                                 const void* rgb_res, const void* g_rgb, const void* g_depth,
+                                 const void* g_w, void* dsig_part, void* scratch, void* dw, void* db,
+                                 int n, int s, int blocks, int use_bf16, int new_act, int white_back,
+                                 void* stream) {
+  if (use_bf16)
+    return launch_bwd<bf16>(rays, z, noise, w, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w,
+                            dsig_part, scratch, dw, db, n, s, blocks, new_act, white_back, stream);
+  return launch_bwd<float>(rays, z, noise, w, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w,
+                           dsig_part, scratch, dw, db, n, s, blocks, new_act, white_back, stream);
+}
+
+int nerf_packed_weight_size() { return W_SIZE; }
+
+const char* kernel_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+}  // extern "C"

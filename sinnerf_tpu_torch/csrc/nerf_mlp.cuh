@@ -210,7 +210,7 @@ __device__ void gemm_f32(float (&acc)[8][O / 32], const float* A, int lda, int K
 template <int O>
 __device__ void layer_f32(const Tile<float>& t, const float* A1, int lda1, int K1, const float* W1g,
                           const float* A2, int lda2, int K2, const float* W2g,
-                          const float* __restrict__ bias, int act, float* dst) {
+                          const float* __restrict__ bias, int act, float* dst, float* pre) {
   constexpr int NJ = O / 32;
   const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
   float acc[8][NJ];
@@ -226,7 +226,9 @@ __device__ void layer_f32(const Tile<float>& t, const float* A1, int lda1, int K
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       int o = tx + 32 * j;
-      dst[(ty * 8 + i) * Ld<float>::A + o] = epilogue(__fadd_rn(acc[i][j], __ldg(bias + o)), act);
+      const float v = __fadd_rn(acc[i][j], __ldg(bias + o));
+      if (pre) pre[(ty * 8 + i) * O + o] = v;
+      dst[(ty * 8 + i) * Ld<float>::A + o] = epilogue(v, act);
     }
   __syncthreads();
 }
@@ -260,7 +262,7 @@ __device__ void mma_bf16(FragAcc (&acc)[TILE / 16][NT], const bf16* A, int lda, 
 template <int O>
 __device__ void layer_bf16(const Tile<bf16>& t, const bf16* A1, int lda1, int K1, const bf16* W1g,
                            const bf16* A2, int lda2, int K2, const bf16* W2g,
-                           const float* __restrict__ bias, int act, bf16* dst) {
+                           const float* __restrict__ bias, int act, bf16* dst, float* pre) {
   constexpr int NT = O / 16 / WARPS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   FragAcc acc[TILE / 16][NT];
@@ -281,8 +283,9 @@ __device__ void layer_bf16(const Tile<bf16>& t, const bf16* A1, int lda1, int K1
       const int o0 = (warp * NT + n) * 16;
       for (int e = lane; e < 256; e += 32) {
         int r = e >> 4, c = e & 15;
-        float v = epilogue(__fadd_rn(sc[e], __ldg(bias + o0 + c)), act);
-        dst[(m * 16 + r) * Ld<bf16>::A + o0 + c] = to_cd<bf16>(v);
+        const float v = __fadd_rn(sc[e], __ldg(bias + o0 + c));
+        if (pre) pre[(m * 16 + r) * O + o0 + c] = v;
+        dst[(m * 16 + r) * Ld<bf16>::A + o0 + c] = to_cd<bf16>(epilogue(v, act));
       }
       __syncwarp();
     }
@@ -290,14 +293,16 @@ __device__ void layer_bf16(const Tile<bf16>& t, const bf16* A1, int lda1, int K1
 }
 
 // ------------------------------------------------------------------ shared
+// dst = act(A1 W1g^T + A2 W2g^T + bias) in the compute dtype; ``pre``, when
+// given, receives the f32 pre-activation as [TILE][O].
 template <typename T, int O>
 __device__ __forceinline__ void layer(const Tile<T>& t, const T* A1, int lda1, int K1, const T* W1g,
                                       const T* A2, int lda2, int K2, const T* W2g,
-                                      const float* bias, int act, T* dst) {
+                                      const float* bias, int act, T* dst, float* pre = nullptr) {
   if constexpr (std::is_same<T, float>::value)
-    layer_f32<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst);
+    layer_f32<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
   else
-    layer_bf16<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst);
+    layer_bf16<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
 }
 
 // sigma = h8 . wsig + bsig, four threads per point.
@@ -317,7 +322,7 @@ __device__ void sigma_head(const Tile<T>& t, const T* __restrict__ W, const floa
 // rgb = act(d . wrgb + brgb), one thread per (point, channel).
 template <typename T>
 __device__ void rgb_head(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B,
-                         bool new_act) {
+                         bool new_act, float* pre) {
   if (threadIdx.x < TILE * 3) {
     const int p = threadIdx.x / 3, c = threadIdx.x % 3;
     const T* a = t.act + p * Ld<T>::A;
@@ -325,33 +330,53 @@ __device__ void rgb_head(const Tile<T>& t, const T* __restrict__ W, const float*
     float s = 0.f;
     for (int k = 0; k < HALF; ++k) s = fmaf(to_f(a[k]), to_f(w[k]), s);
     float v = __fadd_rn(s, B[BRGB + c]);
+    if (pre) pre[p * 3 + c] = v;
     t.rgb[p * 3 + c] = new_act ? widened_sigmoid(v) : sigmoid(v);
   }
   __syncthreads();
 }
 
+// What the backward kernel keeps of a forward pass; the eval kernel keeps
+// nothing.  ``layer_done(i)`` runs after trunk layer i = 1..8 and after
+// xyz_encoding_final (i = 9), with the layer's output in t.act.
+struct KeepNothing {
+  __device__ void layer_done(int) const {}
+  __device__ float* dir_pre() const { return nullptr; }  // [TILE][HALF] f32
+  __device__ float* rgb_pre() const { return nullptr; }  // [TILE][3] f32
+};
+
 // The MLP on the tile's xpe/dpe -> t.sig, t.rgb.  Expects xpe and dpe written
-// and synchronised; returns with sig and rgb visible to every thread.
-template <typename T>
+// and synchronised; returns with sig and rgb visible to every thread and the
+// direction branch's activation in t.act[:, 0:HALF].
+template <typename T, typename Keep = KeepNothing>
 __device__ void mlp_tile(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B,
-                         bool new_act) {
+                         bool new_act, const Keep& keep = Keep()) {
   constexpr int LA = Ld<T>::A, LX = Ld<T>::X, LD = Ld<T>::D;
   const T* none = nullptr;
   layer<T, WIDTH>(t, t.xpe, LX, XYZ_PAD, W + W1, none, 0, 0, none, B + B1, ACT_RELU, t.act);
+  keep.layer_done(1);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W2, none, 0, 0, none, B + B2, ACT_RELU, t.act);
+  keep.layer_done(2);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W3, none, 0, 0, none, B + B3, ACT_RELU, t.act);
+  keep.layer_done(3);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W4, none, 0, 0, none, B + B4, ACT_RELU, t.act);
+  keep.layer_done(4);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W5H, t.xpe, LX, XYZ_PAD, W + W5X, B + B5, ACT_RELU, t.act);
+  keep.layer_done(5);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W6, none, 0, 0, none, B + B6, ACT_RELU, t.act);
+  keep.layer_done(6);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W7, none, 0, 0, none, B + B7, ACT_RELU, t.act);
+  keep.layer_done(7);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W8, none, 0, 0, none, B + B8, ACT_RELU, t.act);
+  keep.layer_done(8);
   // sigma reads h8 before xyz_encoding_final overwrites it: the layer's own
   // barrier before its epilogue orders the two
   sigma_head<T>(t, W, B);
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + WFIN, none, 0, 0, none, B + BFIN, ACT_NONE, t.act);
+  keep.layer_done(9);
   layer<T, HALF>(t, t.act, LA, WIDTH, W + WDH, t.dpe, LD, DIR_PAD, W + WDX, B + BD,
-                 new_act ? ACT_SSP : ACT_RELU, t.act);
-  rgb_head<T>(t, W, B, new_act);
+                 new_act ? ACT_SSP : ACT_RELU, t.act, keep.dir_pre());
+  rgb_head<T>(t, W, B, new_act, keep.rgb_pre());
 }
 
 }  // namespace nerf

@@ -127,7 +127,11 @@ class NeRF(nn.Module):
 
 def state_dict_from_jax(params_np: Dict[str, Dict[str, Any]]) -> Dict[str, torch.Tensor]:
     """JAX params (``{'xyz_encoding_1': {'w': (in, out), 'b': (out,)}, ...}``
-    as numpy) -> the port's state dict (weights transposed to (out, in))."""
+    as numpy) -> the port's state dict (weights transposed to (out, in)).
+    Any tree of that layout is carried the same way: a gradient pytree of
+    ``jax.grad`` lands beside the module's ``.grad``s, optax Adam's ``mu`` and
+    ``nu`` beside ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq``
+    (``train.optimizers.load_adam_moments``)."""
     out = {}
     for key, torch_prefix in TORCH_KEY_MAP.items():
         if key not in params_np:

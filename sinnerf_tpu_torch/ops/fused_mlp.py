@@ -3,7 +3,8 @@
 Counterpart of ``sinnerf_tpu/ops/fused_mlp_t.py``: ``pack_weights_t``
 (:72), ``_pe_fwd`` (:135), ``_pe_concat`` (:150) and ``mlp_from_pe`` (:189).
 The CUDA routine is ``csrc/nerf_mlp.cuh``, included by the fused render
-kernel (``csrc/fused_render.cu``); ``mlp_plain`` is its plain PyTorch version.
+kernels (``csrc/render_level.cuh``); ``mlp_plain`` is its plain PyTorch version
+and ``mlp_backward_plain`` that of the backward kernel's MLP body.
 
 Packing.  ``pack_weights`` writes the 14 weight blocks of the split MLP into
 one contiguous buffer in the compute dtype, each block (out, in) row-major
@@ -14,6 +15,8 @@ as ``mlp_from_pe`` splits them.  The PE columns keep the reference's
 interleaved order: the kernel computes the PE in that order, so the port
 needs no ``blocked_perm``.  ``WEIGHT_LAYOUT`` and ``BIAS_LAYOUT`` fix the
 offsets that ``nerf_mlp.cuh`` hard-codes; a test holds the two together.
+The backward kernel writes its float32 gradients in the same two layouts;
+``unpack_grads`` turns them into gradients of the module's parameters.
 
 Cast points (``mlp_from_pe``): the PE is evaluated in float32 and then cast
 to the compute dtype (in bf16 this rounds the xyz identity channels too);
@@ -93,16 +96,46 @@ class PackedWeights(NamedTuple):
     b: torch.Tensor  # (BIAS_SIZE,) float32
 
 
-def pack_weights(model: NeRF, dtype: torch.dtype) -> PackedWeights:
-    """Split, pad and pack a default-width ``NeRF`` for the kernels."""
+# The module's 12 layers in the order the kernels' wrappers pass them
+PARAM_KEYS: Tuple[str, ...] = (
+    *(f"xyz_encoding_{i}" for i in range(1, 9)),
+    "xyz_encoding_final", "dir_encoding", "rgb", "sigma",
+)
+
+
+def param_tensors(model: NeRF) -> Tuple[torch.Tensor, ...]:
+    """The 24 parameters, ``(weight, bias)`` per layer of ``PARAM_KEYS``."""
     if (model.depth, model.width, model.skips) != (8, WIDTH, (4,)):
         raise ValueError("the fused kernels take the reference 8x256 NeRF with the skip at layer 4")
+    return tuple(t for key in PARAM_KEYS for t in (model.linear(key).weight, model.linear(key).bias))
+
+
+class _RoundTo(torch.autograd.Function):
+    """Round to ``dtype`` and return float32 again; the gradient passes
+    unrounded (a ``.to(bfloat16)`` node would round it to bfloat16)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def pack_tensors(tensors, dtype: torch.dtype, differentiable: bool = False) -> PackedWeights:
+    """Split, pad and pack the tensors of ``param_tensors``.
+
+    By default the buffers are detached and ``w`` is stored in ``dtype``, as
+    the kernels read it.  ``differentiable`` keeps the graph for the plain
+    versions: ``w`` is then float32 storage holding values rounded to
+    ``dtype``, and gradients reach the parameters in float32."""
+    if not differentiable:
+        tensors = [t.detach() for t in tensors]
+    named = {key: (tensors[2 * i].float(), tensors[2 * i + 1].float()) for i, key in enumerate(PARAM_KEYS)}
 
     def w(key):
-        return model.linear(key).weight.detach().float()
-
-    def b(key):
-        return model.linear(key).bias.detach().float()
+        return named[key][0]
 
     w5, wd = w("xyz_encoding_5"), w("dir_encoding")
     blocks = {
@@ -121,17 +154,42 @@ def pack_weights(model: NeRF, dtype: torch.dtype) -> PackedWeights:
         blk = blocks[name]
         assert blk.shape[0] == rows, (name, blk.shape)
         parts.append(F.pad(blk, (0, cols - blk.shape[1])).reshape(-1))
-    biases = {
-        **{f"b{i}": b(f"xyz_encoding_{i}") for i in range(1, 9)},
-        "bfin": b("xyz_encoding_final"),
-        "bd": b("dir_encoding"),
-        "brgb": b("rgb"),
-        "bsig": b("sigma"),
+    flat = torch.cat(parts)
+    bias_of = {
+        **{f"b{i}": f"xyz_encoding_{i}" for i in range(1, 9)},
+        "bfin": "xyz_encoding_final", "bd": "dir_encoding", "brgb": "rgb", "bsig": "sigma",
     }
     return PackedWeights(
-        w=torch.cat(parts).to(dtype).contiguous(),
-        b=torch.cat([biases[name] for name, _ in BIAS_LAYOUT]).contiguous(),
+        w=_RoundTo.apply(flat, dtype) if differentiable else flat.to(dtype).contiguous(),
+        b=torch.cat([named[bias_of[name]][1] for name, _ in BIAS_LAYOUT]).contiguous(),
     )
+
+
+def pack_weights(model: NeRF, dtype: torch.dtype, differentiable: bool = False) -> PackedWeights:
+    """Split, pad and pack a default-width ``NeRF`` (see ``pack_tensors``)."""
+    return pack_tensors(param_tensors(model), dtype, differentiable)
+
+
+def unpack_grads(dw: torch.Tensor, db: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Packed float32 gradient buffers (the layouts above) -> gradients of
+    the tensors of ``param_tensors``, in their order.  Counterpart of
+    ``_unpack_grads_t`` (``fused_mlp_t.py:485``): the split layers are joined
+    again and the padded columns of ``w1``, ``w5x`` and ``wdx`` dropped."""
+    v = weight_views(PackedWeights(dw, db))
+    weights = {
+        "xyz_encoding_1": v["w1"][:, :XYZ_CH],
+        "xyz_encoding_5": torch.cat([v["w5x"][:, :XYZ_CH], v["w5h"]], dim=1),
+        "xyz_encoding_final": v["wfin"],
+        "dir_encoding": torch.cat([v["wdh"], v["wdx"][:, :DIR_CH]], dim=1),
+        "rgb": v["wrgb"],
+        "sigma": v["wsig"],
+        **{f"xyz_encoding_{i}": v[f"w{i}"] for i in (2, 3, 4, 6, 7, 8)},
+    }
+    biases = {
+        **{f"xyz_encoding_{i}": v[f"b{i}"] for i in range(1, 9)},
+        "xyz_encoding_final": v["bfin"], "dir_encoding": v["bd"], "rgb": v["brgb"], "sigma": v["bsig"],
+    }
+    return tuple(t.contiguous() for key in PARAM_KEYS for t in (weights[key], biases[key]))
 
 
 def weight_views(packed: PackedWeights) -> Dict[str, torch.Tensor]:
@@ -155,12 +213,18 @@ def mlp_plain(
     d_pe: Optional[torch.Tensor],
     use_new_activation: bool = True,
     sigma_only: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    keep: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain version of the kernel's MLP: x_pe (P, 63) and d_pe (P, 27)
     float32 PE in the reference order -> (rgb (P, 3) or None, sigma (P,)),
-    both float32.  Follows ``mlp_from_pe`` cast for cast."""
+    both float32.  Follows ``mlp_from_pe`` cast for cast.  ``compute_dtype``
+    defaults to the dtype ``packed.w`` is stored in; a dict passed as
+    ``keep`` receives what the backward needs (``x``, ``h1``..``h8``,
+    ``sigma``, ``f``, ``d_in``, ``a_d``, ``d``, ``a_rgb``)."""
     v = weight_views(packed)
-    cd = packed.w.dtype
+    cd = packed.w.dtype if compute_dtype is None else compute_dtype
+    kept = {} if keep is None else keep
 
     def dot(a, name):
         return a.float() @ v[name].float().T
@@ -168,22 +232,90 @@ def mlp_plain(
     def relu_cast(y):
         return torch.relu(y).to(cd)
 
-    x = pe_concat(x_pe, XYZ_PAD, cd)
-    h = relu_cast(dot(x, "w1") + v["b1"])
-    h = relu_cast(dot(h, "w2") + v["b2"])
-    h = relu_cast(dot(h, "w3") + v["b3"])
-    h = relu_cast(dot(h, "w4") + v["b4"])
-    h = relu_cast(dot(h, "w5h") + dot(x, "w5x") + v["b5"])
-    h = relu_cast(dot(h, "w6") + v["b6"])
-    h = relu_cast(dot(h, "w7") + v["b7"])
-    h = relu_cast(dot(h, "w8") + v["b8"])
-    sigma = (dot(h, "wsig") + v["bsig"])[..., 0]
+    x = kept["x"] = pe_concat(x_pe, XYZ_PAD, cd)
+    h = x
+    for i in range(1, 9):
+        a = dot(h, f"w{i}") if i != 5 else dot(h, "w5h") + dot(x, "w5x")
+        h = kept[f"h{i}"] = relu_cast(a + v[f"b{i}"])
+    sigma = kept["sigma"] = (dot(h, "wsig") + v["bsig"])[..., 0]
     if sigma_only:
         return None, sigma
-    f = (dot(h, "wfin") + v["bfin"]).to(cd)
-    d_in = pe_concat(d_pe, DIR_PAD, cd)
-    a_d = dot(f, "wdh") + dot(d_in, "wdx") + v["bd"]
-    d = (shifted_softplus(a_d) if use_new_activation else torch.relu(a_d)).to(cd)
-    rgb = dot(d, "wrgb") + v["brgb"]
-    rgb = widened_sigmoid(rgb) if use_new_activation else torch.sigmoid(rgb)
+    f = kept["f"] = (dot(h, "wfin") + v["bfin"]).to(cd)
+    d_in = kept["d_in"] = pe_concat(d_pe, DIR_PAD, cd)
+    a_d = kept["a_d"] = dot(f, "wdh") + dot(d_in, "wdx") + v["bd"]
+    d = kept["d"] = (shifted_softplus(a_d) if use_new_activation else torch.relu(a_d)).to(cd)
+    a_rgb = kept["a_rgb"] = dot(d, "wrgb") + v["brgb"]
+    rgb = widened_sigmoid(a_rgb) if use_new_activation else torch.sigmoid(a_rgb)
     return rgb, sigma
+
+
+def mlp_backward_plain(
+    packed: PackedWeights,
+    kept: Dict[str, torch.Tensor],
+    g_rgb: torch.Tensor,
+    g_sigma: torch.Tensor,
+    use_new_activation: bool = True,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Plain version of the backward kernel's MLP body
+    (``fused_render_train_t.py::_train_bwd_kernel``, stage B), on P points at
+    once: ``kept`` from ``mlp_plain``, g_rgb (P, 3) and g_sigma (P,) float32
+    cotangents of rgb and sigma -> (name -> float32 gradient of every block
+    of ``WEIGHT_LAYOUT`` but ``wdx`` and every bias of ``BIAS_LAYOUT``, the
+    cast delta of the direction layer (P, 128) for the caller's per-ray
+    ``wdx`` product).
+
+    Cast points as in the kernel: every delta is cast to the compute dtype
+    before both of its products, ReLU masks read the cast activation, sums
+    run in float32."""
+    v = weight_views(packed)
+    cd = kept["x"].dtype
+    grads: Dict[str, torch.Tensor] = {}
+
+    def cast(t):
+        return t.to(cd)
+
+    def emit(wname, bname, delta, layer_in):  # delta (P, out), layer_in (P, in): both cast
+        grads[wname] = delta.float().T @ layer_in.float()
+        if bname is not None:
+            grads[bname] = delta.float().sum(0)
+
+    def back(delta, wname):  # (P, out) @ (out, in) -> (P, in), float32 sum
+        return delta.float() @ v[wname].float()
+
+    a_rgb, a_d = kept["a_rgb"], kept["a_d"]
+    if use_new_activation:
+        tt = torch.tanh(0.5 * a_rgb)
+        dact_rgb = 0.2505 * (1.0 - tt * tt)
+        slope_d = torch.sigmoid(a_d - 1.0)
+    else:
+        sg = torch.sigmoid(a_rgb)
+        dact_rgb = sg * (1.0 - sg)
+        slope_d = (a_d > 0).float()
+    da_rgb = cast(g_rgb * dact_rgb)
+    emit("wrgb", "brgb", da_rgb, kept["d"])
+    da_d = cast(back(da_rgb, "wrgb") * slope_d)
+    emit("wdh", "bd", da_d, kept["f"])
+    df = cast(back(da_d, "wdh"))
+    emit("wfin", "bfin", df, kept["h8"])
+    g_sig = cast(g_sigma)[:, None]
+    emit("wsig", "bsig", g_sig, kept["h8"])
+    dh = back(df, "wfin") + back(g_sig, "wsig")
+    for i in range(8, 0, -1):
+        da = cast(dh * (kept[f"h{i}"].float() > 0))
+        if i == 5:
+            emit("w5h", "b5", da, kept["h4"])
+            emit("w5x", None, da, kept["x"])
+            dh = back(da, "w5h")
+        elif i == 1:
+            emit("w1", "b1", da, kept["x"])
+        else:
+            emit(f"w{i}", f"b{i}", da, kept[f"h{i - 1}"])
+            dh = back(da, f"w{i}")
+    return grads, da_d
+
+
+def pack_grads(grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """name -> gradient (every block and bias) -> the packed float32 buffers."""
+    dw = torch.cat([grads[name].reshape(-1) for name, _, _ in WEIGHT_LAYOUT])
+    db = torch.cat([grads[name].reshape(-1) for name, _ in BIAS_LAYOUT])
+    return dw, db

@@ -2,8 +2,9 @@
 
 Counterpart of ``sinnerf_tpu/ops/fused_render_t.py::fused_render_level``
 (:124), whose TPU kernel is ``_render_kernel`` (:61).  The CUDA kernel is
-``csrc/fused_render.cu`` with the K0 body of ``csrc/nerf_mlp.cuh``; its
-source note gives the bound (compute: 1.19 MFLOP per point) and what the
+``csrc/fused_render.cu`` (body in ``csrc/render_level.cuh``, shared with the
+training forward, on the K0 routines of ``csrc/nerf_mlp.cuh``); its source
+note gives the bound (compute: 1.19 MFLOP per point) and what the
 design does about it.  ``render_level_plain`` is the plain PyTorch version.
 
 The wrapper takes the plain version only for CPU tensors.  On CUDA tensors it

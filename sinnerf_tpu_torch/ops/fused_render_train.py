@@ -1,0 +1,363 @@
+"""K3: the training render of one level, forward and backward.
+
+Counterpart of ``sinnerf_tpu/ops/fused_render_train_t.py::
+fused_render_level_train`` (:599), whose TPU kernels are ``_train_fwd_kernel``
+(:86) and ``_train_bwd_kernel`` (:164).  The CUDA kernels are in
+``csrc/fused_render_train.cu`` (the forward's body is shared with K1 in
+``csrc/render_level.cuh``); the source note gives the bound (operations:
+1.19 MFLOP per point forward, 3.48 MFLOP backward) and what the design does
+about the activations and the 2.4 MB gradient accumulator that fit in no
+block.
+
+``fused_render_level_train`` is a ``torch.autograd.Function`` over the
+module's 24 float32 parameters: it casts them to the compute dtype inside
+and returns float32 gradients, so no gradient passes a ``.to(bfloat16)``
+node.  Rays, depths and noise are detached before the ``Function`` and get no
+gradient, as the JAX wrapper stops theirs.  On CUDA tensors both directions
+launch their kernels or raise, and add one to ``launch_train_fwd.launches``
+and ``launch_train_bwd.launches`` per launch.  On CPU tensors they take the
+plain versions:
+
+* ``render_level_train_plain``: the forward, cast for cast with the kernel,
+  differentiable by autograd, in chunks of rays;
+* ``render_level_train_backward_plain``: the backward kernel step by step
+  (composite adjoint by a downward and an upward sweep, MLP recompute,
+  ``fused_mlp.mlp_backward_plain``).
+
+The backward kernel adds each ray tile's sums into one accumulator with
+atomics, so its gradients differ in their last bits from run to run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from sinnerf_tpu_torch.core.composite import compute_alphas_weights, intervals
+from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
+from sinnerf_tpu_torch.models.nerf import NeRF
+from sinnerf_tpu_torch.ops import _build
+from sinnerf_tpu_torch.ops.fused_mlp import (
+    BIAS_SIZE,
+    DIR_PAD,
+    HALF,
+    N_FREQS_DIR,
+    N_FREQS_XYZ,
+    WEIGHT_SIZE,
+    PackedWeights,
+    mlp_backward_plain,
+    mlp_plain,
+    pack_grads,
+    pack_tensors,
+    pack_weights,
+    param_tensors,
+    torch_dtype,
+    unpack_grads,
+)
+from sinnerf_tpu_torch.ops.fused_render import _check_inputs
+
+SOURCE = "fused_render_train.cu"
+PLAIN_CHUNK = 2048  # rays per pass of a plain version: bounds its (P, 256) activations
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def _forward_plain(packed, dtype, rays6, z, noise, use_new_activation, white_back, keep=None):
+    """One chunk of rays: (rgb, depth, weights, alphas, rgb_s (N, S, 3))."""
+    n, s = z.shape
+    o, d = rays6[:, 0:3], rays6[:, 3:6]
+    xyz = o[:, None, :] + d[:, None, :] * z[..., None]
+    x_pe = positional_encoding_recurrence(xyz, N_FREQS_XYZ).reshape(n * s, -1)
+    d_pe = positional_encoding_recurrence(d, N_FREQS_DIR)  # once per ray
+    d_pe = d_pe[:, None, :].expand(n, s, d_pe.shape[-1]).reshape(n * s, -1)
+    rgb_s, sigma = mlp_plain(packed, x_pe, d_pe, use_new_activation, compute_dtype=dtype, keep=keep)
+    rgb_s, sigma = rgb_s.view(n, s, 3), sigma.view(n, s)
+    alphas, weights = compute_alphas_weights(sigma, z, d, noise)
+    rgb = torch.sum(weights[..., None] * rgb_s, dim=-2)
+    depth = torch.sum(weights * z, dim=-1)
+    if white_back:
+        rgb = rgb + (1.0 - torch.sum(weights, dim=-1, keepdim=True))
+    return rgb, depth, weights, alphas, rgb_s
+
+
+def _chunks(n: int, chunk: int):
+    return [slice(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+
+
+@torch.no_grad()
+def render_level_train_forward_plain(packed, rays6, z, noise, use_new_activation=True, white_back=False,
+                                     chunk=PLAIN_CHUNK):
+    """Plain version of the forward kernel with its residuals, from weights
+    packed in the compute dtype: (rgb, depth, weights, alphas (N, S),
+    rgb_s (N, S, 3)).  No gradients; ``render_level_train_plain`` has them."""
+    outs = [
+        _forward_plain(packed, packed.w.dtype, rays6[c], z[c], None if noise is None else noise[c],
+                       use_new_activation, white_back)
+        for c in _chunks(z.shape[0], chunk)
+    ]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def render_level_train_plain(
+    model: NeRF,
+    rays_od: torch.Tensor,
+    z_vals: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    use_new_activation: bool = True,
+    white_back: bool = False,
+    compute_dtype: str = "float32",
+    chunk: int = PLAIN_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel, differentiable by autograd with
+    respect to the model's parameters: (rgb (N, 3), depth (N,), weights
+    (N, S)).  Runs ``chunk`` rays at a time; with gradients on and more than
+    one chunk, each chunk is recomputed in the backward pass and the
+    parameter gradients of the chunks add up."""
+    dtype = torch_dtype(compute_dtype)
+    packed = pack_weights(model, dtype, differentiable=True)
+    rays6 = rays_od[:, 0:6]
+
+    def run(w, b, r, zz, nz):
+        return _forward_plain(PackedWeights(w, b), dtype, r, zz, nz, use_new_activation, white_back)[:3]
+
+    pieces = _chunks(z_vals.shape[0], chunk)
+    recompute = torch.is_grad_enabled() and len(pieces) > 1
+    outs = []
+    for c in pieces:
+        args = (packed.w, packed.b, rays6[c], z_vals[c], None if noise is None else noise[c])
+        outs.append(checkpoint(run, *args, use_reentrant=False) if recompute else run(*args))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+@torch.no_grad()
+def render_level_train_backward_plain(
+    packed: PackedWeights,
+    rays6: torch.Tensor,
+    z: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    weights: torch.Tensor,
+    alphas: torch.Tensor,
+    rgb_s: torch.Tensor,
+    g_rgb: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_w: torch.Tensor,
+    use_new_activation: bool = True,
+    white_back: bool = False,
+    chunk: int = PLAIN_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel, step by step
+    (``fused_render_train_t.py:26-29``, stage A :221-246, stage B :274-376).
+
+    ``packed`` holds the weights in the compute dtype; weights, alphas (N, S)
+    and rgb_s (N, S, 3) are the forward's residuals; g_rgb (N, 3), g_depth
+    (N,), g_w (N, S) the cotangents.  Returns the packed float32 gradient
+    buffers (dw (594,560,), db (2,436,)).  ``noise`` enters only the gate
+    ``[sigma + noise > 0]``: alpha comes from the residuals."""
+    dtype = packed.w.dtype
+    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=z.device)
+    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=z.device)
+    for c in _chunks(z.shape[0], chunk):
+        zc, wc, ac, rc = z[c], weights[c], alphas[c], rgb_s[c]
+        n, s = zc.shape
+        gr, gd = g_rgb[c], g_depth[c]
+        cot = gr[:, None, 0] * rc[..., 0] + gr[:, None, 1] * rc[..., 1] + gr[:, None, 2] * rc[..., 2]
+        cot = cot + gd[:, None] * zc + g_w[c]
+        if white_back:
+            cot = cot - ((gr[:, 0] + gr[:, 1]) + gr[:, 2])[:, None]
+        one_minus = 1.0 - ac
+        # stage A, downwards: -S_s / u_s with S_s the suffix sum of c_j w_j
+        part = torch.empty_like(zc)
+        suffix = torch.zeros(n, dtype=torch.float32, device=z.device)
+        for i in range(s - 1, -1, -1):
+            part[:, i] = -suffix / torch.clamp(one_minus[:, i] + 1e-10, min=1e-10)
+            suffix = suffix + cot[:, i] * wc[:, i]
+        # stage B, upwards: the transmittance rebuilt by its own product
+        trans = torch.empty_like(zc)
+        running = torch.ones(n, dtype=torch.float32, device=z.device)
+        for i in range(s):
+            trans[:, i] = running
+            running = running * (one_minus[:, i] + 1e-10)
+        da_alpha = cot * trans + part
+
+        kept = {}
+        nz = None if noise is None else noise[c]
+        _forward_plain(packed, dtype, rays6[c], zc, nz, use_new_activation, white_back, keep=kept)
+        sig = kept["sigma"].view(n, s)  # the gate reads the recomputed sigma
+        if nz is not None:
+            sig = sig + nz
+        dsig = da_alpha * one_minus * intervals(zc, rays6[c][:, 3:6])
+        dsig = torch.where(sig > 0, dsig, torch.zeros_like(dsig))
+        g_rgb_s = wc[..., None] * gr[:, None, :]
+        grads, da_d = mlp_backward_plain(
+            packed, kept, g_rgb_s.reshape(n * s, 3), dsig.reshape(n * s), use_new_activation
+        )
+        # the direction-PE block: one float32 product per ray of the summed delta
+        dad = da_d.float().view(n, s, HALF).sum(1)
+        d_in = kept["d_in"].view(n, s, DIR_PAD)[:, 0].float()
+        grads["wdx"] = dad.T @ d_in
+        cw, cb = pack_grads(grads)
+        dw += cw
+        db += cb
+    return dw, db
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+_signature_set = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _signature_set
+    lib = _build.load(SOURCE)
+    if not _signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_render_level_train_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        lib.fused_render_level_train_fwd.restype = i
+        lib.fused_render_level_train_bwd.argtypes = [p] * 15 + [i] * 6 + [p]
+        lib.fused_render_level_train_bwd.restype = i
+        lib.fused_render_level_train_bwd_scratch_bytes.argtypes = [i]
+        lib.fused_render_level_train_bwd_scratch_bytes.restype = ctypes.c_longlong
+        lib.nerf_packed_weight_size.argtypes = []
+        lib.nerf_packed_weight_size.restype = i
+        if lib.nerf_packed_weight_size() != WEIGHT_SIZE:
+            raise RuntimeError("csrc/nerf_mlp.cuh and ops/fused_mlp.py disagree on the weight layout")
+        _signature_set = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back):
+    """K3-fwd on CUDA tensors: (rgb, depth, weights, alphas, rgb_s)."""
+    n, s = z.shape
+    dev = z.device
+    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((n,), dtype=torch.float32, device=dev)
+    weights = torch.empty((n, s), dtype=torch.float32, device=dev)
+    alphas = torch.empty((n, s), dtype=torch.float32, device=dev)
+    rgb_s = torch.empty((n, s, 3), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.fused_render_level_train_fwd(
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
+            rgb.data_ptr(), depth.data_ptr(), weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(),
+            n, s, int(packed.w.dtype == torch.bfloat16), int(use_new_activation), int(white_back),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_render_level_train (forward)")
+    launch_train_fwd.launches += 1
+    return rgb, depth, weights, alphas, rgb_s
+
+
+launch_train_fwd.launches = 0
+
+
+def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                     use_new_activation, white_back):
+    """K3-bwd on CUDA tensors: the packed float32 gradient buffers (dw, db)."""
+    n, s = z.shape
+    dev = z.device
+    bf16 = packed.w.dtype == torch.bfloat16
+    lib = _lib()
+    # a persistent grid: as many blocks as the card holds at once
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if bf16 else 1)
+    scratch = torch.empty(blocks * lib.fused_render_level_train_bwd_scratch_bytes(int(bf16)),
+                          dtype=torch.uint8, device=dev)
+    dsig_part = torch.empty((n, s), dtype=torch.float32, device=dev)
+    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev)
+    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_render_level_train_bwd(
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
+            weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(),
+            g_rgb.data_ptr(), g_depth.data_ptr(), g_w.data_ptr(),
+            dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, s, blocks, int(bf16), int(use_new_activation), int(white_back),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_render_level_train (backward)")
+    launch_train_bwd.launches += 1
+    return dw, db
+
+
+launch_train_bwd.launches = 0
+
+
+class _TrainRender(torch.autograd.Function):
+    """(rays6, z, noise, flags, *24 parameters) -> (rgb, depth, weights);
+    gradients for the parameters only."""
+
+    @staticmethod
+    def forward(ctx, rays6, z, noise, use_new_activation, white_back, compute_dtype, *params):
+        packed = pack_tensors(params, torch_dtype(compute_dtype))
+        if z.device.type == "cuda":
+            out = launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back)
+        else:
+            out = render_level_train_forward_plain(packed, rays6, z, noise, use_new_activation, white_back)
+        rgb, depth, weights, alphas, rgb_s = out
+        ctx.save_for_backward(rays6, z, noise, packed.w, packed.b, weights, alphas, rgb_s)
+        ctx.flags = (use_new_activation, white_back)
+        return rgb, depth, weights
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_w):
+        rays6, z, noise, w, b, weights, alphas, rgb_s = ctx.saved_tensors
+        n, s = z.shape
+
+        def cot(g, shape):
+            if g is None:
+                return torch.zeros(shape, dtype=torch.float32, device=z.device)
+            return g.float().contiguous()
+
+        args = (PackedWeights(w, b), rays6, z, noise, weights, alphas, rgb_s,
+                cot(g_rgb, (n, 3)), cot(g_depth, (n,)), cot(g_w, (n, s)), *ctx.flags)
+        if z.device.type == "cuda":
+            dw, db = launch_train_bwd(*args)
+        else:
+            dw, db = render_level_train_backward_plain(*args)
+        return (None,) * 6 + unpack_grads(dw, db)
+
+
+def fused_render_level_train(
+    model: NeRF,
+    rays_od: torch.Tensor,
+    z_vals: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    use_new_activation: bool = True,
+    white_back: bool = False,
+    compute_dtype: str = "float32",
+    detach_params: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training render of one level.  rays_od (N, >=6) float32 ``[o, d]`` (d
+    unnormalized), z_vals (N, S) float32 ascending, noise (N, S) float32
+    added to sigma before the ReLU (already scaled) or None.  Returns
+    (rgb (N, 3), depth (N,), weights (N, S)), float32, differentiable with
+    respect to the model's parameters only: rays, depths and noise are
+    detached here.  To differentiate with respect to rays or depths use the
+    plain render path (``mlp_impl="xla"``).  ``detach_params`` renders with
+    the parameters detached too."""
+    _check_inputs(model, rays_od, z_vals)
+    if noise is not None and (noise.shape != z_vals.shape or noise.dtype != torch.float32
+                              or noise.device != z_vals.device):
+        raise ValueError(f"noise must be float32 {tuple(z_vals.shape)} on {z_vals.device}")
+    if rays_od.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_render_level_train runs on cpu or cuda, not {rays_od.device}")
+    params = param_tensors(model)
+    if detach_params:
+        params = tuple(p.detach() for p in params)
+    return _TrainRender.apply(
+        rays_od[:, 0:6].detach().contiguous(),
+        z_vals.detach().contiguous(),
+        None if noise is None else noise.detach().contiguous(),
+        use_new_activation, white_back, compute_dtype, *params,
+    )

@@ -4,18 +4,22 @@ Counterpart of ``sinnerf_tpu/render/renderer.py`` (reference
 ``models/rendering.py:126-335``).  ``mlp_impl`` keeps the JAX package's
 values so that eval command lines carry over unchanged:
 
-* ``"pallas"``: the hand-written kernels, ``fused_render_level`` (K1) per
-  level and ``fused_sample_pdf_merge`` (K2) between the levels
-  (``renderer.py:256-289,321-345,364-372``).  On CPU tensors the kernel
-  wrappers run their plain versions.
+* ``"pallas"``: the hand-written kernels.  Deterministic renders
+  (validation and eval) take ``fused_render_level`` (K1) per level, which
+  computes no gradient; stochastic renders (training: ``perturb`` or
+  ``noise_std`` set) take ``fused_render_level_train`` (K3), whose backward
+  is a kernel too and reaches the models' parameters only.
+  ``fused_sample_pdf_merge`` (K2) runs between the levels in both
+  (``renderer.py:178-211,256-300,321-345,364-379``).  On CPU tensors the
+  kernel wrappers run their plain versions.
 * ``"xla"``: the plain PyTorch path, the ``NeRF`` module on the recurrence
   PE, ``composite``, ``sample_pdf`` and a sort, mirroring the JAX ``xla``
-  path.
+  path; autograd differentiates it with respect to rays and depths too.
+  With gradients on, renders of more than ``PLAIN_CHUNK`` (2048) rays run
+  in chunks that are recomputed in the backward pass.
 
-The kernel path renders deterministically only (validation and eval): the
-stochastic training render needs the train kernel (K3), which is not ported
-yet.  The plain path also renders stochastically; every random draw can be
-passed in as a tensor.
+Every random draw can be passed in as a tensor.  ``render_rays`` records
+gradients when the caller has them on; ``render_chunked`` turns them off.
 
 Outputs use the reference's result-dict schema: ``rgb_*`` (N, 3),
 ``depth_*`` (N,), ``opacity_*`` (N, S) per-sample weights.
@@ -27,6 +31,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sinnerf_tpu_torch.core.composite import CompositeOut, composite
 from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
@@ -34,6 +39,7 @@ from sinnerf_tpu_torch.core.sampling import sample_pdf, stratified_z_vals
 from sinnerf_tpu_torch.models.nerf import NeRF
 from sinnerf_tpu_torch.ops.fused_mlp import torch_dtype
 from sinnerf_tpu_torch.ops.fused_render import fused_render_level
+from sinnerf_tpu_torch.ops.fused_render_train import PLAIN_CHUNK, fused_render_level_train
 from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
 
 N_FREQS_XYZ = 10  # models/sinnerf.py:133
@@ -52,6 +58,7 @@ class RenderSettings:
     perturb: float = 1.0
     noise_std: float = 1.0
     white_back: bool = False
+    detach_coarse: bool = False  # no gradient reaches the coarse model
     use_new_activation: bool = True
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     mlp_impl: str = "pallas"  # 'pallas': CUDA kernels | 'xla': plain PyTorch
@@ -73,25 +80,39 @@ def _plain_level(
     z_vals: torch.Tensor,
     settings: RenderSettings,
     noise: Optional[torch.Tensor],
+    detach_params: bool = False,
 ) -> CompositeOut:
     """One level on the plain path: NeRF on every sample, then composite."""
-    n, s = z_vals.shape
-    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    x_pe = positional_encoding_recurrence(xyz, N_FREQS_XYZ)
-    d_pe = positional_encoding_recurrence(rays_d, N_FREQS_DIR)
-    d_pe = d_pe[:, None, :].expand(n, s, d_pe.shape[-1])
     cd = torch_dtype(settings.compute_dtype)
-    out = model(x_pe, d_pe, compute_dtype=None if cd == torch.float32 else cd)
-    if noise is not None:
-        noise = settings.noise_std * noise
-    return composite(out[..., 0:3], out[..., 3], z_vals, rays_d, noise=noise, white_back=settings.white_back)
+    params = {k: v.detach() if detach_params else v for k, v in model.named_parameters()}
+
+    def run(o, d, z, nz):
+        n, s = z.shape
+        xyz = o[:, None, :] + d[:, None, :] * z[..., None]
+        x_pe = positional_encoding_recurrence(xyz, N_FREQS_XYZ)
+        d_pe = positional_encoding_recurrence(d, N_FREQS_DIR)
+        d_pe = d_pe[:, None, :].expand(n, s, d_pe.shape[-1])
+        kwargs = dict(compute_dtype=None if cd == torch.float32 else cd)
+        out = torch.func.functional_call(model, params, (x_pe, d_pe), kwargs)
+        if nz is not None:
+            nz = settings.noise_std * nz
+        return tuple(composite(out[..., 0:3], out[..., 3], z, d, noise=nz, white_back=settings.white_back))
+
+    n = z_vals.shape[0]
+    if not torch.is_grad_enabled() or n <= PLAIN_CHUNK:
+        return CompositeOut(*run(rays_o, rays_d, z_vals, noise))
+    outs = []
+    for i in range(0, n, PLAIN_CHUNK):
+        c = slice(i, i + PLAIN_CHUNK)
+        nz = None if noise is None else noise[c]
+        outs.append(checkpoint(run, rays_o[c], rays_d[c], z_vals[c], nz, use_reentrant=False))
+    return CompositeOut(*(torch.cat(parts) for parts in zip(*outs)))
 
 
 def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
-@torch.no_grad()
 def render_rays(
     models: Dict[str, NeRF],
     rays: torch.Tensor,
@@ -111,43 +132,52 @@ def render_rays(
     and ``noise_fine`` (N, n_samples + n_importance) standard normals,
     ``pdf_u`` (N, n_importance) uniforms; any draw not passed comes from
     ``generator``.
+
+    On the kernel path the result is differentiable with respect to the
+    models' parameters only, and only when the render is stochastic.
     """
     stochastic = settings.perturb > 0 or settings.noise_std > 0
     kernels = settings.mlp_impl == "pallas"
-    if kernels and stochastic:
-        raise NotImplementedError(
-            "stochastic renders on the kernel path need the train render kernel, "
-            "which is not ported yet; use mlp_impl='xla' or eval_mode()"
-        )
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     z_vals = stratified_z_vals(
         near, far, settings.n_samples, settings.use_disp, settings.perturb, u=perturb_u, generator=generator
     )
 
-    def level(model, z, noise):
-        if kernels:
+    def level(model, z, noise, detach_params=False):
+        if settings.noise_std > 0 and noise is None:
+            noise = _normal(z.shape, z, generator)
+        if not kernels:
+            return tuple(_plain_level(model, rays_o, rays_d, z, settings, noise, detach_params))
+        if not stochastic:
             return fused_render_level(
                 model, rays, z, settings.use_new_activation, settings.white_back, settings.compute_dtype
             )
-        if settings.noise_std > 0 and noise is None:
-            noise = _normal(z.shape, z, generator)
-        return tuple(_plain_level(model, rays_o, rays_d, z, settings, noise))
+        return fused_render_level_train(
+            model, rays, z, settings.noise_std * noise if settings.noise_std > 0 else None,
+            settings.use_new_activation, settings.white_back, settings.compute_dtype, detach_params,
+        )
 
     result: Dict[str, torch.Tensor] = {}
-    rgb_c, depth_c, weights_c = level(models["coarse"], z_vals, noise_coarse)
+    rgb_c, depth_c, weights_c = level(models["coarse"], z_vals, noise_coarse, settings.detach_coarse)
     result.update(rgb_coarse=rgb_c, depth_coarse=depth_c, opacity_coarse=weights_c)
 
     if settings.n_importance > 0:
         det = settings.perturb == 0
+        # no gradient reaches the coarse weights through the resampling
+        # (reference rendering.py:311-313)
+        z_det, w_det = z_vals.detach(), weights_c.detach()
         if kernels:
-            z_all = fused_sample_pdf_merge(z_vals, weights_c, settings.n_importance, None, True)
+            if not det and pdf_u is None:
+                pdf_u = torch.rand((rays.shape[0], settings.n_importance), generator=generator,
+                                   dtype=z_vals.dtype, device=z_vals.device)
+            z_all = fused_sample_pdf_merge(z_det, w_det, settings.n_importance, None if det else pdf_u, det)
         else:
-            z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+            z_mid = 0.5 * (z_det[:, :-1] + z_det[:, 1:])
             z_fine = sample_pdf(
-                z_mid, weights_c[:, 1:-1], settings.n_importance, det=det, u=pdf_u,
+                z_mid, w_det[:, 1:-1], settings.n_importance, det=det, u=pdf_u,
                 generator=generator, sorted_u=True,
-            )
+            ).detach()
             z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
         rgb_f, depth_f, weights_f = level(models["fine"], z_all, noise_fine)
         result.update(rgb_fine=rgb_f, depth_fine=depth_f, opacity_fine=weights_f)
@@ -157,6 +187,7 @@ def render_rays(
     return result
 
 
+@torch.no_grad()
 def render_chunked(
     models: Dict[str, NeRF],
     rays: torch.Tensor,

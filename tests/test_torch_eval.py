@@ -88,18 +88,31 @@ def test_stochastic_plain_render_matches_jax_xla(level_params, rays):
                 jax.random.uniform(k_pdf, (n, k)), jax.random.normal(k_noise_f, (n, s + k)))
 
     perturb_u, noise_coarse, pdf_u, noise_fine = (torch.from_numpy(np.array(a)) for a in draws(key))
-    got = port_renderer.render_rays(
-        _models(level_params), torch.from_numpy(rays),
-        port_renderer.RenderSettings(n_samples=s, n_importance=k, perturb=1.0, noise_std=0.5, mlp_impl="xla"),
-        perturb_u=perturb_u, noise_coarse=noise_coarse, pdf_u=pdf_u, noise_fine=noise_fine,
-    )
+    with torch.no_grad():  # render_rays records gradients when they are on
+        got = port_renderer.render_rays(
+            _models(level_params), torch.from_numpy(rays),
+            port_renderer.RenderSettings(n_samples=s, n_importance=k, perturb=1.0, noise_std=0.5, mlp_impl="xla"),
+            perturb_u=perturb_u, noise_coarse=noise_coarse, pdf_u=pdf_u, noise_fine=noise_fine,
+        )
     for name in want:
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 def test_kernel_path_refuses_stochastic_renders(level_params, rays):
-    with pytest.raises(NotImplementedError):
-        port_renderer.render_rays(_models(level_params), torch.from_numpy(rays), port_renderer.RenderSettings())
+    """The kernel path used to refuse every stochastic render; with the
+    train render kernel it renders them.  What it still refuses is a
+    gradient for the rays: only the models' parameters get one."""
+    models = _models(level_params)
+    r = torch.from_numpy(rays).requires_grad_()
+    settings = port_renderer.RenderSettings(n_samples=8, n_importance=8)
+    assert settings.mlp_impl == "pallas" and settings.perturb > 0 and settings.noise_std > 0
+    out = port_renderer.render_rays(models, r, settings, generator=torch.Generator().manual_seed(0))
+    assert out["rgb_fine"].shape == (rays.shape[0], 3) and out["opacity_fine"].shape == (rays.shape[0], 16)
+    assert all(bool(v.isfinite().all()) for v in out.values())
+    (out["rgb_fine"].sum() + out["depth_coarse"].sum()).backward()
+    assert r.grad is None
+    for level in ("coarse", "fine"):
+        assert all(p.grad is not None and bool(p.grad.isfinite().all()) for p in models[level].parameters())
 
 
 def test_eval_cli_matches_jax_eval(tmp_path, monkeypatch, level_params):
