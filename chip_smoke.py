@@ -23,7 +23,7 @@ Phases, any failure exits non-zero without the final result line:
 6. hold K3 (``fused_render_level_train``), forward and backward, against
    its plain versions, float32 and bfloat16, with and without noise, white
    background on and off, with nonzero cotangents on all three outputs, at
-   small shapes (1000 x 12, 333 x 9, the 56x70 and 63x84 patches); the
+   small shapes (1000 x 12, 333 x 9, the 56x70 patch x 16, the 63x84 patch x 9); the
    backward's sums are order-dependent, so the spread of its gradient over
    two runs on the same inputs is printed;
 7. the same at the training path's own shapes and inputs: the 16,384 rays of
@@ -91,8 +91,11 @@ TRAIN_RAYS, TRAIN_PATCH = 4096, 64  # a Step-1 batch: 4 bundles of 4096 rays
 TRAIN_STEPS = 3
 # The trained field starts opaque: its rays are absorbed before their last
 # sample.  That sample's interval is 1e10 long, so its alpha is a step
-# function of sigma that no gradient sees; on a half-empty random field the
-# steps that flip it move the loss more than the gradient does.
+# function of sigma that no gradient sees.  On the half-empty field of the
+# other phases (+0.3) one Adam step moves the last weight of a sixth of the
+# rays, the loss along the step is jagged and rises, on the plain path as on
+# the kernels; tests/test_torch_train_kernels.py::
+# test_half_empty_field_on_the_card reads both fields on the card.
 TRAIN_SIGMA_SHIFT = 3.0
 # K3-fwd vs its plain version (outputs and residuals): (max, mean), as K1
 K3_FWD_TOL = K1_TOL
@@ -500,7 +503,7 @@ def phase_k3_checks(device, rng):
     # 1000 and 333 rays are no tile multiple; 56x70 and 63x84 are patch sizes;
     # S = 12 and 9 are no multiple of 8
     for n, s, white_back, use_noise in ((1000, 12, True, True), (333, 9, False, False),
-                                        (56 * 70, 16, True, False), (63 * 84, 8, False, True)):
+                                        (56 * 70, 16, True, False), (63 * 84, 9, False, True)):
         rays, z = make_rays(rng, n, s, device)
         noise = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32, device=device) if use_noise else None
         target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
@@ -551,8 +554,7 @@ def train_config(cd: str, mlp_impl: str = "pallas"):
 
     settings = RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=1.0, noise_std=1.0,
                               white_back=True, compute_dtype=cd, mlp_impl=mlp_impl)
-    return TrainConfig(render=settings, depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5,
-                       imsize=TRAIN_PATCH)
+    return TrainConfig(render=settings, depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5)
 
 
 def make_draws(rng, n: int, device):
@@ -609,35 +611,37 @@ def phase_train_path(device, rng, batch, draws):
     return out
 
 
-def phase_train(device, batch, draws):
-    """The training main path: ``train_step`` at full width."""
+def new_train_state(device, sigma_shift: float = TRAIN_SIGMA_SHIFT, lr: float = 2e-4):
+    """Fresh coarse and fine models from fixed seeds, and Adam over both."""
     import argparse
 
+    from sinnerf_tpu_torch.train.optimizers import get_optimizer
+    from sinnerf_tpu_torch.train.step import TrainState
+
+    models = {"coarse": make_model(30, device, sigma_shift).train(), "fine": make_model(31, device, sigma_shift).train()}
+    hp = argparse.Namespace(optimizer="adam", lr=lr, momentum=0.9, weight_decay=0.0)
+    return TrainState(models=models, opt_g=get_optimizer(hp, [p for m in models.values() for p in m.parameters()]))
+
+
+def phase_train(device, batch, draws):
+    """The training main path: ``train_step`` at full width."""
     import torch
 
     from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
     from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
-    from sinnerf_tpu_torch.train.optimizers import get_optimizer
-    from sinnerf_tpu_torch.train.step import TrainState, train_step
+    from sinnerf_tpu_torch.train.step import train_step
 
-    hp = argparse.Namespace(optimizer="adam", lr=2e-4, momentum=0.9, weight_decay=0.0)
     out = {}
     for cd in ("bfloat16", "float32"):
-        def new_state():
-            models = {"coarse": make_model(30, device, TRAIN_SIGMA_SHIFT).train(),
-                      "fine": make_model(31, device, TRAIN_SIGMA_SHIFT).train()}
-            params = [p for m in models.values() for p in m.parameters()]
-            return TrainState(models=models, opt_g=get_optimizer(hp, params))
-
         def grads(state):
             return [p.grad.clone() for m in state.models.values() for p in m.parameters()]
 
         # first step: the kernel path's gradients against the plain path's
-        state = new_state()
+        state = new_train_state(device)
         state, aux = train_step(state, batch, train_config(cd), 0.0, draws)
         torch.cuda.synchronize()
         losses = [aux["metrics"]["train/loss"].item()]
-        plain, plain_aux = train_step(new_state(), batch, train_config(cd, "xla"), 0.0, draws)
+        plain, plain_aux = train_step(new_train_state(device), batch, train_config(cd, "xla"), 0.0, draws)
         err = grad_errors(grads(state), grads(plain))
         print(f"train_step {cd}: first loss {losses[0]:.6f} (plain path {plain_aux['metrics']['train/loss'].item():.6f})")
         hold_grads(f"train_step {cd:8s} first step's gradients, kernel path vs plain path", err, STEP_GRAD_TOL[cd])
@@ -675,14 +679,7 @@ def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "eval", "train"), default="all",
-                        help="'eval' (phases 2-5) or 'train' (6-8) alone check a change quickly; only 'all', "
-                             "the default, prints the kernels line and the final result line")
-    phases = parser.parse_args(argv).phases
+def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
@@ -708,26 +705,21 @@ def main(argv=None) -> int:
                 usage = [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(os.path.basename(log), *usage, sep="\n  ")
         rng = np.random.default_rng(0)
-        if phases != "train":
-            k1_err = phase_k1_checks(device, rng)
-            k2_err = phase_k2_checks(device, rng)
-            splits = (("bfloat16", ("val", "test")), ("float32", ("val", "test")))
-            with tempfile.TemporaryDirectory() as workdir:
-                root, ckpt = make_scene(workdir)
-                path = phase_path(device, root, ckpt)
-                ev = phase_eval(device, workdir, root, ckpt, splits)
-        if phases != "eval":
-            k3_err = phase_k3_checks(device, rng)
-            batch = make_train_batch(rng, device)
-            draws = make_draws(rng, 4 * TRAIN_RAYS, device)
-            tpath = phase_train_path(device, rng, batch, draws)
-            train = phase_train(device, batch, draws)
+        k1_err = phase_k1_checks(device, rng)
+        k2_err = phase_k2_checks(device, rng)
+        splits = (("bfloat16", ("val", "test")), ("float32", ("val", "test")))
+        with tempfile.TemporaryDirectory() as workdir:
+            root, ckpt = make_scene(workdir)
+            path = phase_path(device, root, ckpt)
+            ev = phase_eval(device, workdir, root, ckpt, splits)
+        k3_err = phase_k3_checks(device, rng)
+        batch = make_train_batch(rng, device)
+        draws = make_draws(rng, 4 * TRAIN_RAYS, device)
+        tpath = phase_train_path(device, rng, batch, draws)
+        train = phase_train(device, batch, draws)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    if phases != "all":
-        print(f"phases '{phases}' passed in {time.perf_counter() - t0:.1f} s; no result line for a partial run")
-        return 0
 
     kernels = []
     for cd in ("bfloat16", "float32"):

@@ -41,13 +41,14 @@ from sinnerf_tpu_torch.utils.metrics import psnr
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Per-run configuration; fields map 1:1 onto the ``opt.py`` flags, as
-    the JAX ``TrainConfig`` does."""
+    the JAX ``TrainConfig`` does.  The fields that only the Step-2 extras
+    read (``dloss``, ``imsize``, ``policy``, ``vit_refresh_prob``) come with
+    them."""
 
     render: RenderSettings
     dataset_name: str = "blender_ray_patch_1image_rot3d"
     loss_type: str = "mse"
     patch_loss: str = "mse"
-    dloss: str = "hinge"
     depth_weight: float = 0.05
     vit_weight: float = 0.0
     dis_weight: float = 0.0
@@ -55,9 +56,6 @@ class TrainConfig:
     depth_smooth_weight: float = 0.0
     depth_anneal: bool = False
     load_depth: bool = True
-    imsize: int = 64
-    policy: str = "color,cutout"
-    vit_refresh_prob: float = 0.05
 
     @property
     def is_dtu(self) -> bool:

@@ -290,3 +290,86 @@ def test_train_render_function_on_the_card(cuda_device, params):
     _loss(frt.render_level_train_plain(model, rays, z, noise, True, True), target, torch).backward()
     err = chip_smoke.grad_errors(got, [p.grad for p in param_tensors(model)])
     assert err[0] <= chip_smoke.K3_BWD_TOL["float32"][0] and err[1] <= chip_smoke.K3_BWD_TOL["float32"][1], err
+
+
+@pytest.mark.cuda
+def test_half_empty_field_on_the_card(cuda_device):
+    """Why ``chip_smoke.py`` trains a field that starts opaque
+    (``TRAIN_SIGMA_SHIFT``): the readings on the half-empty field (sigma bias
+    +0.3) of its other phases, same batch, draws and ``train_step``.  Printed
+    (run with ``-s``): the loss over 4 steps on the kernel and the plain
+    path, both dtypes, at Adam's 2e-4 and at 2e-5; the float32 loss along the
+    first step's direction against the gradient's first-order prediction; the
+    light that reaches the last sample, whose 1e10 interval makes its alpha a
+    step function of sigma, and how many rays' last weight a step moves.
+
+    Held: on either field the kernel path's losses are the plain path's
+    (rtol 1e-5 in float32, 1e-4 in bfloat16, whose atomics reorder the
+    sums from run to run; measured 9e-7 and up to 1.3e-5 over two runs), so the
+    rise on the half-empty field is no fault of the kernels.  On the opaque
+    field no ray's last weight moves, the loss falls with every step and
+    follows the first-order prediction over a whole Adam step within 5%
+    (measured 1.1%); on the half-empty one the last weight of more than 1000
+    of the 16,384 rays moves by over 0.01 within one step (measured 2732,
+    rising in proportion to the step), and the loss along the step is jagged
+    at every scale read."""
+    from sinnerf_tpu_torch.render.renderer import render_rays
+    from sinnerf_tpu_torch.train.step import compute_losses, train_step
+
+    rng = np.random.default_rng(0)
+    batch = chip_smoke.make_train_batch(rng, cuda_device)
+    draws = chip_smoke.make_draws(rng, 4 * chip_smoke.TRAIN_RAYS, cuda_device)
+    rays = torch.cat([batch[k].reshape(-1, 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")])
+
+    def losses(shift, cd, impl, lr):
+        state = chip_smoke.new_train_state(cuda_device, shift, lr)
+        out = []
+        for _ in range(4):
+            state, aux = train_step(state, batch, chip_smoke.train_config(cd, impl), 0.0, draws)
+            out.append(aux["metrics"]["train/loss"].item())
+        return out
+
+    seqs = {}
+    for shift in (0.3, chip_smoke.TRAIN_SIGMA_SHIFT):
+        for cd in ("float32", "bfloat16"):
+            for impl, lr in (("pallas", 2e-4), ("xla", 2e-4), ("pallas", 2e-5)):
+                seqs[shift, cd, impl, lr] = seq = losses(shift, cd, impl, lr)
+                print(f"sigma bias +{shift} {cd:8s} {impl:6s} lr {lr:.0e}: " + " -> ".join(f"{x:.6f}" for x in seq))
+                assert all(np.isfinite(seq))
+                if shift == chip_smoke.TRAIN_SIGMA_SHIFT:
+                    assert all(b < a for a, b in zip(seq, seq[1:])), seq
+            np.testing.assert_allclose(seqs[shift, cd, "pallas", 2e-4], seqs[shift, cd, "xla", 2e-4],
+                                       rtol=1e-5 if cd == "float32" else 1e-4)
+
+    for shift in (0.3, chip_smoke.TRAIN_SIGMA_SHIFT):
+        cfg = chip_smoke.train_config("float32")
+        state = chip_smoke.new_train_state(cuda_device, shift)
+        params = [p for m in state.models.values() for p in m.parameters()]
+        theta0 = [p.detach().clone() for p in params]
+        state, aux = train_step(state, batch, cfg, 0.0, draws)
+        loss0 = aux["metrics"]["train/loss"].item()
+        delta = [p.detach() - t0 for p, t0 in zip(params, theta0)]
+        slope = sum((p.grad.double() * d.double()).sum().item() for p, d in zip(params, delta))
+
+        def at(t):
+            with torch.no_grad():
+                for p, t0, d in zip(params, theta0, delta):
+                    p.copy_(t0 + t * d)
+                total, _ = compute_losses(state.models, batch, cfg, 0.0, draws)
+                last = render_rays(state.models, rays, cfg.render, *draws)["opacity_fine"][:, -1]
+            return total.item(), last
+
+        base, last0 = at(0.0)
+        print(f"sigma bias +{shift}: loss {loss0:.6f} (again {base:.6f}); first-order change over the step {slope:.6f}; "
+              f"mean weight of the last fine sample {last0.mean().item():.4f}")
+        for t in (1e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0):
+            total, last = at(t)
+            moved = (last - last0).abs()
+            print(f"  t={t:5.3f}: loss change {total - base:+.6f}, first order {t * slope:+.6f}, beyond it "
+                  f"{total - base - t * slope:+.6f}; rays whose last weight moved by > 0.01: {(moved > 0.01).sum().item()}, "
+                  f"sum |change| {moved.sum().item():.3f}")
+        n_moved = (moved > 0.01).sum().item()  # over the whole step, t = 1
+        if shift == chip_smoke.TRAIN_SIGMA_SHIFT:
+            assert n_moved == 0 and abs(total - base - slope) < 5e-2 * abs(slope)
+        else:
+            assert n_moved > 1000

@@ -8,18 +8,26 @@ port as tensors.  JAX references are jitted once per module.
 
 Tolerances.  Metrics and losses: 1e-6 elementwise (the same float32
 arithmetic; SSIM 1e-5: two convolution orders).  Renders: rtol/atol 1e-4.
-``compute_losses``: the total and every metric rtol 1e-4 (atol 1e-5);
-gradients per leaf 1e-1 of the leaf's largest entry and 3e-2 relative L2.
-That band is ReLU masks, not arithmetic: the two packages' sin/cos differ in
-the last bits, the double-angle PE recurrence carries that to ~1e-5 in a
-pre-activation, and of the 6e5 pre-activations of this batch a few dozen lie
-that close to zero; each flipped mask changes one unit's delta at one point
-by its whole size, through every layer below.  Measured: up to 5.0e-2 and
-1.1e-2 (the coarse model under the dtu losses, whose gradient is smallest);
-layers above the first flip agree to 1e-6.  The port's two paths show the
-same differences from JAX to three digits, and JAX's two paths agree with
-each other.  Optimizers on the same gradients: rtol 1e-6; through
-``train_step``: see ``test_three_steps_match_optax``.
+``compute_losses``: the total and every metric rtol 1e-4 (atol 1e-5).
+Gradients are held per leaf, as the largest difference over the leaf's
+largest entry and as relative L2, in two groups:
+
+* the leaves whose gradient passes no ReLU mask (``xyz_encoding_final``,
+  ``sigma``, ``dir_encoding``, ``rgb``): 1e-4 (measured up to 2.5e-5).  Their
+  gradients run through every loss term, the composite's adjoint and the
+  detached resampling, so a fault in any of those shows here;
+* the eight trunk layers: 1e-2, and 1e-1 / 3e-2 under the dtu losses
+  (measured up to 5.2e-3 / 3.4e-3, and 5.0e-2 / 1.1e-2 under dtu, whose coarse
+  gradient is smallest).  That band is ReLU masks, not arithmetic: a
+  pre-activation that lies within rounding of zero falls on either side, and
+  a flipped mask changes one unit's delta at one point by its whole size,
+  through every layer below.  ``test_trunk_band_is_the_batch_conditioning``
+  shows it: the port's own trunk gradients move as far when the sample
+  depths move by one float32 ulp, while the loss and the mask-free leaves
+  stay put, and the port is held to differ from JAX by no more than 3x that.
+
+Optimizers on the same gradients: rtol 1e-6; through ``train_step``: see
+``test_three_steps_match_optax``.
 """
 
 import argparse
@@ -238,19 +246,21 @@ def test_detach_coarse_stops_the_coarse_gradient(level_params, batch):
 
 
 LOSS_CASES = {
-    # name: (mlp_impl, TrainConfig fields, epoch)
-    "kernels_blender": ("pallas", dict(depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5), 0.0),
+    # name: (mlp_impl, TrainConfig fields, epoch, trunk band (max over largest entry, relative L2))
+    "kernels_blender": ("pallas", dict(depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5), 0.0, (1e-2, 1e-2)),
     "plain_dtu_ssim": ("xla", dict(dataset_name="dtu_proj", patch_loss="l2_ssim", depth_weight=8.0,
-                                   depth_smooth_weight=0.5), 0.0),
+                                   depth_smooth_weight=0.5), 0.0, (1e-1, 3e-2)),
     "plain_llff_anneal": ("xla", dict(dataset_name="llff_proj", depth_weight=8.0, proj_weight=0.5,
-                                      depth_anneal=True), 10.0),
+                                      depth_anneal=True), 10.0, (1e-2, 1e-2)),
 }
+MASK_FREE_BAND = (1e-4, 1e-4)
+ULP = 2e-7  # a relative nudge that moves a float32 by one or two ulps
 
 
 @pytest.fixture(scope="module")
 def jax_losses(level_params, batch):
     out = {}
-    for name, (impl, fields, epoch) in LOSS_CASES.items():
+    for name, (impl, fields, epoch, _) in LOSS_CASES.items():
         cfg = jax_step.TrainConfig(render=_settings(jax_renderer, impl), imsize=PS, **fields)
 
         def loss(p, key, cfg=cfg, epoch=epoch):
@@ -265,34 +275,89 @@ def jax_losses(level_params, batch):
     return out
 
 
+def _mask_free(leaf):
+    """Whether a parameter's gradient passes no ReLU mask of the trunk."""
+    return leaf.split(".")[0] in ("xyz_encoding_final", "sigma", "dir_encoding", "rgb")
+
+
+def _leaf_errors(got, want):
+    """{'coarse.<leaf>': (largest difference over the largest entry, relative L2)}."""
+    out = {}
+    for level in ("coarse", "fine"):
+        assert set(got[level]) == set(want[level])
+        for leaf, w in want[level].items():
+            g = got[level][leaf]
+            assert np.abs(w).max() > 0, (level, leaf)
+            out[f"{level}.{leaf}"] = (np.abs(g - w).max() / np.abs(w).max(), np.linalg.norm(g - w) / np.linalg.norm(w))
+    return out
+
+
+def _worst(errors, mask_free):
+    picked = [e for leaf, e in errors.items() if _mask_free(leaf.split(".", 1)[1]) == mask_free]
+    return max(e[0] for e in picked), max(e[1] for e in picked)
+
+
+@pytest.fixture(scope="module")
+def port_losses(level_params, batch):
+    """name -> [(total, aux, gradients) as drawn, the same with the stratified
+    draws nudged by ``ULP``]."""
+    render_key = jax.random.split(jax.random.key(11), 6)[0]  # train/step.py:133,157
+    out = {}
+    for name, (impl, fields, epoch, _) in LOSS_CASES.items():
+        cfg = port_step.TrainConfig(render=_settings(port_renderer, impl), **fields)
+        out[name] = []
+        for nudge in (0.0, ULP):
+            draws = _port_draws(render_key)
+            draws = draws._replace(perturb_u=draws.perturb_u * (1.0 + nudge))
+            models = _models(level_params)
+            total, aux = port_step.compute_losses(models, {k: _t(v) for k, v in batch.items()}, cfg, epoch, draws)
+            total.backward()
+            grads = {level: {k: p.grad.numpy() for k, p in m.state_dict(keep_vars=True).items()}
+                     for level, m in models.items()}
+            out[name].append((total.item(), aux, grads))
+    return out
+
+
+def _jax_grads(jax_losses, name):
+    return {level: {k: v.numpy() for k, v in state_dict_from_jax(jax_losses[name][3][level]).items()}
+            for level in ("coarse", "fine")}
+
+
 @pytest.mark.parametrize("name", sorted(LOSS_CASES))
-def test_compute_losses_matches_jax(level_params, batch, jax_losses, name):
+def test_compute_losses_matches_jax(jax_losses, port_losses, name):
     """The total, every metric tag, the images and the leaf-wise gradients
     on one fixed batch."""
-    impl, fields, epoch = LOSS_CASES[name]
-    cfg = port_step.TrainConfig(render=_settings(port_renderer, impl), imsize=PS, **fields)
-    models = _models(level_params)
-    render_key = jax.random.split(jax.random.key(11), 6)[0]  # train/step.py:133,157
-    total, aux = port_step.compute_losses(models, {k: _t(v) for k, v in batch.items()}, cfg, epoch,
-                                          _port_draws(render_key))
-    total.backward()
-    want_total, want_metrics, want_images, want_grads = jax_losses[name]
-    np.testing.assert_allclose(total.item(), want_total, rtol=1e-4)
+    total, aux, grads = port_losses[name][0]
+    want_total, want_metrics, want_images, _ = jax_losses[name]
+    np.testing.assert_allclose(total, want_total, rtol=1e-4)
     assert set(aux["metrics"]) == set(want_metrics)
     for tag, v in want_metrics.items():
         np.testing.assert_allclose(aux["metrics"][tag].numpy(), v, rtol=1e-4, atol=1e-5, err_msg=tag)
     assert set(aux["images"]) == set(want_images)
     for tag, v in want_images.items():
         np.testing.assert_allclose(aux["images"][tag].numpy(), v, rtol=1e-4, atol=1e-4, err_msg=tag)
-    for level in ("coarse", "fine"):
-        want = state_dict_from_jax(want_grads[level])
-        got = {k: p.grad for k, p in models[level].state_dict(keep_vars=True).items()}
-        assert set(got) == set(want)
-        for leaf, w in want.items():
-            g, w = got[leaf].numpy(), w.numpy()
-            assert np.abs(w).max() > 0, (level, leaf)
-            assert np.abs(g - w).max() / np.abs(w).max() < 1e-1, (level, leaf)
-            assert np.linalg.norm(g - w) / np.linalg.norm(w) < 3e-2, (level, leaf)
+    for leaf, err in _leaf_errors(grads, _jax_grads(jax_losses, name)).items():
+        band = MASK_FREE_BAND if _mask_free(leaf.split(".", 1)[1]) else LOSS_CASES[name][3]
+        assert err[0] < band[0] and err[1] < band[1], (leaf, err, band)
+
+
+@pytest.mark.parametrize("name", sorted(LOSS_CASES))
+def test_trunk_band_is_the_batch_conditioning(jax_losses, port_losses, name):
+    """Where the trunk's band comes from.  Moving the stratified draws by one
+    float32 ulp leaves the port's loss and its mask-free gradients where they
+    were (a smooth function of the depths), and moves its own trunk gradients
+    as far as they lie from JAX's: the masks of pre-activations within
+    rounding of zero flip.  So the port is held to differ from JAX by no more
+    than 3x what one ulp does to it (measured: 1.0x, 1.0x and 0.5x in the max
+    measure, 1.1x, 1.0x and 1.0x in relative L2)."""
+    (total, _, grads), (nudged_total, _, nudged_grads) = port_losses[name]
+    assert abs(nudged_total - total) < 1e-6 * abs(total)
+    own = _leaf_errors(nudged_grads, grads)
+    assert max(_worst(own, mask_free=True)) < 1e-4, own
+    vs_jax = _worst(_leaf_errors(grads, _jax_grads(jax_losses, name)), mask_free=False)
+    own_trunk = _worst(own, mask_free=False)
+    assert own_trunk[1] > 1e-3, own_trunk  # one ulp moves a trunk leaf by more than 10x the mask-free band
+    assert vs_jax[0] < 3 * own_trunk[0] and vs_jax[1] < 3 * own_trunk[1], (vs_jax, own_trunk)
 
 
 # --------------------------------------------------------------------------
@@ -398,16 +463,21 @@ def test_optimizer_steps_match_optax_on_the_same_gradients(optimizer, weight_dec
 def test_three_steps_match_optax(level_params, batch, optimizer, weight_decay):
     """Three ``train_step``s on the plain path against the JAX ``train_step``
     with optax, the schedule fed per epoch: the loss of every step, and the
-    update of every leaf after every step.  The updates carry the gradients'
-    ReLU-flip differences (see the note at the top): under SGD as they are
-    (relative L2 of the update below 5e-2); under Adam, whose first steps
+    update of every leaf after every step, as the relative L2 distance of
+    the two packages' parameters over the distance moved from the start.
+    Leaves whose gradient passes no ReLU mask: 1e-4 after the first step
+    (measured 2.1e-5) and 5e-3 after the later ones (1.8e-3), whose
+    gradients see the trunks' differences.  The trunk's updates carry its
+    gradients' ReLU-flip differences (see the note at the top): under SGD as
+    they are (below 5e-2, measured 2.6e-2); under Adam, whose first steps
     are ``lr * sign(g)``, an element whose small gradient changes sign moves
-    by ``2 lr`` (measured: up to 3.9% of a leaf's elements after three steps),
-    so there the share of elements off by more than 1e-5 stays below 10%."""
+    by ``2 lr`` (measured: up to 3.9% of a leaf's elements after three
+    steps), so there the share of elements off by more than 1e-5 stays below
+    6%."""
     hp = _hp(optimizer, weight_decay)
     fields = dict(depth_weight=8.0, proj_weight=1.0, depth_smooth_weight=0.5)
     jcfg = jax_step.TrainConfig(render=_settings(jax_renderer, "xla"), imsize=PS, **fields)
-    pcfg = port_step.TrainConfig(render=_settings(port_renderer, "xla"), imsize=PS, **fields)
+    pcfg = port_step.TrainConfig(render=_settings(port_renderer, "xla"), **fields)
     opt = jax_optimizers.get_optimizer(hp)
     params = jax.tree_util.tree_map(jnp.asarray, level_params)
     jstate = jax_step.TrainState(params=params, opt_g=opt.init(params), d_params=None, sn_state=None, opt_d=None,
@@ -429,10 +499,12 @@ def test_three_steps_match_optax(level_params, batch, optimizer, weight_decay):
         want = _flat_tree(jstate.params)
         for name, p in named.items():
             got = p.detach().numpy()
-            if optimizer == "adam":
-                assert np.mean(np.abs(got - want[name]) > 1e-5) < 1e-1, (step, name)
+            moved = np.linalg.norm(want[name] - start[name])
+            if _mask_free(name.split(".", 1)[1]):
+                assert np.linalg.norm(got - want[name]) <= (1e-4 if step == 0 else 5e-3) * moved, (step, name)
+            elif optimizer == "adam":
+                assert np.mean(np.abs(got - want[name]) > 1e-5) < 6e-2, (step, name)
             else:
-                moved = np.linalg.norm(want[name] - start[name])
                 assert np.linalg.norm(got - want[name]) < 5e-2 * moved, (step, name)
     assert pstate.step == 3 and int(jstate.step) == 3
 
