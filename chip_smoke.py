@@ -37,8 +37,30 @@ Phases, any failure exits non-zero without the final result line:
    same draws, then 3 timed steps with every launch count set to 0 just
    before and read just after (per step K3-fwd 2, K3-bwd 2, K2 1); the loss
    must be finite and fall on the fixed batch;
-9. print one ``kernels`` JSON line, then, last,
+9. hold K4 (``fused_nerf_mlp``), forward and backward, against its plain
+   versions, float32 and bfloat16, with and without ``sigma_only``, at point
+   counts that are no tile multiple, with nonzero cotangents on rgb and
+   sigma: every dW/db leaf, dxyz and ddir; the spread of the backward over
+   two runs is printed;
+10. the deterministic training path (``perturb=0``, ``noise_std=0``): K4 at
+   its shapes (1,048,576 and 3,145,728 points, the points of the 16,384 rays
+   x 64 and x 192 samples) against its plain version and timed; the first
+   ``train_step``'s gradients against the plain path's; 3 timed steps with
+   the counts set to 0 just before and read just after (per step K1 2, K2 1,
+   K4-fwd 2, K4-bwd 2, K3 0), the loss finite and falling;
+11. the train CLI, ``python -m sinnerf_tpu_torch.train``'s ``main``, on the
+   504x378 LLFF scene at 64 + 128 samples for 2 epochs (5 steps each,
+   validation over the 5 val images after each): bfloat16 with the default
+   (stochastic) flags, bfloat16 and float32 with ``--perturb 0 --noise_std
+   0``, then the float32 run resumed from its ``last.ckpt`` for a third
+   epoch; per run the counts set to 0 just before and read just after, the
+   time per step and the val PSNR; the top-2 and ``last`` checkpoints must
+   exist and the eval CLI must render one of them;
+12. print one ``kernels`` JSON line, then, last,
    ``{"ok": true, "device": {...}}``.
+
+Phase 5 renders the test split (120 poses) in bfloat16 only; float32 renders
+the val image.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -113,6 +135,21 @@ K3_BWD_TOL = {"float32": (2e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}
 # gradients through its bf16 casts).  Measured: float32 (1.5e-4, 1.6e-4),
 # bfloat16 (2.2e-3, 1.0e-3); the first limits were 1e-3 and 3e-2.
 STEP_GRAD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}
+# K4: the forward as K1.  The backward: (worst parameter leaf's largest
+# difference over its largest entry, the worst relative L2 of a parameter
+# leaf, dxyz and ddir).  Every point's input gradient stands alone, so a ReLU
+# mask that flips between two sum orders at one point moves that point's
+# dxyz by the unit's whole delta: the input gradients are held by their
+# relative L2 only (their largest difference is printed).  On the CPU the
+# plain backward against itself summed in chunks of 64 points differs by up
+# to 7.2e-2 / 2.6e-2 (float32, 1000 points, sigma only: one flipped mask);
+# the smoke's small shapes are 20001 and 70001 points, over which a flip
+# averages out.  Readings on an H100 at those shapes and at the path's:
+# float32 up to 3.7e-3 / 1.2e-3, bfloat16 up to 2.1e-2 / 8.0e-3.
+K4_FWD_TOL = K1_TOL
+K4_BWD_TOL = {"float32": (1e-2, 5e-3), "bfloat16": (5e-2, 3e-2)}
+MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
+CLI_EPOCHS = 2
 
 
 class Failed(Exception):
@@ -675,6 +712,288 @@ def phase_train(device, batch, draws):
     return out
 
 
+def k4_bound(n: int, cd: str, backward: bool):
+    from sinnerf_tpu_torch.ops.fused_mlp import BIAS_SIZE, WEIGHT_SIZE
+
+    wbytes = WEIGHT_SIZE * (2 if cd == "bfloat16" else 4) + BIAS_SIZE * 4
+    if backward:  # xyz, dirs, g in; dxyz, ddir, dW, db out
+        flops = 2.0 * MAC_PER_POINT_K4_BWD * n
+        nbytes = n * 6 * 4 + n * 4 * 4 + wbytes + n * 6 * 4 + (WEIGHT_SIZE + BIAS_SIZE) * 4
+    else:  # xyz, dirs in; rgb, sigma out
+        flops = 2.0 * MAC_PER_POINT * n
+        nbytes = n * 6 * 4 + wbytes + n * 4 * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[cd] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def input_grad_error(got, ref):
+    """(largest difference over the largest entry, relative L2) of dxyz or ddir."""
+    if got.shape != ref.shape or not bool(got.isfinite().all()):
+        raise Failed(f"input gradient of shape {tuple(got.shape)} (want {tuple(ref.shape)}) or non-finite values")
+    diff = got.double() - ref.double()
+    return ((diff.abs().max() / (ref.abs().max() + 1e-30)).item(), (diff.norm() / (ref.double().norm() + 1e-30)).item())
+
+
+def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: int = 0):
+    """K4-fwd and K4-bwd on one set of inputs against their plain versions.
+    Returns the errors (fwd (max, mean), bwd worst of the parameter leaves,
+    dxyz and ddir, spread of two runs) and, with ``reps``, the times (ms)."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_mlp as fm
+
+    packed = fm.pack_weights(model, fm.torch_dtype(cd))
+    n = xyz.shape[0]
+    out = fm.launch_mlp_fwd(packed, xyz, dirs, True, sigma_only)
+    torch.cuda.synchronize()
+    ref = fm.nerf_mlp_forward_plain(packed, xyz, dirs, True, sigma_only)
+    if out.shape != (n, 1 if sigma_only else 4) or not bool(out.isfinite().all()):
+        raise Failed(f"{what}: forward shape {tuple(out.shape)} or non-finite values")
+    diff = (out - ref).abs()
+    err_f = (diff.max().item(), diff.mean().item())
+    hold(f"{what} fwd", err_f, K4_FWD_TOL[cd])
+
+    args = (packed, xyz, dirs, g, True, sigma_only)
+    got = fm.launch_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    again = fm.launch_mlp_bwd(*args)
+    want = fm.nerf_mlp_backward_plain(*args)
+    if sigma_only and (got[3] is not None):
+        raise Failed(f"{what}: a sigma-only backward returned ddir")
+    errs = [grad_errors(fm.unpack_grads(*got[:2]), fm.unpack_grads(*want[:2])), input_grad_error(got[2], want[2])]
+    if not sigma_only:
+        errs.append(input_grad_error(got[3], want[3]))
+    err_b = (errs[0][0], max(e[1] for e in errs))
+    spread = grad_errors(fm.unpack_grads(*again[:2]) + again[2:3], fm.unpack_grads(*got[:2]) + got[2:3])
+    hold_grads(f"{what} bwd (params {errs[0][0]:.1e}/{errs[0][1]:.1e}, dxyz {errs[1][0]:.1e}/{errs[1][1]:.1e}"
+               + ("" if sigma_only else f", ddir {errs[2][0]:.1e}/{errs[2][1]:.1e}")
+               + f"; two runs differ by {spread[0]:.1e}, {spread[1]:.1e})", err_b, K4_BWD_TOL[cd])
+    times = None
+    if reps:
+        times = dict(
+            fwd=timed(lambda: fm.launch_mlp_fwd(packed, xyz, dirs, True, sigma_only), reps)[1],
+            bwd=timed(lambda: fm.launch_mlp_bwd(*args), reps)[1],
+            fwd_plain=timed(lambda: fm.nerf_mlp_forward_plain(packed, xyz, dirs, True, sigma_only), 1)[1],
+            bwd_plain=timed(lambda: fm.nerf_mlp_backward_plain(*args), 1)[1],
+        )
+    return err_f, err_b, spread, times
+
+
+def phase_k4_checks(device, rng):
+    import torch
+
+    model = make_model(4, device)
+    worst = {}
+    # 20001 and 70001 points are no tile multiple
+    for n, sigma_only in ((20001, False), (20001, True), (70001, False), (70001, True)):
+        xyz = torch.tensor(rng.normal(scale=2.0, size=(n, 3)), dtype=torch.float32, device=device)
+        dirs = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=device)
+        g = torch.tensor(rng.normal(size=(n, 1 if sigma_only else 4)), dtype=torch.float32, device=device)
+        for cd in ("float32", "bfloat16"):
+            err_f, err_b, spread, _ = k4_check(model, xyz, dirs, g, cd, sigma_only,
+                                               f"K4 {cd:8s} n={n:6d} sigma_only={int(sigma_only)}")
+            merge_worst(worst, cd, err_f, err_b, spread)
+    return worst
+
+
+def det_config(cd: str, mlp_impl: str = "pallas"):
+    import dataclasses
+
+    cfg = train_config(cd, mlp_impl)
+    return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, perturb=0.0, noise_std=0.0))
+
+
+def phase_det_train(device, rng, batch):
+    """The deterministic training path: K4 at its shapes on the inputs a
+    step gives it, then ``train_step`` (K1 forward, K2 det, K4 in K1's
+    backward) against the plain path and timed."""
+    import torch
+
+    from sinnerf_tpu_torch.core.sampling import stratified_z_vals
+    from sinnerf_tpu_torch.ops.fused_mlp import launch_mlp_bwd, launch_mlp_fwd
+    from sinnerf_tpu_torch.ops.fused_render import fused_render_level
+    from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
+    from sinnerf_tpu_torch.train.step import train_step
+
+    rays = torch.cat([batch[k].reshape(-1, 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")])
+    n = rays.shape[0]
+    model = make_model(40, device)
+    out = {"k4": {}, "step": {}}
+    for cd in ("bfloat16", "float32"):
+        z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], N_SAMPLES, False, 0.0)
+        w_c = fused_render_level(model, rays, z, True, True, cd)[2]
+        z_all = fused_sample_pdf_merge(z, w_c.detach(), N_IMPORTANCE, None, True)
+        rows, worst = [], {}
+        for zz in (z, z_all):
+            s = zz.shape[1]
+            xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * zz[..., None]).reshape(-1, 3).contiguous()
+            dirs = rays[:, None, 3:6].expand(n, s, 3).reshape(-1, 3).contiguous()
+            g = torch.tensor(rng.normal(scale=1e-3, size=(n * s, 4)), dtype=torch.float32, device=device)
+            err_f, err_b, spread, ms = k4_check(model, xyz, dirs, g, cd, False,
+                                                f"path K4 {cd:8s} n={n}x{s}={n * s}", reps=3)
+            merge_worst(worst, cd, err_f, err_b, spread)
+            bounds = {d: k4_bound(n * s, cd, d == "bwd") for d in ("fwd", "bwd")}
+            print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
+                  f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
+            rows.append(dict(shape=f"{n * s}", ms=ms, bounds=bounds))
+            del xyz, dirs, g
+            torch.cuda.empty_cache()
+        out["k4"][cd] = dict(launches=rows, **worst[cd])
+
+        def grads(state):
+            return [p.grad.clone() for m in state.models.values() for p in m.parameters()]
+
+        state = new_train_state(device)
+        state, aux = train_step(state, batch, det_config(cd), 0.0)
+        torch.cuda.synchronize()
+        losses = [aux["metrics"]["train/loss"].item()]
+        plain, plain_aux = train_step(new_train_state(device), batch, det_config(cd, "xla"), 0.0)
+        err = grad_errors(grads(state), grads(plain))
+        print(f"det train_step {cd}: first loss {losses[0]:.6f} (plain path {plain_aux['metrics']['train/loss'].item():.6f})")
+        hold_grads(f"det train_step {cd:8s} first step's gradients, kernel path vs plain path", err, STEP_GRAD_TOL[cd])
+        del plain, plain_aux
+        torch.cuda.empty_cache()
+
+        counters = (fused_render_level, fused_sample_pdf_merge, launch_mlp_fwd, launch_mlp_bwd, launch_train_fwd,
+                    launch_train_bwd)
+        for c in counters:
+            c.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            state, aux = train_step(state, batch, det_config(cd), 0.0)
+            losses.append(aux["metrics"]["train/loss"])
+        end.record()
+        end.synchronize()
+        counts = tuple(c.launches for c in counters)
+        step_ms = start.elapsed_time(end) / TRAIN_STEPS
+        losses = [float(x) for x in losses]
+        print(f"det train_step {cd}: {step_ms:.2f} ms per step; launches over {TRAIN_STEPS} steps: K1 {counts[0]}, "
+              f"K2 {counts[1]}, K4-fwd {counts[2]}, K4-bwd {counts[3]}, K3 {counts[4]}+{counts[5]}; "
+              f"loss {' -> '.join(f'{x:.6f}' for x in losses)}")
+        t = TRAIN_STEPS
+        if counts != (2 * t, t, 2 * t, 2 * t, 0, 0):
+            raise Failed(f"det train_step {cd}: launch counts {counts}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise Failed(f"det train_step {cd}: the loss did not fall: {losses}")
+        out["step"][cd] = dict(counts=counts, step_ms=step_ms, losses=losses, grad_err=err)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_flags(root: str, workdir: str, cd: str, exp: str):
+    w, h = IMG_WH
+    return [
+        "--dataset_name", "llff_ray_patch_1image_proj", "--root_dir", root, "--img_wh", str(w), str(h),
+        "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE), "--num_rays", str(TRAIN_RAYS),
+        "--depth_weight", "8", "--proj_weight", "1", "--depth_smooth_weight", "0.5",
+        "--num_epochs", str(CLI_EPOCHS), "--check_val_every_n_epoch", "1",
+        # the reference's LLFF patch (63x84 at stride 6 spans the image), one
+        # item per step on one card, and the Step-1 recipe's depth and no GAN
+        "--patch_size_x", "63", "--patch_size_y", "84", "--sW", "6", "--sH", "6",
+        "--batch_size", "1", "--num_gpus", "1", "--dis_weight", "0", "--load_depth",
+        "--lr", "2e-4", "--compute_dtype", cd, "--device", "cuda",
+        "--ckpt_dir", os.path.join(workdir, "train_ckpts"), "--log_dir", os.path.join(workdir, "train_logs"),
+        "--exp_name", exp,
+    ]
+
+
+def phase_train_cli(device, workdir: str, root: str):
+    """The train CLI's ``main`` in both configurations, a resume, and the
+    eval CLI on one of its checkpoints."""
+    import torch
+
+    from sinnerf_tpu_torch import eval as port_eval
+    from sinnerf_tpu_torch.opt import get_opts
+    from sinnerf_tpu_torch.ops.fused_mlp import launch_mlp_bwd, launch_mlp_fwd
+    from sinnerf_tpu_torch.ops.fused_render import fused_render_level
+    from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
+    from sinnerf_tpu_torch.train.__main__ import main as train_main
+
+    names = ("K1", "K2", "K3-fwd", "K3-bwd", "K4-fwd", "K4-bwd")
+    counters = (fused_render_level, fused_sample_pdf_merge, launch_train_fwd, launch_train_bwd, launch_mlp_fwd,
+                launch_mlp_bwd)
+    out = {}
+    # From the random weights, without the sigma noise, the first steps drive
+    # sigma below zero at every sample (a rehearsal on the card: val PSNR
+    # 5.1244 after both epochs in both dtypes, an empty render's), and then no
+    # gradient passes the ReLU.  The deterministic runs warm-start from the
+    # stochastic run instead (--pt_model, as Step 2 consumes Step 1).
+    det = ["--perturb", "0", "--noise_std", "0", "--pt_model",
+           os.path.join(workdir, "train_ckpts", "smoke_stochastic_bfloat16", "last.ckpt")]
+    runs = (("stochastic", "bfloat16", []), ("deterministic", "bfloat16", det), ("deterministic", "float32", det))
+    for mode, cd, extra in runs:
+        exp = f"smoke_{mode}_{cd}"
+        flags = cli_flags(root, workdir, cd, exp) + extra
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_main(get_opts(flags))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in zip(names, counters)}
+        steps = sum(e[1] for e in trainer.epoch_log)
+        step_ms = 1e3 * sum(e[2] for e in trainer.epoch_log) / steps
+        ckpt_dir = os.path.join(workdir, "train_ckpts", exp)
+        files = sorted(os.listdir(ckpt_dir))
+        print(f"train CLI {mode} {cd}: {steps} steps, {step_ms:.1f} ms per step (host clock over each epoch), "
+              f"{wall:.1f} s in all; best val PSNR {trainer.best_psnr:.4f}; launches {counts}; checkpoints {files}")
+        if not math.isfinite(trainer.best_psnr) or trainer.best_psnr <= 0:
+            raise Failed(f"train CLI {mode} {cd}: val PSNR {trainer.best_psnr}")
+        if "last.ckpt" not in files or sum(f.startswith("epoch_") for f in files) != 2:
+            raise Failed(f"train CLI {mode} {cd}: checkpoints {files}")
+        stochastic = mode == "stochastic"
+        want = dict(zip(("K3-fwd", "K3-bwd", "K4-fwd", "K4-bwd"),
+                        (2 * steps, 2 * steps, 0, 0) if stochastic else (0, 0, 2 * steps, 2 * steps)))
+        if any(counts[k] != v for k, v in want.items()) or counts["K1"] == 0 or counts["K2"] < steps:
+            raise Failed(f"train CLI {mode} {cd}: launch counts {counts}, want {want} and K1, K2 > 0")
+        out[f"{mode}_{cd}"] = dict(counts=counts, steps=steps, step_ms=step_ms, wall_s=wall, psnr=trainer.best_psnr,
+                                   files=files)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # resume the float32 deterministic run from its last checkpoint for a third epoch
+    exp = "smoke_deterministic_float32"
+    last = os.path.join(workdir, "train_ckpts", exp, "last.ckpt")
+    flags = cli_flags(root, workdir, "float32", exp) + det + ["--num_epochs", str(CLI_EPOCHS + 1), "--ckpt_path", last]
+    for c in counters:
+        c.launches = 0
+    trainer = train_main(get_opts(flags))
+    counts = {k: c.launches for k, c in zip(names, counters)}
+    epochs = [e[0] for e in trainer.epoch_log]
+    print(f"train CLI resumed from {os.path.basename(last)}: epochs {epochs}, step {trainer.state.step}, "
+          f"val PSNR {trainer.best_psnr:.4f}, launches {counts}")
+    if epochs != [CLI_EPOCHS] or trainer.state.step != 5 * (CLI_EPOCHS + 1) or not math.isfinite(trainer.best_psnr):
+        raise Failed(f"resume: epochs {epochs}, step {trainer.state.step}, PSNR {trainer.best_psnr}")
+    out["resume"] = dict(counts=counts, psnr=trainer.best_psnr, step=trainer.state.step)
+    del trainer
+
+    # the eval CLI renders the best checkpoint of the bf16 deterministic run
+    ckpts = sorted(f for f in out["deterministic_bfloat16"]["files"] if f.startswith("epoch_"))
+    ckpt = os.path.join(workdir, "train_ckpts", "smoke_deterministic_bfloat16", ckpts[-1])
+    w, h = IMG_WH
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        args = port_eval.get_opts([
+            "--root_dir", root, "--dataset_name", "llff", "--split", "val", "--scene_name", "smoke_trained",
+            "--img_wh", str(w), str(h), "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE),
+            "--ckpt_path", ckpt, "--compute_dtype", "bfloat16", "--device", "cuda",
+        ])
+        psnr = port_eval.main(args)
+    finally:
+        os.chdir(cwd)
+    print(f"eval CLI on {os.path.basename(ckpt)}: val PSNR {psnr}")
+    if psnr is None or not math.isfinite(psnr):
+        raise Failed(f"eval of the trained checkpoint: PSNR {psnr}")
+    out["eval_psnr"] = psnr
+    return out
+
+
+
 def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
@@ -707,16 +1026,19 @@ def main() -> int:
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
         k2_err = phase_k2_checks(device, rng)
-        splits = (("bfloat16", ("val", "test")), ("float32", ("val", "test")))
+        splits = (("bfloat16", ("val", "test")), ("float32", ("val",)))
         with tempfile.TemporaryDirectory() as workdir:
             root, ckpt = make_scene(workdir)
             path = phase_path(device, root, ckpt)
             ev = phase_eval(device, workdir, root, ckpt, splits)
-        k3_err = phase_k3_checks(device, rng)
-        batch = make_train_batch(rng, device)
-        draws = make_draws(rng, 4 * TRAIN_RAYS, device)
-        tpath = phase_train_path(device, rng, batch, draws)
-        train = phase_train(device, batch, draws)
+            k3_err = phase_k3_checks(device, rng)
+            batch = make_train_batch(rng, device)
+            draws = make_draws(rng, 4 * TRAIN_RAYS, device)
+            tpath = phase_train_path(device, rng, batch, draws)
+            train = phase_train(device, batch, draws)
+            k4_err = phase_k4_checks(device, rng)
+            det = phase_det_train(device, rng, batch)
+            cli = phase_train_cli(device, workdir, root)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -758,6 +1080,29 @@ def main() -> int:
                 entry.update(rel_l2_err=err[1], run_to_run=max(k3_err[cd]["spread"], p["spread"]),
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
             kernels.append(entry)
+    for cd in ("bfloat16", "float32"):
+        p, t = det["k4"][cd], det["step"][cd]
+        counts = cli[f"deterministic_{cd}"]["counts"]
+        for d, line, tol in (("fwd", 232, K4_FWD_TOL[cd]), ("bwd", 298, K4_BWD_TOL[cd])):
+            err = tuple(max(a, b) for a, b in zip(k4_err[cd][d], p[d]))
+            rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
+            entry = dict(
+                name=f"fused_nerf_mlp_{d}[{cd}]", route="cuda",
+                source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
+                replaces=f"sinnerf_tpu/ops/fused_mlp_t.py:{line}",
+                launches=counts[f"K4-{d}"], max_abs_err=err[0], tolerance=tol,
+                ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
+                bound_by=p["launches"][0]["bounds"][d][1], library_ms=None,
+                per_launch={x["shape"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for x, r in zip(p["launches"], rows)},
+                det_step_ms=t["step_ms"], det_step_launches=t["counts"][2 if d == "fwd" else 3],
+                cli_step_ms=cli[f"deterministic_{cd}"]["step_ms"], cli_steps=cli[f"deterministic_{cd}"]["steps"],
+            )
+            if d == "fwd":
+                entry.update(mean_abs_err=err[1])
+            else:  # max_abs_err is the worst parameter leaf's largest difference over its largest entry
+                entry.update(rel_l2_err=err[1], run_to_run=max(k4_err[cd]["spread"], p["spread"]),
+                             step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
+            kernels.append(entry)
     k2 = path["k2"] + tpath["k2"]
     kernels.append(dict(
         name="fused_sample_pdf_merge", route="cuda",
@@ -770,8 +1115,9 @@ def main() -> int:
         per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in k2[:2] + tpath["k2"][:1]},
     ))
     print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
-          f"(K1: one eval image; K3: one train step; K2: both); no single PyTorch call computes any kernel's function")
-    print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"]}))
+          f"(K1: one eval image; K3 and K4: one train step; K2: both); no single PyTorch call computes any kernel's "
+          f"function")
+    print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

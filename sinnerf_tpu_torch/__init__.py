@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ``sinnerf_tpu``: the eval render path.
+"""PyTorch/CUDA port of ``sinnerf_tpu``: the eval render path, the training
+render and step, and the train CLI on the LLFF training set.
 
 The package mirrors ``sinnerf_tpu``'s layout (``core``, ``models``, ``ops``,
 ``render``, ``data``, ``train``, ``utils``) so each module's counterpart is

@@ -20,7 +20,9 @@
 // ray tiles).  Stage A: thread p walks ray p's samples downwards and writes
 // -S_s/u_s to a (N, S) buffer.  Stage B, upwards over the samples: recompute
 // the MLP with the forward's own routine (mlp_tile, so sigma and with it the
-// gate round as they did in the forward), then backpropagate layer by layer.
+// gate round as they did in the forward), then backpropagate layer by layer
+// with mlp_backward.cuh's mlp_backward_tile, which the per-point MLP's
+// backward (K4-bwd, fused_mlp.cu) shares.
 //
 // Bound: operations.  Per point 593,408 multiply-adds of recompute, 556,544
 // of dgrad (no gradient reaches x or the direction PE) and 589,312 of wgrad
@@ -49,6 +51,7 @@
 // Cast points follow _train_bwd_kernel: every delta is cast to the compute
 // dtype before both of its products; ReLU masks read the cast activation;
 // sums run in f32.
+#include "mlp_backward.cuh"
 #include "render_level.cuh"
 
 using namespace nerf;
@@ -68,8 +71,6 @@ train_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
 }
 
 // ------------------------------------------------------------------- K3-bwd
-constexpr int N_KEPT = 9;  // h1..h8 and the output of xyz_encoding_final
-
 // Per-block scratch in global memory: the kept activations [N_KEPT][TILE][Ld::A]
 // in the compute dtype, the direction layer's f32 pre-activation [TILE][HALF]
 // and the per-ray f32 sum of its delta [TILE][HALF].
@@ -79,231 +80,16 @@ struct BwdScratch {
   static constexpr size_t BYTES = KEPT * sizeof(T) + 2 * TILE * HALF * sizeof(float);
 };
 
-// Shared memory of the backward: the forward's tile, one more delta tile and
-// the per-point head cotangents (da_rgb [TILE][3], g_sig [TILE]) and rgb
-// pre-activation [TILE][3].
+// The direction-PE block's input is constant along a ray: keep the f32 sum
+// over samples of the cast direction delta per ray, for one product per ray
+// tile.
 template <typename T>
-constexpr size_t bwd_smem_bytes() {
-  return tile_bytes<T>() + sizeof(T) * TILE * Ld<T>::A + sizeof(float) * 7 * TILE;
-}
-
-template <typename T>
-struct Keep {
-  const T* act;  // the tile's activations (shared memory)
-  T* kept;
-  float* dpre;
-  float* rpre;
-  __device__ void layer_done(int i) const {
-    T* dst = kept + (size_t)(i - 1) * TILE * Ld<T>::A;
-    for (int e = threadIdx.x; e < TILE * WIDTH; e += THREADS) {
-      const int at = (e / WIDTH) * Ld<T>::A + e % WIDTH;
-      dst[at] = act[at];
-    }
-  }
-  __device__ float* dir_pre() const { return dpre; }
-  __device__ float* rgb_pre() const { return rpre; }
+struct SumDirDelta {
+  float* dad;  // [TILE][HALF]
+  __device__ void dir_delta(int e, T v) const { dad[e] = __fadd_rn(dad[e], to_f(v)); }
+  __device__ void dir_done(const T*) const {}
+  __device__ void trunk_delta(int, const T*) const {}
 };
-
-// Epilogues of a dgrad product: what becomes of the f32 sum v at point p,
-// channel k before it is cast.
-struct EpiNone {
-  __device__ float operator()(int, int, float v) const { return v; }
-};
-template <typename T>
-struct EpiMask {  // ReLU mask of the cast activation h
-  const T* h;
-  __device__ float operator()(int p, int k, float v) const {
-    return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
-  }
-};
-template <typename T>
-struct EpiSigmaMask {  // + g_sig[p] wsig[k], then the mask of h8
-  const T* h;
-  const float* gsig;
-  const T* wsig;
-  __device__ float operator()(int p, int k, float v) const {
-    v = __fadd_rn(v, __fmul_rn(gsig[p], to_f(wsig[k])));
-    return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
-  }
-};
-
-// ---- dgrad: dst[p][k] = cast(epi(sum_o D[p][o] Wg[o][k])), k < WIDTH.
-// D (shared) is [TILE][ldd] with O channels; Wg is the (O, WIDTH) row-major
-// weight block; dst is another [TILE][Ld::A] tile.
-template <int O, typename Epi>
-__device__ void dgrad_f32(const float* D, int ldd, const float* __restrict__ Wg, const Epi& epi,
-                          float* dst) {
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int o = 0; o < O; ++o) {
-    float a[8], w[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = D[(ty * 8 + i) * ldd + o];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) w[j] = __ldg(Wg + (size_t)o * WIDTH + tx + 32 * j);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = ty * 8 + i, k = tx + 32 * j;
-      dst[p * Ld<float>::A + k] = epi(p, k, acc[i][j]);
-    }
-  __syncthreads();
-}
-
-using FragBRow = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragACol = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
-
-template <int O, typename Epi>
-__device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, const Epi& epi,
-                           bf16* dst, float* scratch) {
-  constexpr int NT = WIDTH / 16 / WARPS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  FragAcc acc[TILE / 16][NT];
-#pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) wm::fill_fragment(acc[m][n], 0.f);
-  for (int o0 = 0; o0 < O; o0 += 16) {
-    FragBRow b[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      wm::load_matrix_sync(b[n], Wg + (size_t)o0 * WIDTH + (warp * NT + n) * 16, WIDTH);
-#pragma unroll
-    for (int m = 0; m < TILE / 16; ++m) {
-      FragA a;
-      wm::load_matrix_sync(a, D + m * 16 * ldd + o0, ldd);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) wm::mma_sync(acc[m][n], a, b[n], acc[m][n]);
-    }
-  }
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wm::store_matrix_sync(sc, acc[m][n], 16, wm::mem_row_major);
-      __syncwarp();
-      const int k0 = (warp * NT + n) * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int p = m * 16 + (e >> 4), k = k0 + (e & 15);
-        dst[p * Ld<bf16>::A + k] = to_cd<bf16>(epi(p, k, sc[e]));
-      }
-      __syncwarp();
-    }
-  __syncthreads();
-}
-
-template <typename T, int O, typename Epi>
-__device__ __forceinline__ void dgrad(const Tile<T>& t, const T* D, const T* Wg, const Epi& epi,
-                                      T* dst) {
-  if constexpr (std::is_same<T, float>::value)
-    dgrad_f32<O>(D, Ld<T>::A, Wg, epi, dst);
-  else
-    dgrad_bf16<O>(D, Ld<T>::A, Wg, epi, dst, t.scratch);
-}
-
-// ---- wgrad: dW[o][k] += sum_p D[p][o] A[p][k], o < O, k < KIN.  D (shared)
-// is the cast delta tile, A the cast layer input (shared, or the block's
-// global scratch: read with plain loads, it was written in this launch).
-// The tile's sum goes to the global accumulator with one add per element.
-template <int O, int KIN>
-__device__ void wgrad_f32(const float* D, int ldd, const float* A, int lda, float* dW) {
-  constexpr int NJ = KIN / 32;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  for (int q = 0; q < O / 64; ++q) {
-    const int o0 = q * 64 + ty * 8;
-    float acc[8][NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int p = 0; p < TILE; ++p) {
-      float d[8], a[NJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = D[p * ldd + o0 + i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) a[j] = A[p * lda + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(d[i], a[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) atomicAdd(dW + (size_t)(o0 + i) * KIN + tx + 32 * j, acc[i][j]);
-  }
-}
-
-template <int O, int KIN>
-__device__ void wgrad_bf16(const bf16* D, int ldd, const bf16* A, int lda, float* dW,
-                           float* scratch) {
-  constexpr int MPW = O / 16 / WARPS;  // rows of 16 outputs per warp
-  constexpr int NG = 4;                // fragments of 16 inputs per pass
-  static_assert(MPW >= 1 && (KIN / 16) % NG == 0, "wgrad tile shape");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sc = scratch + warp * 256;
-  for (int n0 = 0; n0 < KIN / 16; n0 += NG) {
-    FragAcc acc[MPW][NG];
-#pragma unroll
-    for (int m = 0; m < MPW; ++m)
-#pragma unroll
-      for (int g = 0; g < NG; ++g) wm::fill_fragment(acc[m][g], 0.f);
-    for (int p0 = 0; p0 < TILE; p0 += 16) {
-      FragACol a[MPW];  // (o, p) = D[p][o]: the delta tile read column-major
-#pragma unroll
-      for (int m = 0; m < MPW; ++m)
-        wm::load_matrix_sync(a[m], D + p0 * ldd + (warp * MPW + m) * 16, ldd);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        FragBRow b;
-        wm::load_matrix_sync(b, A + p0 * lda + (n0 + g) * 16, lda);
-#pragma unroll
-        for (int m = 0; m < MPW; ++m) wm::mma_sync(acc[m][g], a[m], b, acc[m][g]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MPW; ++m)
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        wm::store_matrix_sync(sc, acc[m][g], 16, wm::mem_row_major);
-        __syncwarp();
-        float* out = dW + (size_t)((warp * MPW + m) * 16) * KIN + (n0 + g) * 16;
-        for (int e = lane; e < 256; e += 32) atomicAdd(out + (size_t)(e >> 4) * KIN + (e & 15), sc[e]);
-        __syncwarp();
-      }
-  }
-}
-
-template <typename T, int O, int KIN>
-__device__ __forceinline__ void wgrad(const Tile<T>& t, const T* D, const T* A, int lda, float* dW) {
-  if constexpr (std::is_same<T, float>::value)
-    wgrad_f32<O, KIN>(D, Ld<T>::A, A, lda, dW);
-  else
-    wgrad_bf16<O, KIN>(D, Ld<T>::A, A, lda, dW, t.scratch);
-}
-
-// db[o] += sum_p D[p][o], in f32.
-template <typename T, int O>
-__device__ void bias_grad(const T* D, float* db) {
-  for (int o = threadIdx.x; o < O; o += THREADS) {
-    float s = 0.f;
-    for (int p = 0; p < TILE; ++p) s = __fadd_rn(s, to_f(D[p * Ld<T>::A + o]));
-    atomicAdd(db + o, s);
-  }
-}
 
 // c_s = dL/dw_s of one sample.
 __device__ __forceinline__ float weight_cotangent(const float* __restrict__ rgb_s, float gr, float gg,
@@ -315,11 +101,6 @@ __device__ __forceinline__ float weight_cotangent(const float* __restrict__ rgb_
 }
 
 template <typename T>
-constexpr int bwd_blocks_per_sm() {
-  return sizeof(T) == 2 ? 2 : 1;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS, bwd_blocks_per_sm<T>())
 train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                  const float* __restrict__ noise, const T* __restrict__ W,
@@ -328,7 +109,7 @@ train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                  const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
                  const float* __restrict__ g_w, float* dsig_part, unsigned char* scratch,
                  float* dW, float* dB, int n, int S, int new_act, int white_back) {
-  constexpr int LA = Ld<T>::A, LX = Ld<T>::X, LD = Ld<T>::D;
+  constexpr int LA = Ld<T>::A, LD = Ld<T>::D;
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile<T> t = carve<T>(smem);
   T* const extra = reinterpret_cast<T*>(smem + tile_bytes<T>());  // the second delta tile
@@ -341,7 +122,6 @@ train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
   float* const dpre = reinterpret_cast<float*>(mine + BwdScratch<T>::KEPT * sizeof(T));
   float* const dad = dpre + TILE * HALF;
   const Keep<T> keep{t.act, kept, dpre, rpre};
-  const auto kept_layer = [&](int i) { return kept + (size_t)(i - 1) * TILE * LA; };  // h_i, f = 9
 
   const int tid = threadIdx.x;
   const int n_tiles = (n + TILE - 1) / TILE;
@@ -387,18 +167,8 @@ train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
           if (noise != nullptr) sig = __fadd_rn(sig, noise[at]);
           if (sig > 0.f) ds = __fmul_rn(__fmul_rn(da_alpha, __fsub_rn(1.f, a_s)), delta);
           const float g3[3] = {gr, gg, gb};
-          for (int ch = 0; ch < 3; ++ch) {
-            const float a = rpre[tid * 3 + ch];
-            float dact;
-            if (new_act) {
-              const float tt = tanhf(__fmul_rn(0.5f, a));
-              dact = __fmul_rn(0.2505f, __fsub_rn(1.f, __fmul_rn(tt, tt)));
-            } else {
-              const float sg = sigmoid(a);
-              dact = __fmul_rn(sg, __fsub_rn(1.f, sg));
-            }
-            dr[ch] = __fmul_rn(__fmul_rn(w_s, g3[ch]), dact);
-          }
+          for (int ch = 0; ch < 3; ++ch)
+            dr[ch] = __fmul_rn(__fmul_rn(w_s, g3[ch]), rgb_act_slope(rpre[tid * 3 + ch], new_act != 0));
           trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a_s), 1e-10f));
         }
         gsig[tid] = to_f(to_cd<T>(ds));
@@ -406,63 +176,7 @@ train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
       }
       __syncthreads();
 
-      // rgb head and direction layer: da_d = cast(wrgb^T da_rgb * act'(a_d))
-      for (int e = tid; e < TILE * HALF; e += THREADS) {
-        const int p = e / HALF, k = e % HALF;
-        float dd = __fmul_rn(to_f(W[WRGB + k]), darg[p * 3]);
-        dd = fmaf(to_f(W[WRGB + HALF + k]), darg[p * 3 + 1], dd);
-        dd = fmaf(to_f(W[WRGB + 2 * HALF + k]), darg[p * 3 + 2], dd);
-        const float a = dpre[e];
-        const float slope = new_act ? sigmoid(__fsub_rn(a, 1.f)) : (a > 0.f ? 1.f : 0.f);
-        const T v = to_cd<T>(__fmul_rn(dd, slope));
-        extra[p * LA + k] = v;
-        dad[e] = __fadd_rn(dad[e], to_f(v));
-      }
-      for (int e = tid; e < 3 * HALF; e += THREADS) {  // dwrgb = da_rgb^T d_act
-        const int ch = e / HALF, k = e % HALF;
-        float sum = 0.f;
-        for (int p = 0; p < TILE; ++p) sum = fmaf(darg[p * 3 + ch], to_f(t.act[p * LA + k]), sum);
-        atomicAdd(dW + WRGB + e, sum);
-      }
-      if (tid < 3 || tid == 32) {  // dbrgb, dbsig
-        float sum = 0.f;
-        for (int p = 0; p < TILE; ++p) sum = __fadd_rn(sum, tid < 3 ? darg[p * 3 + tid] : gsig[p]);
-        atomicAdd(dB + (tid < 3 ? BRGB + tid : BSIG), sum);
-      }
-      __syncthreads();  // da_d is whole; d_act in t.act has been read
-
-      const T* h8 = kept_layer(8);
-      bias_grad<T, HALF>(extra, dB + BD);
-      wgrad<T, HALF, WIDTH>(t, extra, kept_layer(9), LA, dW + WDH);
-      dgrad<T, HALF>(t, extra, W + WDH, EpiNone(), t.act);  // df
-      bias_grad<T, WIDTH>(t.act, dB + BFIN);
-      wgrad<T, WIDTH, WIDTH>(t, t.act, h8, LA, dW + WFIN);
-      for (int k = tid; k < WIDTH; k += THREADS) {  // dwsig = g_sig^T h8
-        float sum = 0.f;
-        for (int p = 0; p < TILE; ++p) sum = fmaf(gsig[p], to_f(h8[p * LA + k]), sum);
-        atomicAdd(dW + WSIG + k, sum);
-      }
-      dgrad<T, WIDTH>(t, t.act, W + WFIN, EpiSigmaMask<T>{h8, gsig, W + WSIG}, extra);  // da8
-
-      // the trunk, layers 8 down to 1: the delta of layer l is in ``cur``
-      constexpr int WOFF[9] = {0, W1, W2, W3, W4, W5H, W6, W7, W8};
-      constexpr int BOFF[9] = {0, B1, B2, B3, B4, B5, B6, B7, B8};
-      T* cur = extra;
-      T* other = t.act;
-      for (int l = 8; l >= 1; --l) {
-        bias_grad<T, WIDTH>(cur, dB + BOFF[l]);
-        if (l == 5) wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W5X);
-        if (l == 1) {
-          wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W1);
-          break;
-        }
-        wgrad<T, WIDTH, WIDTH>(t, cur, kept_layer(l - 1), LA, dW + WOFF[l]);
-        dgrad<T, WIDTH>(t, cur, W + WOFF[l], EpiMask<T>{kept_layer(l - 1)}, other);
-        T* const swap = cur;
-        cur = other;
-        other = swap;
-      }
-      __syncthreads();  // every reader of xpe, the deltas and the kept layers is done
+      mlp_backward_tile<T>(t, extra, darg, gsig, W, kept, dpre, dW, dB, new_act != 0, SumDirDelta<T>{dad});
     }
 
     // dwdx = (sum_s da_d)^T d_pe, one f32 product per ray tile

@@ -347,8 +347,9 @@ struct KeepNothing {
 
 // The MLP on the tile's xpe/dpe -> t.sig, t.rgb.  Expects xpe and dpe written
 // and synchronised; returns with sig and rgb visible to every thread and the
-// direction branch's activation in t.act[:, 0:HALF].
-template <typename T, typename Keep = KeepNothing>
+// direction branch's activation in t.act[:, 0:HALF].  SIGMA_ONLY stops after
+// the sigma head (dpe unread, t.rgb unwritten).
+template <typename T, typename Keep = KeepNothing, bool SIGMA_ONLY = false>
 __device__ void mlp_tile(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B,
                          bool new_act, const Keep& keep = Keep()) {
   constexpr int LA = Ld<T>::A, LX = Ld<T>::X, LD = Ld<T>::D;
@@ -372,6 +373,10 @@ __device__ void mlp_tile(const Tile<T>& t, const T* __restrict__ W, const float*
   // sigma reads h8 before xyz_encoding_final overwrites it: the layer's own
   // barrier before its epilogue orders the two
   sigma_head<T>(t, W, B);
+  if constexpr (SIGMA_ONLY) {
+    __syncthreads();
+    return;
+  }
   layer<T, WIDTH>(t, t.act, LA, WIDTH, W + WFIN, none, 0, 0, none, B + BFIN, ACT_NONE, t.act);
   keep.layer_done(9);
   layer<T, HALF>(t, t.act, LA, WIDTH, W + WDH, t.dpe, LD, DIR_PAD, W + WDX, B + BD,

@@ -1,8 +1,10 @@
-"""Host-side helpers and the validation API shared by the eval datasets.
+"""Shared machinery of the datasets.
 
-Counterpart of ``sinnerf_tpu/data/base.py:68-152``: ray packing, image
-loading and the ``val_len``/``val_item`` API.  The training sampler is not
-part of this port yet.
+Counterpart of ``sinnerf_tpu/data/base.py``: ray packing, image loading, the
+``val_len``/``val_item`` API, and for the single-image training datasets the
+pseudo-view warp banks (``build_warp_banks`` :30), the flat index of their
+valid pixels (``build_proj_index`` :51) and ``SingleImageDataset``, whose
+scene bundle lives on the device and feeds ``sampler.sample_batch``.
 """
 
 from __future__ import annotations
@@ -10,6 +12,10 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from sinnerf_tpu_torch.data.sampler import SamplerConfig, sample_batch
+from sinnerf_tpu_torch.ops.warp import forward_warp
 
 
 def pack_rays_np(
@@ -53,3 +59,59 @@ class EvalDataset:
         if self.val_fnames is not None and idx < len(self.val_fnames):
             item["fname"] = self.val_fnames[idx]
         return item
+
+
+def build_warp_banks(
+    ref_image: np.ndarray,
+    ref_depth: np.ndarray,
+    ref_proj: np.ndarray,
+    src_projs: np.ndarray,
+    zbuffer: bool,
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Warp the reference RGB-D into every pseudo pose, one pose at a time,
+    in float32 on ``device``.  Returns (bank_rgb (P, H, W, 3), bank_depth
+    (P, H, W)) as numpy."""
+    img = torch.as_tensor(ref_image, dtype=torch.float32, device=device)
+    dep = torch.as_tensor(ref_depth, dtype=torch.float32, device=device)
+    ref_p = torch.as_tensor(ref_proj, dtype=torch.float32, device=device)
+    rgbs, depths = [], []
+    for src_p in np.asarray(src_projs):
+        rgb, depth = forward_warp(img, dep, ref_p, torch.as_tensor(src_p, dtype=torch.float32, device=device),
+                                  zbuffer)
+        rgbs.append(rgb.cpu().numpy())
+        depths.append(depth.cpu().numpy())
+    return np.stack(rgbs), np.stack(depths)
+
+
+def build_proj_index(bank_rgb: np.ndarray, bank_depth: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The warp banks' valid pixels as a flat sampling index: (pose_idx
+    (V,), pix_idx (V,), depth (V,)).  Validity is the reference's
+    rgb-sum-nonzero hole mask (``blender_rot3d.py:402``)."""
+    p, h, w, _ = bank_rgb.shape
+    valid = bank_rgb.reshape(p, h * w, 3).sum(-1) != 0
+    pose_idx, pix_idx = np.nonzero(valid)
+    depth = bank_depth.reshape(p, h * w)[pose_idx, pix_idx]
+    return pose_idx.astype(np.int64), pix_idx.astype(np.int64), depth.astype(np.float32)
+
+
+class SingleImageDataset(EvalDataset):
+    """A training dataset of one posed RGB-D image: ``scene`` (the sampler's
+    array bundle, on the device it was built for), ``cfg`` (its
+    ``SamplerConfig``) and ``length`` (items per epoch), plus the validation
+    API of ``EvalDataset``."""
+
+    scene: Dict[str, torch.Tensor]
+    cfg: SamplerConfig
+    length: int = 1
+
+    def __len__(self) -> int:
+        return self.length
+
+    def sample(self, step: int, batch_size: int = 1, generator: Optional[torch.Generator] = None, draws=None):
+        """The batch of ``step`` with a leading (batch_size,) axis."""
+        return sample_batch(self.scene, step, self.cfg, batch_size, generator, draws)
+
+    @staticmethod
+    def _finalize_scene(scene_np: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device) for k, v in scene_np.items()}

@@ -1,9 +1,13 @@
-"""Camera pose math for the LLFF eval loader (host-side numpy).
+"""Camera pose math for the LLFF loaders and the training sampler.
 
-The port's own copy of the pieces of ``sinnerf_tpu/data/poses.py`` that
-``LLFFEval`` needs (reference ``datasets/llff_ray_patch_1image_proj.py:
-174-319``): pose averaging and centering, and the spiral and spheric test
-paths.  Conventions: c2w are OpenGL-style (x right, y up, -z forward).
+The port's own copy of the pieces of ``sinnerf_tpu/data/poses.py`` and
+``sinnerf_tpu/data/jnp_poses.py`` that the LLFF datasets and the sampler
+need (reference ``datasets/llff_ray_patch_1image_proj.py:174-319``,
+``blender_ray_patch_1image_rot3d.py:80-100``): pose averaging and
+centering, the spiral and spheric test paths (numpy), and the rotation,
+world-to-camera and projection matrices of the depth warps (tensors).
+Conventions: c2w are OpenGL-style (x right, y up, -z forward); the warps'
+w2c are OpenCV-style (y down, +z forward).
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def rot_phi(phi: float) -> np.ndarray:
@@ -87,3 +92,57 @@ def create_spheric_poses(radius: float, n_poses: int = 120) -> np.ndarray:
         ],
         0,
     )
+
+
+# --------------------------------------------------------------------------
+# Pose math for the depth warps, as tensors (JAX ``data/jnp_poses.py`` and
+# ``data/poses.py:52-100``): float64 on the host when a dataset builds its
+# warp banks, float32 on the device when the sampler warps a fresh view.
+# --------------------------------------------------------------------------
+
+
+def _rot(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rows = {
+        "x": [[o, z, z], [z, c, -s], [z, s, c]],
+        "y": [[c, z, -s], [z, o, z], [s, z, c]],
+        "z": [[c, -s, z], [s, c, z], [z, z, o]],
+    }[axis]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def rotate_3d(c2w: torch.Tensor, x_deg, y_deg, z_deg) -> torch.Tensor:
+    """World-frame Euler rotation of a (3, 4) or (4, 4) pose by degrees
+    (``jnp_poses.rotate_3d``, reference ``blender_rot3d.py:80-82``):
+    ``rot_x(x) @ rot_y(y) @ rot_z(z) @ c2w``, returned as (3, 4)."""
+    c2w = torch.as_tensor(c2w)[:3, :4]
+
+    def rad(deg):
+        return torch.deg2rad(torch.as_tensor(deg, dtype=c2w.dtype, device=c2w.device))
+
+    rot = _rot("x", rad(x_deg)) @ _rot("y", rad(y_deg)) @ _rot("z", rad(z_deg))
+    return torch.cat([rot @ c2w[:, :3], rot @ c2w[:, 3:]], dim=1)
+
+
+_GL_TO_CV = ((1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, -1.0))
+
+
+def c2w_to_w2c_cv(c2w: torch.Tensor) -> torch.Tensor:
+    """OpenGL c2w (3, 4) or (4, 4) -> OpenCV w2c (4, 4) (reference
+    ``blender_rot3d.py:85-100``): ``R' = flip R^T``, ``t' = flip (-R^T t)``
+    with flip negating the camera's y and z axes."""
+    c2w = torch.as_tensor(c2w)
+    flip = torch.tensor(_GL_TO_CV, dtype=c2w.dtype, device=c2w.device)
+    r_w2c = c2w[:3, :3].T
+    t_w2c = -r_w2c @ c2w[:3, 3:]
+    top = torch.cat([flip @ r_w2c, flip @ t_w2c], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=c2w.dtype, device=c2w.device)
+    return torch.cat([top, bottom], dim=0)
+
+
+def projection_matrix(k3: torch.Tensor, w2c4: torch.Tensor) -> torch.Tensor:
+    """The (4, 4) pixel projection with ``P[:3] = K @ w2c[:3]``
+    (reference ``dtu_proj.py:351-352``)."""
+    k3 = torch.as_tensor(k3, dtype=w2c4.dtype, device=w2c4.device)
+    return torch.cat([k3 @ w2c4[:3, :4], w2c4[3:4, :]], dim=0)

@@ -104,7 +104,7 @@ def _write_gif(path: str, imgs, fps: int = 5) -> None:
 
 def main(args):
     from sinnerf_tpu_torch.data.depth_io import save_pfm
-    from sinnerf_tpu_torch.data.llff import dataset_dict
+    from sinnerf_tpu_torch.data import dataset_dict
     from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked
     from sinnerf_tpu_torch.utils.device import resolve_device
     from sinnerf_tpu_torch.utils.visualization import visualize_depth
@@ -112,10 +112,6 @@ def main(args):
     device = resolve_device(args.device)
     if args.num_gpus > 1:
         raise NotImplementedError("multi-GPU rendering is not ported yet; use --num_gpus 1")
-    if args.dataset_name not in dataset_dict:
-        raise NotImplementedError(
-            f"dataset {args.dataset_name!r} is not ported yet; the port evaluates {sorted(dataset_dict)}"
-        )
     if args.timestamp == "":
         parts = args.ckpt_path.split('/')
         args.timestamp = parts[1] if len(parts) > 1 else 'ckpt'

@@ -1,10 +1,19 @@
-"""K0: the PE + NeRF-MLP body shared by the render kernels.
+"""K0, the PE + NeRF-MLP body shared by the kernels, and K4, the per-point MLP.
 
 Counterpart of ``sinnerf_tpu/ops/fused_mlp_t.py``: ``pack_weights_t``
-(:72), ``_pe_fwd`` (:135), ``_pe_concat`` (:150) and ``mlp_from_pe`` (:189).
-The CUDA routine is ``csrc/nerf_mlp.cuh``, included by the fused render
-kernels (``csrc/render_level.cuh``); ``mlp_plain`` is its plain PyTorch version
-and ``mlp_backward_plain`` that of the backward kernel's MLP body.
+(:72), ``_pe_fwd`` (:135), ``_pe_concat`` (:150) and ``mlp_from_pe`` (:189)
+for K0; ``fused_nerf_mlp_t`` (:543) with its kernels ``_kernel_t`` (:232)
+and ``_bwd_kernel_t`` (:298) for K4.  The CUDA routines are
+``csrc/nerf_mlp.cuh`` (forward) and ``csrc/mlp_backward.cuh`` (backward),
+included by every kernel; ``mlp_plain`` is the forward's plain PyTorch
+version and ``mlp_backward_plain`` that of the backward's MLP body.
+
+K4 (``csrc/fused_mlp.cu``) is ``fused_nerf_mlp``, a ``torch.autograd.Function``
+over the module's 24 float32 parameters with gradients for them, the points
+and the directions; ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
+``nerf_mlp_backward_plain`` (with ``pe_backward``) are its plain versions,
+used on CPU tensors and by the tests.  Its source note gives the bound
+(operations: 1.19 MFLOP per point forward, 3.56 backward).
 
 Packing.  ``pack_weights`` writes the 14 weight blocks of the split MLP into
 one contiguous buffer in the compute dtype, each block (out, in) row-major
@@ -27,13 +36,16 @@ direction epilogues stay float32.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from sinnerf_tpu_torch.core.activations import shifted_softplus, widened_sigmoid
+from sinnerf_tpu_torch.core.encoding import PE_RESTART, positional_encoding_recurrence
 from sinnerf_tpu_torch.models.nerf import NeRF
+from sinnerf_tpu_torch.ops import _build
 
 XYZ_CH = 63
 XYZ_PAD = 64
@@ -255,6 +267,7 @@ def mlp_backward_plain(
     g_rgb: torch.Tensor,
     g_sigma: torch.Tensor,
     use_new_activation: bool = True,
+    deltas: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Plain version of the backward kernel's MLP body
     (``fused_render_train_t.py::_train_bwd_kernel``, stage B), on P points at
@@ -266,9 +279,11 @@ def mlp_backward_plain(
 
     Cast points as in the kernel: every delta is cast to the compute dtype
     before both of its products, ReLU masks read the cast activation, sums
-    run in float32."""
+    run in float32.  A dict passed as ``deltas`` receives the cast deltas of
+    the two layers whose input is the PE, ``da1`` and ``da5`` (P, 256)."""
     v = weight_views(packed)
     cd = kept["x"].dtype
+    deltas = {} if deltas is None else deltas
     grads: Dict[str, torch.Tensor] = {}
 
     def cast(t):
@@ -302,6 +317,8 @@ def mlp_backward_plain(
     dh = back(df, "wfin") + back(g_sig, "wsig")
     for i in range(8, 0, -1):
         da = cast(dh * (kept[f"h{i}"].float() > 0))
+        if i in (1, 5):
+            deltas[f"da{i}"] = da
         if i == 5:
             emit("w5h", "b5", da, kept["h4"])
             emit("w5x", None, da, kept["x"])
@@ -319,3 +336,249 @@ def pack_grads(grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tens
     dw = torch.cat([grads[name].reshape(-1) for name, _, _ in WEIGHT_LAYOUT])
     db = torch.cat([grads[name].reshape(-1) for name, _ in BIAS_LAYOUT])
     return dw, db
+
+
+# --------------------------------------------------------------------------
+# K4: the per-point PE + MLP, forward and backward
+# --------------------------------------------------------------------------
+
+SOURCE = "fused_mlp.cu"
+POINT_CHUNK = 1 << 18  # points per pass of a plain version: bounds its (P, 256) activations
+
+
+def pe_backward(x: torch.Tensor, dpe: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """The exact adjoint of ``positional_encoding_recurrence``: x (P, C) and
+    the gradient dpe (P, >= C (2F + 1)) of its interleaved PE -> dx (P, C),
+    float32.  JAX ``_pe_bwd`` (``fused_mlp_t.py:160-181``) on the port's
+    interleaved columns: the recurrence levels pass their gradient down to
+    the level they came from, the exact levels to x."""
+    x = x.float()
+    c = x.shape[-1]
+    sins, coss = [], []
+    for k in range(n_freqs):
+        if k % PE_RESTART == 0:
+            xk = x * (2.0**k)
+            s, co = torch.sin(xk), torch.cos(xk)
+        else:
+            s, co = 2.0 * s * co, 1.0 - 2.0 * s * s
+        sins.append(s)
+        coss.append(co)
+    dx = dpe[:, :c].float()
+    ds_next = dc_next = None
+    for k in range(n_freqs - 1, -1, -1):
+        ds = dpe[:, c + 2 * c * k : 2 * c + 2 * c * k].float()
+        dc = dpe[:, 2 * c + 2 * c * k : 3 * c + 2 * c * k].float()
+        if k + 1 < n_freqs and (k + 1) % PE_RESTART != 0:
+            ds = ds + 2.0 * (coss[k] * ds_next) - 4.0 * (sins[k] * dc_next)
+            dc = dc + 2.0 * (sins[k] * ds_next)
+        if k % PE_RESTART == 0:
+            dx = dx + (2.0**k) * (coss[k] * ds - sins[k] * dc)
+        ds_next, dc_next = ds, dc
+    return dx
+
+
+def nerf_mlp_plain(
+    packed: PackedWeights,
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor],
+    use_new_activation: bool = True,
+    sigma_only: bool = False,
+    keep: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Plain version of K4-fwd: xyz (P, 3), dirs (P, 3) float32 (unread when
+    ``sigma_only``) -> (P, 4) ``[rgb, sigma]`` or (P, 1) sigma, float32.  The
+    recurrence PE of each point's own direction, then ``mlp_plain``, cast for
+    cast with the kernel."""
+    x_pe = positional_encoding_recurrence(xyz, N_FREQS_XYZ)
+    d_pe = None if sigma_only else positional_encoding_recurrence(dirs, N_FREQS_DIR)
+    rgb, sigma = mlp_plain(packed, x_pe, d_pe, use_new_activation, sigma_only, keep=keep)
+    return sigma[:, None] if sigma_only else torch.cat([rgb, sigma[:, None]], dim=1)
+
+
+def _chunks(n: int, chunk: int):
+    return [slice(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+
+
+@torch.no_grad()
+def nerf_mlp_forward_plain(packed, xyz, dirs, use_new_activation=True, sigma_only=False, chunk=POINT_CHUNK):
+    """``nerf_mlp_plain`` in chunks of points, without gradients."""
+    parts = [nerf_mlp_plain(packed, xyz[c], None if sigma_only else dirs[c], use_new_activation, sigma_only)
+             for c in _chunks(xyz.shape[0], chunk)]
+    return torch.cat(parts) if parts else xyz.new_zeros((0, 1 if sigma_only else 4))
+
+
+@torch.no_grad()
+def nerf_mlp_backward_plain(
+    packed: PackedWeights,
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor],
+    g: torch.Tensor,
+    use_new_activation: bool = True,
+    sigma_only: bool = False,
+    chunk: int = POINT_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of K4-bwd (``_bwd_kernel_t``, ``fused_mlp_t.py:298``):
+    the recompute, ``mlp_backward_plain``, the direction-PE block's gradient
+    per point, and the input gradient ``W1^T da1 + W5x^T da5`` and
+    ``Wdx^T da_d`` through ``pe_backward``.  g (P, 4) ``[d rgb, d sigma]``
+    (P, 1) when ``sigma_only``, whose backward runs on zero directions with
+    zero rgb cotangents as JAX's does.  Returns the packed float32 gradient
+    buffers (dw, db), dxyz (P, 3) and ddir (P, 3) or None."""
+    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=xyz.device)
+    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=xyz.device)
+    dxyz = torch.empty_like(xyz, dtype=torch.float32)
+    ddir = None if sigma_only else torch.empty_like(xyz, dtype=torch.float32)
+    v = weight_views(packed)
+    for c in _chunks(xyz.shape[0], chunk):
+        x = xyz[c]
+        d = torch.zeros_like(x) if sigma_only else dirs[c]
+        kept: Dict[str, torch.Tensor] = {}
+        nerf_mlp_plain(packed, x, d, use_new_activation, keep=kept)
+        g_rgb = torch.zeros_like(x) if sigma_only else g[c, 0:3].float()
+        deltas: Dict[str, torch.Tensor] = {}
+        grads, da_d = mlp_backward_plain(packed, kept, g_rgb, g[c, -1].float(), use_new_activation, deltas)
+        grads["wdx"] = da_d.float().T @ kept["d_in"].float()
+        dxpe = deltas["da1"].float() @ v["w1"].float() + deltas["da5"].float() @ v["w5x"].float()
+        dxyz[c] = pe_backward(x, dxpe, N_FREQS_XYZ)
+        if ddir is not None:
+            ddir[c] = pe_backward(d, da_d.float() @ v["wdx"].float(), N_FREQS_DIR)
+        cw, cb = pack_grads(grads)
+        dw += cw
+        db += cb
+    return dw, db, dxyz, ddir
+
+
+_signature_set = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _signature_set
+    lib = _build.load(SOURCE)
+    if not _signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_nerf_mlp_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.fused_nerf_mlp_fwd.restype = i
+        lib.fused_nerf_mlp_bwd.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.fused_nerf_mlp_bwd.restype = i
+        lib.fused_nerf_mlp_bwd_scratch_bytes.argtypes = [i]
+        lib.fused_nerf_mlp_bwd_scratch_bytes.restype = ctypes.c_longlong
+        lib.nerf_packed_weight_size.argtypes = []
+        lib.nerf_packed_weight_size.restype = i
+        if lib.nerf_packed_weight_size() != WEIGHT_SIZE:
+            raise RuntimeError("csrc/nerf_mlp.cuh and ops/fused_mlp.py disagree on the weight layout")
+        _signature_set = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, sigma_only=False) -> torch.Tensor:
+    """K4-fwd on CUDA tensors: (P, 4) ``[rgb, sigma]`` or (P, 1) sigma."""
+    n = xyz.shape[0]
+    out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32, device=xyz.device)
+    lib = _lib()
+    with torch.cuda.device(xyz.device):
+        rc = lib.fused_nerf_mlp_fwd(
+            xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+            out.data_ptr(), n, int(packed.w.dtype == torch.bfloat16), int(sigma_only), int(use_new_activation),
+            torch.cuda.current_stream(xyz.device).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_nerf_mlp (forward)")
+    launch_mlp_fwd.launches += 1
+    return out
+
+
+launch_mlp_fwd.launches = 0
+
+
+def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
+    """K4-bwd on CUDA tensors: (dw, db, dxyz, ddir or None) as
+    ``nerf_mlp_backward_plain`` returns them."""
+    n = xyz.shape[0]
+    dev = xyz.device
+    bf16 = packed.w.dtype == torch.bfloat16
+    lib = _lib()
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if bf16 else 1)
+    scratch = torch.empty(blocks * lib.fused_nerf_mlp_bwd_scratch_bytes(int(bf16)), dtype=torch.uint8, device=dev)
+    g4 = g.float()
+    if sigma_only:
+        g4 = torch.cat([torch.zeros((n, 3), dtype=torch.float32, device=dev), g4[:, -1:]], dim=1)
+    g4 = g4.contiguous()
+    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev)
+    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev)
+    dxyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    ddir = None if sigma_only else torch.empty((n, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_nerf_mlp_bwd(
+            xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
+            g4.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), dxyz.data_ptr(), _ptr(ddir),
+            n, blocks, int(bf16), int(use_new_activation), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_nerf_mlp (backward)")
+    launch_mlp_bwd.launches += 1
+    return dw, db, dxyz, ddir
+
+
+launch_mlp_bwd.launches = 0
+
+
+class _PointMLP(torch.autograd.Function):
+    """(xyz, dirs, flags, *24 parameters) -> (P, 4) or (P, 1); gradients for
+    the parameters, xyz and dirs."""
+
+    @staticmethod
+    def forward(ctx, xyz, dirs, sigma_only, use_new_activation, compute_dtype, *params):
+        packed = pack_tensors(params, torch_dtype(compute_dtype))
+        if xyz.device.type == "cuda":
+            out = launch_mlp_fwd(packed, xyz, dirs, use_new_activation, sigma_only)
+        else:
+            out = nerf_mlp_forward_plain(packed, xyz, dirs, use_new_activation, sigma_only)
+        ctx.save_for_backward(xyz, dirs, packed.w, packed.b)
+        ctx.flags = (use_new_activation, sigma_only)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, dirs, w, b = ctx.saved_tensors
+        use_new_activation, sigma_only = ctx.flags
+        args = (PackedWeights(w, b), xyz, dirs, g.float().contiguous(), use_new_activation, sigma_only)
+        if xyz.device.type == "cuda":
+            dw, db, dxyz, ddir = launch_mlp_bwd(*args)
+        else:
+            dw, db, dxyz, ddir = nerf_mlp_backward_plain(*args)
+        return (dxyz, ddir, None, None, None) + unpack_grads(dw, db)
+
+
+def fused_nerf_mlp(
+    model: NeRF,
+    xyz: torch.Tensor,
+    dirs: Optional[torch.Tensor] = None,
+    sigma_only: bool = False,
+    use_new_activation: bool = True,
+    compute_dtype: str = "float32",
+    detach_params: bool = False,
+) -> torch.Tensor:
+    """PE + NeRF MLP per point (JAX ``fused_nerf_mlp_t``, row-major): xyz
+    (P, 3) and dirs (P, 3) float32 (None when ``sigma_only``) -> (P, 4)
+    ``[rgb, sigma]`` or (P, 1) sigma, float32.  Differentiable with respect
+    to the model's parameters (float32 gradients; the ``Function`` casts the
+    parameters inside), xyz and dirs.  On CUDA tensors both directions launch
+    their kernels or raise, and add one to ``launch_mlp_fwd.launches`` and
+    ``launch_mlp_bwd.launches`` per launch; on CPU tensors they take the
+    plain versions."""
+    if xyz.dim() != 2 or xyz.shape[1] != 3 or xyz.dtype != torch.float32:
+        raise ValueError(f"xyz must be (P, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
+    if not sigma_only and (dirs is None or dirs.shape != xyz.shape or dirs.dtype != torch.float32):
+        raise ValueError("dirs must be (P, 3) float32 like xyz unless sigma_only")
+    weight_device = model.linear("xyz_encoding_1").weight.device
+    if xyz.device != weight_device or (dirs is not None and dirs.device != xyz.device):
+        raise ValueError(f"xyz ({xyz.device}), dirs and the model ({weight_device}) must be on one device")
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_nerf_mlp runs on cpu or cuda, not {xyz.device}")
+    params = param_tensors(model)
+    if detach_params:
+        params = tuple(p.detach() for p in params)
+    return _PointMLP.apply(xyz.contiguous(), None if sigma_only else dirs.contiguous(), sigma_only,
+                           use_new_activation, compute_dtype, *params)

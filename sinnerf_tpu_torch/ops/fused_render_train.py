@@ -48,6 +48,8 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
     N_FREQS_XYZ,
     WEIGHT_SIZE,
     PackedWeights,
+    _chunks,
+    _ptr,
     mlp_backward_plain,
     mlp_plain,
     pack_grads,
@@ -84,10 +86,6 @@ def _forward_plain(packed, dtype, rays6, z, noise, use_new_activation, white_bac
     if white_back:
         rgb = rgb + (1.0 - torch.sum(weights, dim=-1, keepdim=True))
     return rgb, depth, weights, alphas, rgb_s
-
-
-def _chunks(n: int, chunk: int):
-    return [slice(i, min(i + chunk, n)) for i in range(0, n, chunk)]
 
 
 @torch.no_grad()
@@ -231,10 +229,6 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError("csrc/nerf_mlp.cuh and ops/fused_mlp.py disagree on the weight layout")
         _signature_set = True
     return lib
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back):

@@ -1,1 +1,2 @@
-"""Checkpoint interop (counterpart of ``sinnerf_tpu/train``)."""
+"""Training: the step, optimizers, checkpoints, the trainer and the CLI
+(counterpart of ``sinnerf_tpu/train``)."""

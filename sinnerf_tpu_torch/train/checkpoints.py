@@ -1,17 +1,22 @@
-"""Reference-format NeRF checkpoints: ``{'state_dict': {nerf_coarse.*,
-nerf_fine.*}}`` ``.ckpt`` files.
+"""Reference-format checkpoints: ``.ckpt`` files holding ``{'state_dict':
+{nerf_coarse.*, nerf_fine.*}}``.
 
 Counterpart of ``sinnerf_tpu/train/checkpoints.py``: the ``nerf_only`` path
-of ``load_torch_nerf_checkpoint`` (:186-230) and the NeRF part of
-``export_torch_checkpoint`` (:250).  The JAX package's orbax checkpoint
-directories are not read by the port.
+of ``load_torch_nerf_checkpoint`` (:186-230) with ``prefixes_to_ignore``,
+the NeRF part of ``export_torch_checkpoint`` (:250), and
+``TopKCheckpointManager`` (:132, reference ``train.py:34-35``: top-2 on
+val/psnr plus ``last``).  A training checkpoint is a reference-format file
+that also carries what a resume needs: the optimizer's state (Adam's
+moments and step), the epoch, the step, the top-k ranking and the flags.
+The JAX package's orbax checkpoint directories are not read by the port.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Any, Dict, Iterable
 
+import numpy as np
 import torch
 
 from sinnerf_tpu_torch.models.nerf import TORCH_KEY_MAP
@@ -29,15 +34,30 @@ def _nerf_state(state: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.
     return own
 
 
-def load_torch_nerf_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Load the coarse/fine NeRF weights of a reference (pytorch-lightning)
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """The whole blob of a ``.ckpt``.  It is unpickled in full
+    (``weights_only=False``), as the reference's own loader does, so read
+    only checkpoints you trust."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: the port reads reference-format .ckpt files only, not orbax "
+            "checkpoint directories; write one with the JAX package's `save_weights_only --torch`"
+        )
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_torch_nerf_checkpoint(path: str, prefixes_to_ignore: Iterable[str] = ()) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The coarse/fine NeRF weights of a reference (pytorch-lightning)
     checkpoint as ``{'coarse': state_dict, 'fine': state_dict}`` with the
     ``nerf_coarse.``/``nerf_fine.`` prefixes stripped.  Keys may also sit
-    under a ``model.`` or ``module.`` wrapper.  The file is unpickled in full
-    (``weights_only=False``), as the reference's own loader does, so load
-    only checkpoints you trust."""
-    blob = torch.load(path, map_location="cpu", weights_only=False)
+    under a ``model.`` or ``module.`` wrapper; keys starting with one of
+    ``prefixes_to_ignore`` are dropped first (reference
+    ``extract_model_state_dict``, ``utils/__init__.py:60-83``)."""
+    blob = read_checkpoint(path)
     state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    prefixes = tuple(prefixes_to_ignore or ())
+    if prefixes:
+        state = {k: v for k, v in state.items() if not k.startswith(prefixes)}
     for wrapper in ("", "model.", "module."):
         out = {}
         for name, prefix in LEVELS:
@@ -49,15 +69,63 @@ def load_torch_nerf_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     raise KeyError(f"no NeRF weights found in {path}")
 
 
-def save_torch_nerf_checkpoint(path: str, states: Dict[str, Dict[str, torch.Tensor]]) -> str:
-    """Write ``{'coarse': state_dict, 'fine': state_dict}`` as a
-    reference-format ``.ckpt``."""
+def nerf_state_dict(states: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """``{'coarse': state_dict, 'fine': state_dict}`` -> the reference's
+    prefixed, CPU ``state_dict``."""
     sd = {}
     for name, prefix in LEVELS:
         for key, value in states.get(name, {}).items():
             sd[prefix + key] = torch.as_tensor(value).detach().cpu().contiguous()
     if not sd:
         raise KeyError("no 'coarse'/'fine' NeRF state to write")
+    return sd
+
+
+def write_checkpoint(path: str, blob: Dict[str, Any]) -> str:
+    """Write a blob atomically (a crash leaves the previous file whole)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    torch.save({"state_dict": sd, "epoch": 0}, path)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
     return path
+
+
+def save_torch_nerf_checkpoint(path: str, states: Dict[str, Dict[str, torch.Tensor]]) -> str:
+    """Write ``{'coarse': state_dict, 'fine': state_dict}`` as a
+    reference-format ``.ckpt``."""
+    return write_checkpoint(path, {"state_dict": nerf_state_dict(states), "epoch": 0})
+
+
+class TopKCheckpointManager:
+    """The best ``top_k`` checkpoints by val/psnr plus a rolling ``last``
+    (``ModelCheckpoint(monitor='val/psnr', mode='max', save_top_k=2,
+    save_last=True)``).  Files are ``<ckpt_dir>/epoch_<e>_psnr_<p>.ckpt``
+    and ``<ckpt_dir>/last.ckpt``.  The (score, name) ranking travels in every
+    saved blob under ``ckpt_best`` and comes back on resume; a NaN score
+    never enters it."""
+
+    def __init__(self, ckpt_dir: str, top_k: int = 2, best=None):
+        self.ckpt_dir = ckpt_dir
+        self.top_k = top_k
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.best = [(float(p), str(n)) for p, n in (best or [])
+                     if os.path.isfile(os.path.join(ckpt_dir, str(n)))]
+        self.best.sort(key=lambda t: -t[0])
+
+    def save(self, blob: Dict[str, Any], epoch: int, val_psnr: float) -> None:
+        name = f"epoch_{epoch}_psnr_{val_psnr:.2f}.ckpt"
+        keep = bool(np.isfinite(val_psnr)) and (len(self.best) < self.top_k or val_psnr > self.best[-1][0])
+        dropped = []
+        if keep:
+            self.best.append((float(val_psnr), name))
+            self.best.sort(key=lambda t: -t[0])
+            while len(self.best) > self.top_k:
+                dropped.append(self.best.pop()[1])
+        blob = dict(blob, ckpt_best=[[p, n] for p, n in self.best])
+        write_checkpoint(os.path.join(self.ckpt_dir, "last.ckpt"), blob)
+        if keep:
+            write_checkpoint(os.path.join(self.ckpt_dir, name), blob)
+        for drop in dropped:
+            path = os.path.join(self.ckpt_dir, drop)
+            if os.path.isfile(path):
+                os.remove(path)

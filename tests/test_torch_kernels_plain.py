@@ -69,7 +69,8 @@ def jax_renders(params, render_inputs):
 def test_render_level_plain_matches_jax(params, render_inputs, jax_renders, compute_dtype, white_back):
     rays, z = render_inputs
     model = nerf_from_state(state_dict_from_jax(params))
-    got = fused_render_level(model, torch.from_numpy(rays), torch.from_numpy(z), True, white_back, compute_dtype)
+    got = [g.detach() for g in fused_render_level(model, torch.from_numpy(rays), torch.from_numpy(z), True, white_back,
+                                                   compute_dtype)]  # differentiable: its backward recomputes through K4
     want = jax_renders[(compute_dtype, white_back)]
     assert float(want[2].sum(1).max()) > 0.1, "the field must not be empty"
     if compute_dtype == "float32":
