@@ -51,13 +51,13 @@ def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
         perturb=hparams.perturb,
         noise_std=hparams.noise_std,
         white_back=white_back,
-        compute_dtype=getattr(hparams, "compute_dtype", "float32"),
-        mlp_impl=getattr(hparams, "mlp_impl", "xla"),
+        compute_dtype=hparams.compute_dtype,
+        mlp_impl=hparams.mlp_impl,
     )
 
 
 def _check_supported(hparams: Any) -> None:
-    if getattr(hparams, "num_gpus", 1) > 1:
+    if hparams.num_gpus > 1:
         raise NotImplementedError(f"--num_gpus > 1: multi-GPU training {LATER}; pass --num_gpus 1")
     if hparams.vit_weight > 0:
         raise NotImplementedError(f"--vit_weight > 0: the DINO-ViT semantic loss {LATER} (Step-2 extras)")
@@ -80,8 +80,8 @@ class SinNeRFTrainer:
     def __init__(self, hparams: Any):
         _check_supported(hparams)
         self.hparams = hparams
-        self.device = resolve_device(getattr(hparams, "device", "cuda"))
-        seed = getattr(hparams, "seed", 0)
+        self.device = resolve_device(hparams.device)
+        seed = hparams.seed
         if hparams.dataset_name not in dataset_dict:
             raise ValueError(f"--dataset_name {hparams.dataset_name!r} is not a known dataset; "
                              f"choose one of {sorted(dataset_dict)}")
@@ -114,7 +114,7 @@ class SinNeRFTrainer:
         models = {level: nerf_from_state(state_dict_from_jax(random_params(rng))) for level in ("coarse", "fine")}
         if hparams.pt_model:  # warm start (train.py:22-33)
             # the port has no discriminator yet, so --nerf_only changes nothing
-            warm = load_torch_nerf_checkpoint(hparams.pt_model, getattr(hparams, "prefixes_to_ignore", None) or ())
+            warm = load_torch_nerf_checkpoint(hparams.pt_model, hparams.prefixes_to_ignore or ())
             for level, state in warm.items():
                 models[level].load_state_dict(state)
         models = {k: m.to(self.device) for k, m in models.items()}
@@ -132,6 +132,7 @@ class SinNeRFTrainer:
         self.ckpt_manager = TopKCheckpointManager(os.path.join(hparams.ckpt_dir, hparams.exp_name), top_k=2, best=best)
         self.writer = _make_writer(os.path.join(hparams.log_dir, hparams.exp_name))
         self.epoch_log: List[Tuple[int, int, float]] = []  # (epoch, steps, seconds) of each training epoch
+        self.val_log: List[Tuple[int, float]] = []  # (epoch, val PSNR) of each validation
 
     # ------------------------------------------------------------------ io
     def _resume(self, path: str):
@@ -166,33 +167,33 @@ class SinNeRFTrainer:
         (JAX ``steps_per_epoch`` :360)."""
         return max(1, math.ceil(len(self.train_dataset) / self.global_batch_size))
 
-    def fit(self, max_epochs: Optional[int] = None) -> float:
+    def fit(self) -> float:
         """Train and validate; returns the best val PSNR.  ``--profile``
         writes a ``torch.profiler`` trace of the fit into the log dir (the
         reference profiles single-GPU runs, ``train.py:59``)."""
-        if not getattr(self.hparams, "profile", False):
-            return self._fit(max_epochs)
+        if not self.hparams.profile:
+            return self._fit()
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
         log_dir = os.path.join(self.hparams.log_dir, self.hparams.exp_name)
         os.makedirs(log_dir, exist_ok=True)
         with profile(activities=activities) as prof:
-            best = self._fit(max_epochs)
+            best = self._fit()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
         return best
 
-    def _fit(self, max_epochs: Optional[int] = None) -> float:
+    def _fit(self) -> float:
         hp = self.hparams
-        max_epochs = max_epochs or hp.num_epochs
         best_psnr = -1.0
         self.validate(self.start_epoch, max_batches=1, log=False)  # sanity val (train.py:54)
         spe = self.steps_per_epoch()
-        for epoch in range(self.start_epoch, max_epochs):
+        for epoch in range(self.start_epoch, hp.num_epochs):
             self._run_epoch(epoch, spe)
             if (epoch + 1) % hp.check_val_every_n_epoch == 0:
                 val_psnr = self.validate(epoch)
                 best_psnr = max(best_psnr, val_psnr)
+                self.val_log.append((epoch, val_psnr))
                 self._save(epoch, val_psnr)
         return best_psnr
 

@@ -336,11 +336,33 @@ def test_k4_limits_fail_a_broken_pe_adjoint(params, compute_dtype, fault, monkey
     params_err = chip_smoke.grad_errors(fm.unpack_grads(*got[:2]), fm.unpack_grads(*want[:2]))
     l2 = max(params_err[1], chip_smoke.input_grad_error(got[2], want[2])[1],
              chip_smoke.input_grad_error(got[3], want[3])[1])
-    tol = chip_smoke.K4_BWD_TOL[compute_dtype]
+    tol = chip_smoke.K4_BWD_TOL
     if fault is None:
         assert params_err[0] <= tol[0] and l2 <= tol[1], (params_err, l2)
     else:
         assert l2 > tol[1], l2
+
+
+def test_k4_gradient_band_is_one_input_ulp(params):
+    """Where ``chip_smoke.K4_BWD_TOL`` comes from, in float32: on the inputs
+    of ``test_k4_kernels_match_plain[float32-20001-False]`` (whose card
+    reading is 2.7e-2 / 6.6e-3), moving xyz by one float32 ulp moves the
+    plain backward's worst leaf by 2.8e-2 / 1.1e-2: past the first limit
+    (1e-2, 5e-3), inside the present one.  One ulp of xyz, amplified by the
+    PE (up to 2^9 x), flips a few ReLU masks; the kernel's other sum orders
+    flip them too."""
+    n = 20001
+    rng = np.random.default_rng(n)
+    xyz = torch.tensor(rng.normal(scale=2.0, size=(n, 3)), dtype=torch.float32)
+    dirs = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(n, 4)), dtype=torch.float32)
+    packed = fm.pack_weights(nerf_from_state(state_dict_from_jax(params)), torch.float32)
+    want = fm.nerf_mlp_backward_plain(packed, xyz, dirs, g)
+    got = fm.nerf_mlp_backward_plain(packed, torch.nextafter(xyz, torch.full_like(xyz, np.inf)), dirs, g)
+    leaf_max, leaf_l2 = chip_smoke.grad_errors(fm.unpack_grads(*got[:2]), fm.unpack_grads(*want[:2]))
+    l2 = max(leaf_l2, chip_smoke.input_grad_error(got[2], want[2])[1], chip_smoke.input_grad_error(got[3], want[3])[1])
+    assert leaf_max > 1e-2, (leaf_max, l2)
+    assert leaf_max <= chip_smoke.K4_BWD_TOL[0] and l2 <= chip_smoke.K4_BWD_TOL[1], (leaf_max, l2)
 
 
 # --------------------------------------------------------------------------
@@ -358,8 +380,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,sigma_only", [(20001, False), (20001, True), (70001, False)])
+@pytest.mark.parametrize("n,sigma_only", [(20001, False), (20001, True), (70001, False), (333, False), (333, True)])
 def test_k4_kernels_match_plain(cuda_device, params, n, sigma_only, compute_dtype):
+    """333 points, a short tail of less than one tile, is held to
+    ``chip_smoke.K4_BWD_TOL_SHORT``; the others to ``K4_BWD_TOL``."""
     rng = np.random.default_rng(n)
     xyz = torch.tensor(rng.normal(scale=2.0, size=(n, 3)), dtype=torch.float32, device=cuda_device)
     dirs = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=cuda_device)
