@@ -59,7 +59,25 @@ Phases, any failure exits non-zero without the final result line:
    Then the float32 run resumed from its ``last.ckpt`` for a third epoch on
    the plain path and on the kernels, their val PSNRs held together; and
    the eval CLI renders one of the checkpoints;
-12. print one ``kernels`` JSON line, then, last,
+12. X1, the forward-kernel variants of K4-fwd
+   (``sinnerf_tpu_torch.scripts.exp_kernel_variants``): every variant's
+   kernel against its plain version and against production K4-fwd at 4096
+   and 333 points; then the experiment's entry point (``main``) at 8,388,608
+   points with every count set to 0 just before and read just after (each
+   variant launched, finite, within K4-fwd's limit of ``pe``, the depth
+   merge equal to ``torch.sort``); on the inputs it ran on, each variant
+   held against its plain version (timed there) and ``pe`` against
+   production K4-fwd;
+13. X2, the pipelining variants of K3-bwd
+   (``sinnerf_tpu_torch.scripts.exp_bwd_pipeline``): every variant's kernel
+   against its plain version at 128 rays x S = 8 (a partly open field) and
+   333 x 10 (an open one), the exact ones also against production K3-bwd within its
+   run-to-run spread; then the entry point at 16,384 rays x 192 samples over
+   all eight variants (both two_stream tiles, timed beside ``base`` in
+   alternating rounds) with the counts set to 0 just before and read just
+   after; on the inputs it ran on, each variant held against its plain
+   version (timed there);
+14. print one ``kernels`` JSON line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
@@ -158,6 +176,19 @@ K4_BWD_TOL = (5e-2, 3e-2)
 K4_TILE = 4096
 K4_BWD_TOL_SHORT = (3e-1, 1e-1)
 K4_SHORT_SEEDS = 8
+# X1 (K4-fwd's variants) is held to K4-fwd's limits; X2 (K3-bwd's) to
+# K3-bwd's against its plain versions, and its exact variants against
+# production K3-bwd to exp_bwd_pipeline.EXACT_TOL_SMALL at the small shapes and
+# EXACT_TOL at the experiment's size (the same function, summed by atomics in
+# another order)
+X1_SMALL = (4096, 333)
+# (rays, samples, seed): seed 60's weights open the sigma gate at 30% of the
+# samples, seed 62's at all.  The ragged shape is held on an open field: on
+# JAX's initial weights sigma lies within 2e-2 of 0 everywhere, and at 333 x
+# 10 on seed 60's field a flip of the gate at one sample moves the sigma
+# bias's gradient by 8% for production K3-bwd as for its variants (one ulp
+# of the rays moves the plain version's by 4e9)
+X2_SMALL = ((128, 8, 60), (333, 10, 62))
 MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
 CLI_EPOCHS = 2
 # a training run's best val PSNR must clear a black render's by this much
@@ -183,19 +214,12 @@ def card_line() -> str:
 
 
 def timed(fn, reps: int):
-    """One warm-up call, then the mean of ``reps`` calls in ms by CUDA
-    events.  Returns (the warm-up call's result, ms)."""
-    import torch
+    """The port's timing rule (``sinnerf_tpu_torch.utils.timing.timed``): one
+    warm-up call, then the mean of ``reps`` calls in ms by CUDA events.
+    Returns (the warm-up call's result, ms)."""
+    from sinnerf_tpu_torch.utils.timing import timed as cuda_timed
 
-    out = fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / reps
+    return cuda_timed(fn, reps)
 
 
 def make_params(seed: int, sigma_shift: float = 0.3):
@@ -1046,6 +1070,155 @@ def phase_train_cli(device, workdir: str, root: str):
     return out
 
 
+def phase_x1_checks(device, rng):
+    """Each X1 variant's kernel against its plain version and against
+    production K4-fwd, at a tile multiple and at a ragged count."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_mlp as fm
+    from sinnerf_tpu_torch.scripts import exp_kernel_variants as x1
+
+    packed = fm.pack_weights(make_model(50, device), torch.bfloat16)
+    worst = {}
+    for n in X1_SMALL:
+        xyz = torch.tensor(rng.normal(scale=2.0, size=(n, 3)), dtype=torch.float32, device=device)
+        dirs = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=device)
+        xpe, dpe = x1.encode(xyz, dirs)
+        prod = fm.launch_mlp_fwd(packed, xyz, dirs)
+        for name, (in_pe, ilp, tile) in x1.GRID.items():
+            a, b = (xyz, dirs) if in_pe else (xpe, dpe)
+            got = x1.make_variant(in_pe, ilp, tile)(packed, a, b)
+            torch.cuda.synchronize()
+            if got.shape != (n, 4) or not bool(got.isfinite().all()):
+                raise Failed(f"X1 {name}: shape {tuple(got.shape)} or non-finite values")
+            errs = []
+            for what, ref in (("plain version", x1.variant_plain(packed, in_pe, a, b)), ("production K4-fwd", prod)):
+                diff = (got - ref).abs()
+                errs.append((diff.max().item(), diff.mean().item()))
+                hold(f"X1 {name:12s} n={n:5d} vs its {what}", errs[-1], K4_FWD_TOL["bfloat16"])
+            w = worst.setdefault(name, dict(plain=(0.0, 0.0), production=(0.0, 0.0)))
+            for key, err in zip(("plain", "production"), errs):
+                w[key] = tuple(map(max, w[key], err))
+    return worst
+
+
+def phase_x1(device):
+    """X1's entry point at full size, counts set to 0 just before and read
+    just after; then, on the inputs it ran on, each variant held against its
+    plain version (timed there) and ``pe`` against production K4-fwd."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_mlp as fm
+    from sinnerf_tpu_torch.scripts import exp_kernel_variants as x1
+
+    i = x1.make_inputs(x1.N_POINTS, 0, device)
+    x1.launch_variant.launches.clear()
+    res = x1.main(i)
+    counts = {name: x1.launch_variant.launches[name] for name in x1.GRID}
+    print(f"X1 entry point: launches {counts}")
+    for name in x1.GRID:
+        r = res[name]
+        if "failed" in r or not r["finite"] or counts[name] == 0:
+            raise Failed(f"X1 {name} at {x1.N_POINTS} points: {r}, {counts[name]} launches")
+        hold(f"X1 {name:12s} at {x1.N_POINTS} points vs pe", (r["max_err_vs_pe"], r["mean_err_vs_pe"]),
+             K4_FWD_TOL["bfloat16"])
+    if not res["z_merge"]["equal"]:
+        raise Failed("X1 z-merge: bitonic_merge_sorted differs from torch.sort")
+    plain = {}  # one plain version per input form
+    for name, (in_pe, ilp, tile) in x1.GRID.items():
+        a, b = i.args(in_pe)
+        if in_pe not in plain:
+            plain[in_pe] = timed(lambda: x1.variant_plain(i.packed, in_pe, a, b), 1)
+            print(f"X1 plain version (in_pe={in_pe}) {plain[in_pe][1]:.1f} ms at {x1.N_POINTS} points")
+        got = x1.make_variant(in_pe, ilp, tile)(i.packed, a, b)
+        diff = (got - plain[in_pe][0]).abs()
+        res[name]["err_vs_plain"] = (diff.max().item(), diff.mean().item())
+        hold(f"X1 {name:12s} at {x1.N_POINTS} points vs its plain version", res[name]["err_vs_plain"],
+             K4_FWD_TOL["bfloat16"])
+        if name == "pe":
+            diff = (got - fm.launch_mlp_fwd(i.packed, i.xyz, i.dirs)).abs()
+            res[name]["err_vs_production"] = (diff.max().item(), diff.mean().item())
+            hold(f"X1 {name:12s} at {x1.N_POINTS} points vs production K4-fwd", res[name]["err_vs_production"],
+                 K4_FWD_TOL["bfloat16"])
+        res[name]["plain_ms"] = plain[in_pe][1]
+        del got, diff
+    del i, plain
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def phase_x2_checks(device):
+    """Each X2 variant's kernel against its plain version; the exact ones
+    also against production K3-bwd within its run-to-run spread."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+    from sinnerf_tpu_torch.ops.fused_mlp import unpack_grads
+    from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
+
+    worst = {}
+    for n, s, seed in X2_SMALL:
+        i = x2.make_inputs(n, s, seed, device)
+        prod_args = (i.packed, i.rays6, i.z, None, i.weights, i.alphas, i.rgb_s, i.g_rgb, i.g_depth, i.g_w, True,
+                     False)
+        prod = frt.launch_train_bwd(*prod_args)
+        if not bool(prod[0].any()):
+            raise Failed(f"X2 inputs at n={n} S={s}: an empty field, every gradient is 0 and nothing is held")
+        spread = x2.leaf_errors(frt.launch_train_bwd(*prod_args), prod)
+        for variant, rays, streams in x2.parse_spec(x2.ALL_SPEC):
+            tag = f"{variant}:{rays}:{streams}"
+            got = x2.run_variant(variant, rays, streams, i)
+            torch.cuda.synchronize()
+            err = grad_errors(unpack_grads(*got), unpack_grads(*x2.variant_plain(variant, i)))
+            hold_grads(f"X2 {tag:16s} n={n} S={s} vs its plain version", err, K3_BWD_TOL["bfloat16"])
+            w = worst.setdefault(tag, dict(plain=(0.0, 0.0), production=None, spread=(0.0, 0.0)))
+            w["plain"] = tuple(map(max, w["plain"], err))
+            if variant in x2.EXACT:
+                err_p = x2.leaf_errors(got, prod)
+                hold_grads(f"X2 {tag:16s} n={n} S={s} vs production K3-bwd (two production runs differ by "
+                           f"{spread[0]:.1e}, {spread[1]:.1e})", err_p, x2.EXACT_TOL_SMALL)
+                w["production"] = tuple(map(max, w["production"] or (0.0, 0.0), err_p))
+                w["spread"] = tuple(map(max, w["spread"], spread))
+                w["tolerance"] = x2.EXACT_TOL_SMALL
+    return worst
+
+
+def phase_x2(device):
+    """X2's entry point at full size over every variant, counts set to 0
+    just before and read just after; then, on the inputs it ran on, each
+    variant held against its plain version (timed there)."""
+    import torch
+
+    from sinnerf_tpu_torch.ops.fused_mlp import unpack_grads
+    from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
+
+    i = x2.make_inputs(x2.N_RAYS, x2.N_SAMPLES, 0, device)
+    x2.launch_variant.launches.clear()
+    res = x2.main(["--variants", x2.ALL_SPEC], inputs=i)
+    spec = x2.parse_spec(x2.ALL_SPEC)
+    tags = [f"{v}:{r}:{st}" for v, r, st in spec]
+    counts = {tag: x2.launch_variant.launches[tag] for tag in tags}
+    print(f"X2 entry point: launches {counts}")
+    for tag in tags:
+        r = res[tag]
+        if "failed" in r or not r["finite"] or not r.get("exact_ok", True) or counts[tag] == 0:
+            raise Failed(f"X2 {tag} at {x2.N_RAYS} x {x2.N_SAMPLES}: {r}, {counts[tag]} launches")
+    plain = {}
+    for (variant, rays, streams), tag in zip(spec, tags):
+        key = "exact" if variant in x2.EXACT else variant  # one plain version serves the exact variants
+        if key not in plain:
+            plain[key] = timed(lambda: x2.variant_plain(variant, i), 1)
+            print(f"X2 {variant:10s} plain version {plain[key][1]:.1f} ms at {x2.N_RAYS} x {x2.N_SAMPLES}")
+        got = x2.run_variant(variant, rays, streams, i)
+        res[tag]["err_vs_plain"] = grad_errors(unpack_grads(*got), unpack_grads(*plain[key][0]))
+        hold_grads(f"X2 {tag:16s} at {x2.N_RAYS} x {x2.N_SAMPLES} vs its plain version", res[tag]["err_vs_plain"],
+                   K3_BWD_TOL["bfloat16"])
+        res[tag]["plain_ms"] = plain[key][1]
+    del i, plain
+    torch.cuda.empty_cache()
+    return res, counts
+
+
 def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
@@ -1091,6 +1264,10 @@ def main() -> int:
             k4_err = phase_k4_checks(device, rng)
             det = phase_det_train(device, rng, batch)
             cli = phase_train_cli(device, workdir, root)
+        x1_err = phase_x1_checks(device, rng)
+        x1_res, x1_counts = phase_x1(device)
+        x2_err = phase_x2_checks(device)
+        x2_res, x2_counts = phase_x2(device)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1168,9 +1345,39 @@ def main() -> int:
         bound_by="bytes", library_ms=None,
         per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in k2[:2] + tpath["k2"][:1]},
     ))
+    for name, r in ((n, x1_res[n]) for n in x1_err):
+        kernels.append(dict(
+            name=f"exp_kernel_variants[{name}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_kernel_variants.cu",
+            replaces="scripts/exp_kernel_variants.py:79", launches=x1_counts[name],
+            max_abs_err=max(x1_err[name]["plain"][0], r["err_vs_plain"][0]),
+            mean_abs_err=max(x1_err[name]["plain"][1], r["err_vs_plain"][1]),
+            tolerance=K4_FWD_TOL["bfloat16"], err_vs_plain_full=r["err_vs_plain"],
+            err_vs_production_k4=x1_err[name]["production"], err_vs_pe_full=[r["max_err_vs_pe"], r["mean_err_vs_pe"]],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="operations", library_ms=None,
+            tflops=r["tflops"], bound_share=r["bound_share"], vs_production=r["vs_production"],
+            vs_production_range=r["vs_production_range"], production_ms=x1_res["production"]["ms"],
+        ))
+        if "err_vs_production" in r:
+            kernels[-1].update(err_vs_production_k4_full=r["err_vs_production"])
+    for tag, r in ((t, x2_res[t]) for t in x2_err):
+        entry = dict(
+            name=f"exp_bwd_pipeline[{tag}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_bwd_pipeline.cu",
+            replaces="scripts/exp_bwd_pipeline.py:73", launches=x2_counts[tag],
+            max_abs_err=max(x2_err[tag]["plain"][0], r["err_vs_plain"][0]),
+            rel_l2_err=max(x2_err[tag]["plain"][1], r["err_vs_plain"][1]), err_vs_plain_full=r["err_vs_plain"],
+            tolerance=K3_BWD_TOL["bfloat16"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="operations", library_ms=None, bound_share=r["bound_share"], vs_production=r["vs_production"],
+            vs_base=r["vs_base"], vs_base_range=r["vs_base_range"], production_ms=x2_res["production"]["ms"],
+            production_vs_base_range=x2_res["production"]["vs_base_range"],
+        )
+        if x2_err[tag]["production"] is not None:
+            entry.update(err_vs_production=x2_err[tag]["production"], err_vs_production_full=r["err_vs_production"],
+                         production_run_to_run=x2_err[tag]["spread"], production_tolerance=x2_err[tag]["tolerance"],
+                         production_tolerance_full=r["exact_tol"])
+        kernels.append(entry)
     print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
-          f"(K1: one eval image; K3 and K4: one train step; K2: both); no single PyTorch call computes any kernel's "
-          f"function")
+          f"(K1: one eval image; K3 and K4: one train step; K2: both; X1 and X2: one launch of the experiment's "
+          f"size); no single PyTorch call computes any kernel's function")
     print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

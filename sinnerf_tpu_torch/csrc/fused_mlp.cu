@@ -33,35 +33,6 @@
 
 using namespace nerf;
 
-// The points [p0, p0 + TILE) into t.rays as [xyz, dir] (points past n, and the
-// directions when dirs is null, are zeros), the zero padding of xpe and dpe,
-// and the PE of both.  Ends synchronised.
-template <typename T>
-__device__ void load_points(const Tile<T>& t, const float* __restrict__ xyz,
-                            const float* __restrict__ dirs, int p0, int n) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < TILE * 6; i += THREADS) {
-    const int p = i / 6, c = i % 6;
-    float v = 0.f;
-    if (p0 + p < n) {
-      if (c < 3) v = xyz[(size_t)(p0 + p) * 3 + c];
-      else if (dirs != nullptr) v = dirs[(size_t)(p0 + p) * 3 + c - 3];
-    }
-    t.rays[i] = v;
-  }
-  if (tid < TILE) {
-    t.xpe[tid * Ld<T>::X + XYZ_CH] = to_cd<T>(0.f);
-    for (int c = DIR_CH; c < DIR_PAD; ++c) t.dpe[tid * Ld<T>::D + c] = to_cd<T>(0.f);
-  }
-  __syncthreads();
-  if (tid < TILE * 3) {
-    const int p = tid / 3, c = tid % 3;
-    pe_channel<T>(t.rays[p * 6 + c], c, N_FREQS_XYZ, t.xpe + p * Ld<T>::X);
-    pe_channel<T>(t.rays[p * 6 + 3 + c], c, N_FREQS_DIR, t.dpe + p * Ld<T>::D);
-  }
-  __syncthreads();
-}
-
 // dL/dx of input channel c (value x) from the gradient row g of its PE
 // (interleaved: g[c] for x, g[3+6k+c] for sin 2^k x, g[6+6k+c] for cos): the
 // exact adjoint of pe_channel's recurrence, _pe_bwd (fused_mlp_t.py:160-181)

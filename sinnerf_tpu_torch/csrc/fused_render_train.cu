@@ -51,8 +51,7 @@
 // Cast points follow _train_bwd_kernel: every delta is cast to the compute
 // dtype before both of its products; ReLU masks read the cast activation;
 // sums run in f32.
-#include "mlp_backward.cuh"
-#include "render_level.cuh"
+#include "train_backward.cuh"
 
 using namespace nerf;
 
@@ -71,35 +70,8 @@ train_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
 }
 
 // ------------------------------------------------------------------- K3-bwd
-// Per-block scratch in global memory: the kept activations [N_KEPT][TILE][Ld::A]
-// in the compute dtype, the direction layer's f32 pre-activation [TILE][HALF]
-// and the per-ray f32 sum of its delta [TILE][HALF].
-template <typename T>
-struct BwdScratch {
-  static constexpr size_t KEPT = (size_t)N_KEPT * TILE * Ld<T>::A;
-  static constexpr size_t BYTES = KEPT * sizeof(T) + 2 * TILE * HALF * sizeof(float);
-};
-
-// The direction-PE block's input is constant along a ray: keep the f32 sum
-// over samples of the cast direction delta per ray, for one product per ray
-// tile.
-template <typename T>
-struct SumDirDelta {
-  float* dad;  // [TILE][HALF]
-  __device__ void dir_delta(int e, T v) const { dad[e] = __fadd_rn(dad[e], to_f(v)); }
-  __device__ void dir_done(const T*) const {}
-  __device__ void trunk_delta(int, const T*) const {}
-};
-
-// c_s = dL/dw_s of one sample.
-__device__ __forceinline__ float weight_cotangent(const float* __restrict__ rgb_s, float gr, float gg,
-                                                  float gb, float gd, float zs, float gw, float gsum,
-                                                  int white_back) {
-  float c = __fadd_rn(__fadd_rn(__fmul_rn(gr, rgb_s[0]), __fmul_rn(gg, rgb_s[1])), __fmul_rn(gb, rgb_s[2]));
-  c = __fadd_rn(__fadd_rn(c, __fmul_rn(gd, zs)), gw);
-  return white_back ? __fsub_rn(c, gsum) : c;
-}
-
+// The body, its per-block scratch (BwdScratch) and the stage-A/B sweeps are
+// train_backward.cuh's train_bwd_tiles, which the X2 variants share.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, bwd_blocks_per_sm<T>())
 train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
@@ -109,84 +81,9 @@ train_bwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                  const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
                  const float* __restrict__ g_w, float* dsig_part, unsigned char* scratch,
                  float* dW, float* dB, int n, int S, int new_act, int white_back) {
-  constexpr int LA = Ld<T>::A, LD = Ld<T>::D;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tile<T> t = carve<T>(smem);
-  T* const extra = reinterpret_cast<T*>(smem + tile_bytes<T>());  // the second delta tile
-  float* const darg = reinterpret_cast<float*>(extra + TILE * LA);  // [TILE][3] cast da_rgb
-  float* const gsig = darg + 3 * TILE;                               // [TILE] cast dL/dsigma
-  float* const rpre = gsig + TILE;                                   // [TILE][3] rgb pre-activation
-
-  unsigned char* const mine = scratch + (size_t)blockIdx.x * BwdScratch<T>::BYTES;
-  T* const kept = reinterpret_cast<T*>(mine);
-  float* const dpre = reinterpret_cast<float*>(mine + BwdScratch<T>::KEPT * sizeof(T));
-  float* const dad = dpre + TILE * HALF;
-  const Keep<T> keep{t.act, kept, dpre, rpre};
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (n + TILE - 1) / TILE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ray0 = tile * TILE;
-    __syncthreads();  // the previous tile's readers of rays, dpe and dad are done
-    const float dnorm = load_rays_and_dir_pe<T>(t, rays, ray0, n);
-    const int my = ray0 + tid;
-    const bool live = tid < TILE && my < n;
-    float gr = 0.f, gg = 0.f, gb = 0.f, gd = 0.f, gsum = 0.f;
-    if (live) {
-      gr = g_rgb[(size_t)my * 3 + 0];
-      gg = g_rgb[(size_t)my * 3 + 1];
-      gb = g_rgb[(size_t)my * 3 + 2];
-      gd = g_depth[my];
-      gsum = __fadd_rn(__fadd_rn(gr, gg), gb);
-      // stage A, downwards: -S_s / u_s with S_s the suffix sum of c_j w_j
-      float suffix = 0.f;
-      for (int s = S - 1; s >= 0; --s) {
-        const size_t at = (size_t)my * S + s;
-        const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, gd, z[at], g_w[at], gsum, white_back);
-        const float u = fmaxf(__fadd_rn(__fsub_rn(1.f, a_res[at]), 1e-10f), 1e-10f);
-        dsig_part[at] = __fdiv_rn(-suffix, u);
-        suffix = __fadd_rn(suffix, __fmul_rn(c, w_res[at]));
-      }
-    }
-    for (int e = tid; e < TILE * HALF; e += THREADS) dad[e] = 0.f;
-
-    // stage B, upwards
-    float trans = 1.f;
-    for (int s = 0; s < S; ++s) {
-      sample_pe<T>(t, z, ray0, n, S, s);
-      mlp_tile<T, Keep<T>>(t, W, B, new_act != 0, keep);
-      if (tid < TILE) {
-        float ds = 0.f, dr[3] = {0.f, 0.f, 0.f};
-        if (live) {
-          const size_t at = (size_t)my * S + s;
-          const float delta = interval(z + (size_t)my * S, S, s, dnorm);
-          const float w_s = w_res[at], a_s = a_res[at];
-          const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, gd, z[at], g_w[at], gsum, white_back);
-          const float da_alpha = __fadd_rn(__fmul_rn(c, trans), dsig_part[at]);
-          float sig = t.sig[tid];
-          if (noise != nullptr) sig = __fadd_rn(sig, noise[at]);
-          if (sig > 0.f) ds = __fmul_rn(__fmul_rn(da_alpha, __fsub_rn(1.f, a_s)), delta);
-          const float g3[3] = {gr, gg, gb};
-          for (int ch = 0; ch < 3; ++ch)
-            dr[ch] = __fmul_rn(__fmul_rn(w_s, g3[ch]), rgb_act_slope(rpre[tid * 3 + ch], new_act != 0));
-          trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a_s), 1e-10f));
-        }
-        gsig[tid] = to_f(to_cd<T>(ds));
-        for (int ch = 0; ch < 3; ++ch) darg[tid * 3 + ch] = to_f(to_cd<T>(dr[ch]));
-      }
-      __syncthreads();
-
-      mlp_backward_tile<T>(t, extra, darg, gsig, W, kept, dpre, dW, dB, new_act != 0, SumDirDelta<T>{dad});
-    }
-
-    // dwdx = (sum_s da_d)^T d_pe, one f32 product per ray tile
-    for (int e = tid; e < HALF * DIR_PAD; e += THREADS) {
-      const int o = e / DIR_PAD, c = e % DIR_PAD;
-      float sum = 0.f;
-      for (int p = 0; p < TILE; ++p) sum = fmaf(dad[p * HALF + o], to_f(t.dpe[p * LD + c]), sum);
-      atomicAdd(dW + WDX + e, sum);
-    }
-  }
+  train_bwd_tiles<T>(rays, z, noise, W, B, w_res, a_res, rgb_res, g_rgb, g_depth, g_w, dsig_part, scratch, dW,
+                     dB, n, S, new_act, white_back, smem);
 }
 
 // ------------------------------------------------------------------ launches

@@ -13,6 +13,11 @@
 // (fused_mlp_t.py:298) and _train_bwd_kernel (fused_render_train_t.py:164):
 // every delta is cast to the compute dtype before both of its products; ReLU
 // masks read the cast activation; sums run in f32.
+//
+// Like mlp_tile, every routine runs on a tile of P points with 4P threads,
+// the whole block (P = TILE in the production kernels).  The Abl options
+// remove parts of the backward on purpose, for the timing ablations of
+// exp_bwd_pipeline.cu; the production kernels take Exact.
 #pragma once
 
 #include "nerf_mlp.cuh"
@@ -22,22 +27,29 @@ namespace nerf {
 constexpr int N_KEPT = 9;  // h1..h8 and the output of xyz_encoding_final
 
 // Shared memory of the backward: the forward's tile, one more delta tile and
-// the per-point head cotangents (da_rgb [TILE][3], g_sig [TILE]) and rgb
-// pre-activation [TILE][3].
-template <typename T>
-constexpr size_t bwd_smem_bytes() {
-  return tile_bytes<T>() + sizeof(T) * TILE * Ld<T>::A + sizeof(float) * 7 * TILE;
+// the per-point head cotangents (da_rgb [P][3], g_sig [P]) and rgb
+// pre-activation [P][3].
+template <typename T, int P = TILE>
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
+  return tile_bytes<T, P>() + sizeof(T) * P * Ld<T>::A + sizeof(float) * 7 * P;
 }
 
-template <typename T>
+// What the backward removes: Exact removes nothing.  NO_DB drops every bias
+// sum, NO_DW every weight-gradient product, NO_MASK the ReLU masks of the
+// trunk (h1..h8).
+struct Exact {
+  static constexpr bool NO_DB = false, NO_DW = false, NO_MASK = false;
+};
+
+template <typename T, int P = TILE>
 struct Keep {
   const T* act;  // the tile's activations (shared memory)
   T* kept;
   float* dpre;
   float* rpre;
   __device__ void layer_done(int i) const {
-    T* dst = kept + (size_t)(i - 1) * TILE * Ld<T>::A;
-    for (int e = threadIdx.x; e < TILE * WIDTH; e += THREADS) {
+    T* dst = kept + (size_t)(i - 1) * P * Ld<T>::A;
+    for (int e = Grp<P>::tid(); e < P * WIDTH; e += Grp<P>::THREADS) {
       const int at = (e / WIDTH) * Ld<T>::A + e % WIDTH;
       dst[at] = act[at];
     }
@@ -58,24 +70,25 @@ struct EpiMask {  // ReLU mask of the cast activation h
     return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
   }
 };
-template <typename T>
+template <typename T, bool MASK = true>
 struct EpiSigmaMask {  // + g_sig[p] wsig[k], then the mask of h8
   const T* h;
   const float* gsig;
   const T* wsig;
   __device__ float operator()(int p, int k, float v) const {
     v = __fadd_rn(v, __fmul_rn(gsig[p], to_f(wsig[k])));
+    if constexpr (!MASK) return v;
     return to_f(h[p * Ld<T>::A + k]) > 0.f ? v : 0.f;
   }
 };
 
 // ---- dgrad: dst[p][k] = cast(epi(sum_o D[p][o] Wg[o][k])), k < WIDTH.
-// D (shared) is [TILE][ldd] with O channels; Wg is the (O, WIDTH) row-major
-// weight block; dst is another [TILE][Ld::A] tile.
-template <int O, typename Epi>
+// D (shared) is [P][ldd] with O channels; Wg is the (O, WIDTH) row-major
+// weight block; dst is another [P][Ld::A] tile.
+template <typename G, int O, typename Epi>
 __device__ void dgrad_f32(const float* D, int ldd, const float* __restrict__ Wg, const Epi& epi,
                           float* dst) {
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int ty = G::tid() >> 5, tx = G::tid() & 31;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -100,20 +113,20 @@ __device__ void dgrad_f32(const float* D, int ldd, const float* __restrict__ Wg,
       const int p = ty * 8 + i, k = tx + 32 * j;
       dst[p * Ld<float>::A + k] = epi(p, k, acc[i][j]);
     }
-  __syncthreads();
+  G::sync();
 }
 
 using FragBRow = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
 using FragACol = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
 
-template <int O, typename Epi>
+template <typename G, int O, typename Epi>
 __device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, const Epi& epi,
                            bf16* dst, float* scratch) {
-  constexpr int NT = WIDTH / 16 / WARPS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  FragAcc acc[TILE / 16][NT];
+  constexpr int M = G::POINTS / 16, NT = WIDTH / 16 / G::WARPS;
+  const int warp = G::tid() >> 5, lane = G::tid() & 31;
+  FragAcc acc[M][NT];
 #pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n) wm::fill_fragment(acc[m][n], 0.f);
   for (int o0 = 0; o0 < O; o0 += 16) {
@@ -122,7 +135,7 @@ __device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, 
     for (int n = 0; n < NT; ++n)
       wm::load_matrix_sync(b[n], Wg + (size_t)o0 * WIDTH + (warp * NT + n) * 16, WIDTH);
 #pragma unroll
-    for (int m = 0; m < TILE / 16; ++m) {
+    for (int m = 0; m < M; ++m) {
       FragA a;
       wm::load_matrix_sync(a, D + m * 16 * ldd + o0, ldd);
 #pragma unroll
@@ -131,7 +144,7 @@ __device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, 
   }
   float* sc = scratch + warp * 256;
 #pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       wm::store_matrix_sync(sc, acc[m][n], 16, wm::mem_row_major);
@@ -143,26 +156,26 @@ __device__ void dgrad_bf16(const bf16* D, int ldd, const bf16* __restrict__ Wg, 
       }
       __syncwarp();
     }
-  __syncthreads();
+  G::sync();
 }
 
-template <typename T, int O, typename Epi>
-__device__ __forceinline__ void dgrad(const Tile<T>& t, const T* D, const T* Wg, const Epi& epi,
+template <typename T, int O, typename Epi, int P>
+__device__ __forceinline__ void dgrad(const Tile<T, P>& t, const T* D, const T* Wg, const Epi& epi,
                                       T* dst) {
   if constexpr (std::is_same<T, float>::value)
-    dgrad_f32<O>(D, Ld<T>::A, Wg, epi, dst);
+    dgrad_f32<Grp<P>, O>(D, Ld<T>::A, Wg, epi, dst);
   else
-    dgrad_bf16<O>(D, Ld<T>::A, Wg, epi, dst, t.scratch);
+    dgrad_bf16<Grp<P>, O>(D, Ld<T>::A, Wg, epi, dst, t.scratch);
 }
 
 // ---- wgrad: dW[o][k] += sum_p D[p][o] A[p][k], o < O, k < KIN.  D (shared)
 // is the cast delta tile, A the cast layer input (shared, or the block's
 // global scratch: read with plain loads, it was written in this launch).
 // The tile's sum goes to the global accumulator with one add per element.
-template <int O, int KIN>
+template <typename G, int O, int KIN>
 __device__ void wgrad_f32(const float* D, int ldd, const float* A, int lda, float* dW) {
   constexpr int NJ = KIN / 32;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int ty = G::tid() >> 5, tx = G::tid() & 31;
   for (int q = 0; q < O / 64; ++q) {
     const int o0 = q * 64 + ty * 8;
     float acc[8][NJ];
@@ -171,7 +184,7 @@ __device__ void wgrad_f32(const float* D, int ldd, const float* A, int lda, floa
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
-    for (int p = 0; p < TILE; ++p) {
+    for (int p = 0; p < G::POINTS; ++p) {
       float d[8], a[NJ];
 #pragma unroll
       for (int i = 0; i < 8; ++i) d[i] = D[p * ldd + o0 + i];
@@ -189,25 +202,29 @@ __device__ void wgrad_f32(const float* D, int ldd, const float* A, int lda, floa
   }
 }
 
-template <int O, int KIN>
+template <typename G, int O, int KIN>
 __device__ void wgrad_bf16(const bf16* D, int ldd, const bf16* A, int lda, float* dW,
                            float* scratch) {
-  constexpr int MPW = O / 16 / WARPS;  // rows of 16 outputs per warp
-  constexpr int NG = KIN / 16 < 4 ? KIN / 16 : 4;  // fragments of 16 inputs per pass
-  static_assert(MPW >= 1 && (KIN / 16) % NG == 0, "wgrad tile shape");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // OW warps along the outputs (all of them while O / 16 allows), KW along the inputs
+  constexpr int OW = O / 16 < G::WARPS ? O / 16 : G::WARPS, KW = G::WARPS / OW;
+  constexpr int MPW = O / 16 / OW;  // rows of 16 outputs per warp
+  constexpr int KF = KIN / 16 / KW;  // fragments of 16 inputs per warp
+  constexpr int NG = KF < 4 ? KF : 4;  // fragments of 16 inputs per pass
+  static_assert(MPW >= 1 && KF >= 1 && KF % NG == 0, "wgrad tile shape");
+  const int warp = G::tid() >> 5, lane = G::tid() & 31;
+  const int wo = KW == 1 ? warp : warp % OW, k0 = KW == 1 ? 0 : warp / OW * KF;
   float* sc = scratch + warp * 256;
-  for (int n0 = 0; n0 < KIN / 16; n0 += NG) {
+  for (int n0 = k0; n0 < k0 + KF; n0 += NG) {
     FragAcc acc[MPW][NG];
 #pragma unroll
     for (int m = 0; m < MPW; ++m)
 #pragma unroll
       for (int g = 0; g < NG; ++g) wm::fill_fragment(acc[m][g], 0.f);
-    for (int p0 = 0; p0 < TILE; p0 += 16) {
+    for (int p0 = 0; p0 < G::POINTS; p0 += 16) {
       FragACol a[MPW];  // (o, p) = D[p][o]: the delta tile read column-major
 #pragma unroll
       for (int m = 0; m < MPW; ++m)
-        wm::load_matrix_sync(a[m], D + p0 * ldd + (warp * MPW + m) * 16, ldd);
+        wm::load_matrix_sync(a[m], D + p0 * ldd + (wo * MPW + m) * 16, ldd);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         FragBRow b;
@@ -222,27 +239,27 @@ __device__ void wgrad_bf16(const bf16* D, int ldd, const bf16* A, int lda, float
       for (int g = 0; g < NG; ++g) {
         wm::store_matrix_sync(sc, acc[m][g], 16, wm::mem_row_major);
         __syncwarp();
-        float* out = dW + (size_t)((warp * MPW + m) * 16) * KIN + (n0 + g) * 16;
+        float* out = dW + (size_t)((wo * MPW + m) * 16) * KIN + (n0 + g) * 16;
         for (int e = lane; e < 256; e += 32) atomicAdd(out + (size_t)(e >> 4) * KIN + (e & 15), sc[e]);
         __syncwarp();
       }
   }
 }
 
-template <typename T, int O, int KIN>
-__device__ __forceinline__ void wgrad(const Tile<T>& t, const T* D, const T* A, int lda, float* dW) {
+template <typename T, int O, int KIN, int P>
+__device__ __forceinline__ void wgrad(const Tile<T, P>& t, const T* D, const T* A, int lda, float* dW) {
   if constexpr (std::is_same<T, float>::value)
-    wgrad_f32<O, KIN>(D, Ld<T>::A, A, lda, dW);
+    wgrad_f32<Grp<P>, O, KIN>(D, Ld<T>::A, A, lda, dW);
   else
-    wgrad_bf16<O, KIN>(D, Ld<T>::A, A, lda, dW, t.scratch);
+    wgrad_bf16<Grp<P>, O, KIN>(D, Ld<T>::A, A, lda, dW, t.scratch);
 }
 
 // db[o] += sum_p D[p][o], in f32.
-template <typename T, int O>
+template <typename T, int O, int P = TILE>
 __device__ void bias_grad(const T* D, float* db) {
-  for (int o = threadIdx.x; o < O; o += THREADS) {
+  for (int o = Grp<P>::tid(); o < O; o += Grp<P>::THREADS) {
     float s = 0.f;
-    for (int p = 0; p < TILE; ++p) s = __fadd_rn(s, to_f(D[p * Ld<T>::A + o]));
+    for (int p = 0; p < P; ++p) s = __fadd_rn(s, to_f(D[p * Ld<T>::A + o]));
     atomicAdd(db + o, s);
   }
 }
@@ -264,24 +281,26 @@ constexpr int bwd_blocks_per_sm() {
 }
 
 
-// Backpropagate the tile from the cast head cotangents darg [TILE][3]
-// (da_rgb) and gsig [TILE] (dL/dsigma), both written and synchronised by the
+// Backpropagate the tile from the cast head cotangents darg [P][3]
+// (da_rgb) and gsig [P] (dL/dsigma), both written and synchronised by the
 // caller, through the direction branch, xyz_encoding_final, the sigma head
 // and trunk layers 8 down to 1.  Adds dW/db of every block but wdx.  Uses
-// t.act and ``extra`` (another [TILE][Ld::A] tile) for the deltas.  The
+// t.act and ``extra`` (another [P][Ld::A] tile) for the deltas.  The
 // caller's Hooks see:
 //   dir_delta(e, v)    element e = p * HALF + k of the cast direction delta
-//   dir_done(da_d)     the whole cast direction delta [TILE][Ld::A], synced
+//   dir_done(da_d)     the whole cast direction delta [P][Ld::A], synced
 //   trunk_delta(l, d)  the cast delta of trunk layer l, before its products
-template <typename T, typename Hooks>
-__device__ void mlp_backward_tile(const Tile<T>& t, T* extra, const float* darg, const float* gsig,
+template <typename T, typename Abl = Exact, typename Hooks, int P>
+__device__ void mlp_backward_tile(const Tile<T, P>& t, T* extra, const float* darg, const float* gsig,
                                   const T* __restrict__ W, const T* kept, const float* dpre,
                                   float* dW, float* dB, bool new_act, const Hooks& hooks) {
+  using G = Grp<P>;
   constexpr int LA = Ld<T>::A, LX = Ld<T>::X;
-  const int tid = threadIdx.x;
-  const auto kept_layer = [&](int i) { return kept + (size_t)(i - 1) * TILE * LA; };  // h_i, f = 9
+  constexpr bool DB = !Abl::NO_DB, DW = !Abl::NO_DW;
+  const int tid = G::tid();
+  const auto kept_layer = [&](int i) { return kept + (size_t)(i - 1) * P * LA; };  // h_i, f = 9
   // rgb head and direction layer: da_d = cast(wrgb^T da_rgb * act'(a_d))
-  for (int e = tid; e < TILE * HALF; e += THREADS) {
+  for (int e = tid; e < P * HALF; e += G::THREADS) {
     const int p = e / HALF, k = e % HALF;
     float dd = __fmul_rn(to_f(W[WRGB + k]), darg[p * 3]);
     dd = fmaf(to_f(W[WRGB + HALF + k]), darg[p * 3 + 1], dd);
@@ -292,32 +311,34 @@ __device__ void mlp_backward_tile(const Tile<T>& t, T* extra, const float* darg,
     extra[p * LA + k] = v;
     hooks.dir_delta(e, v);
   }
-  for (int e = tid; e < 3 * HALF; e += THREADS) {  // dwrgb = da_rgb^T d_act
-    const int ch = e / HALF, k = e % HALF;
+  if constexpr (DW)
+    for (int e = tid; e < 3 * HALF; e += G::THREADS) {  // dwrgb = da_rgb^T d_act
+      const int ch = e / HALF, k = e % HALF;
+      float sum = 0.f;
+      for (int p = 0; p < P; ++p) sum = fmaf(darg[p * 3 + ch], to_f(t.act[p * LA + k]), sum);
+      atomicAdd(dW + WRGB + e, sum);
+    }
+  if (DB && (tid < 3 || tid == 32)) {  // dbrgb, dbsig
     float sum = 0.f;
-    for (int p = 0; p < TILE; ++p) sum = fmaf(darg[p * 3 + ch], to_f(t.act[p * LA + k]), sum);
-    atomicAdd(dW + WRGB + e, sum);
-  }
-  if (tid < 3 || tid == 32) {  // dbrgb, dbsig
-    float sum = 0.f;
-    for (int p = 0; p < TILE; ++p) sum = __fadd_rn(sum, tid < 3 ? darg[p * 3 + tid] : gsig[p]);
+    for (int p = 0; p < P; ++p) sum = __fadd_rn(sum, tid < 3 ? darg[p * 3 + tid] : gsig[p]);
     atomicAdd(dB + (tid < 3 ? BRGB + tid : BSIG), sum);
   }
-  __syncthreads();  // da_d is whole; d_act in t.act has been read
+  G::sync();  // da_d is whole; d_act in t.act has been read
   hooks.dir_done(extra);
 
   const T* h8 = kept_layer(8);
-  bias_grad<T, HALF>(extra, dB + BD);
-  wgrad<T, HALF, WIDTH>(t, extra, kept_layer(9), LA, dW + WDH);
+  if constexpr (DB) bias_grad<T, HALF, P>(extra, dB + BD);
+  if constexpr (DW) wgrad<T, HALF, WIDTH>(t, extra, kept_layer(9), LA, dW + WDH);
   dgrad<T, HALF>(t, extra, W + WDH, EpiNone(), t.act);  // df
-  bias_grad<T, WIDTH>(t.act, dB + BFIN);
-  wgrad<T, WIDTH, WIDTH>(t, t.act, h8, LA, dW + WFIN);
-  for (int k = tid; k < WIDTH; k += THREADS) {  // dwsig = g_sig^T h8
-    float sum = 0.f;
-    for (int p = 0; p < TILE; ++p) sum = fmaf(gsig[p], to_f(h8[p * LA + k]), sum);
-    atomicAdd(dW + WSIG + k, sum);
-  }
-  dgrad<T, WIDTH>(t, t.act, W + WFIN, EpiSigmaMask<T>{h8, gsig, W + WSIG}, extra);  // da8
+  if constexpr (DB) bias_grad<T, WIDTH, P>(t.act, dB + BFIN);
+  if constexpr (DW) wgrad<T, WIDTH, WIDTH>(t, t.act, h8, LA, dW + WFIN);
+  if constexpr (DW)
+    for (int k = tid; k < WIDTH; k += G::THREADS) {  // dwsig = g_sig^T h8
+      float sum = 0.f;
+      for (int p = 0; p < P; ++p) sum = fmaf(gsig[p], to_f(h8[p * LA + k]), sum);
+      atomicAdd(dW + WSIG + k, sum);
+    }
+  dgrad<T, WIDTH>(t, t.act, W + WFIN, EpiSigmaMask<T, !Abl::NO_MASK>{h8, gsig, W + WSIG}, extra);  // da8
 
   // the trunk, layers 8 down to 1: the delta of layer l is in ``cur``
   constexpr int WOFF[9] = {0, W1, W2, W3, W4, W5H, W6, W7, W8};
@@ -325,20 +346,23 @@ __device__ void mlp_backward_tile(const Tile<T>& t, T* extra, const float* darg,
   T* cur = extra;
   T* other = t.act;
   for (int l = 8; l >= 1; --l) {
-    bias_grad<T, WIDTH>(cur, dB + BOFF[l]);
+    if constexpr (DB) bias_grad<T, WIDTH, P>(cur, dB + BOFF[l]);
     hooks.trunk_delta(l, cur);
-    if (l == 5) wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W5X);
+    if (DW && l == 5) wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W5X);
     if (l == 1) {
-      wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W1);
+      if constexpr (DW) wgrad<T, WIDTH, XYZ_PAD>(t, cur, t.xpe, LX, dW + W1);
       break;
     }
-    wgrad<T, WIDTH, WIDTH>(t, cur, kept_layer(l - 1), LA, dW + WOFF[l]);
-    dgrad<T, WIDTH>(t, cur, W + WOFF[l], EpiMask<T>{kept_layer(l - 1)}, other);
+    if constexpr (DW) wgrad<T, WIDTH, WIDTH>(t, cur, kept_layer(l - 1), LA, dW + WOFF[l]);
+    if constexpr (Abl::NO_MASK)
+      dgrad<T, WIDTH>(t, cur, W + WOFF[l], EpiNone(), other);
+    else
+      dgrad<T, WIDTH>(t, cur, W + WOFF[l], EpiMask<T>{kept_layer(l - 1)}, other);
     T* const swap = cur;
     cur = other;
     other = swap;
   }
-  __syncthreads();  // every reader of xpe, the deltas and the kept layers is done
+  G::sync();  // every reader of xpe, the deltas and the kept layers is done
 }
 
 }  // namespace nerf

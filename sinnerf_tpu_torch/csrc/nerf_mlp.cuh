@@ -9,8 +9,15 @@
 // Bound: about 593k multiply-adds (1.19 MFLOP) per point; the weights
 // (1.2 MB in bf16, 2.4 MB in f32) do not fit in shared memory and are read per
 // layer from global memory, where they stay in L2.  The work is compute-bound:
-// a tile of TILE points reuses every weight TILE times.  The activation tile
-// (TILE x 256) stays in shared memory for all 13 products.
+// a tile of P points reuses every weight P times.  The activation tile
+// (P x 256) stays in shared memory for all 13 products.
+//
+// A tile of P points is run by a group of 4P threads (Grp): by default the
+// whole block, P = TILE = 64 and 256 threads, as every production kernel
+// runs it.  The experiment kernels (exp_kernel_variants.cu,
+// exp_bwd_pipeline.cu) also run 128-point tiles (512 threads, so that each
+// warp keeps the same 8 accumulator fragments) and split a block into
+// groups that meet at named barriers of their own.
 //   float32:  register-blocked FMA, 8 points x (256/32) outputs per thread,
 //             weights staged through shared memory in slabs of 16 columns.
 //   bfloat16: nvcuda::wmma 16x16x16 bf16 fragments with float accumulators,
@@ -77,11 +84,33 @@ constexpr int BD = 2304;
 constexpr int BRGB = 2432;
 constexpr int BSIG = 2435;
 
-constexpr int TILE = 64;       // points per block
+constexpr int TILE = 64;       // points per block of the production kernels
 constexpr int THREADS = 256;   // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int SLAB = 16;       // weight columns per staged slab (f32 path)
 constexpr int SLAB_LD = WIDTH + 1;
+
+// The threads that run one tile of P points: four per point, and the
+// barrier they meet at.  WHOLE: the whole block (__syncthreads).  Else one
+// of the block's equal groups: group g owns threads [4Pg, 4P(g + 1)) and
+// named barrier 1 + g, so that one group's epilogue and PE can run while
+// another group's products issue.
+template <int P = TILE, bool WHOLE = true>
+struct Grp {
+  static constexpr int POINTS = P;
+  static constexpr int THREADS = 4 * P;
+  static constexpr int WARPS = THREADS / 32;
+  static_assert(P % 16 == 0, "a tile is whole 16-point fragments");
+  __device__ static unsigned tid() { return WHOLE ? threadIdx.x : threadIdx.x % THREADS; }
+  __device__ static unsigned index() { return WHOLE ? 0u : threadIdx.x / THREADS; }
+  __device__ static void sync() {
+    if constexpr (WHOLE)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + index()), "r"(THREADS) : "memory");
+  }
+};
+using Block = Grp<>;
 
 enum Act { ACT_RELU = 0, ACT_NONE = 1, ACT_SSP = 2 };
 
@@ -91,40 +120,55 @@ enum Act { ACT_RELU = 0, ACT_NONE = 1, ACT_SSP = 2 };
 template <typename T> struct Ld;
 template <> struct Ld<float> {
   static constexpr int A = WIDTH, X = XYZ_PAD, D = DIR_PAD;
-  static constexpr int SCRATCH = SLAB * SLAB_LD;  // weight slab
+  template <int P> __host__ __device__ static constexpr int scratch() { return SLAB * SLAB_LD; }  // weight slab
 };
 template <> struct Ld<bf16> {
   static constexpr int A = WIDTH + 8, X = XYZ_PAD + 8, D = DIR_PAD + 8;
-  static constexpr int SCRATCH = WARPS * 256;     // one 16x16 f32 tile per warp
+  template <int P> __host__ __device__ static constexpr int scratch() { return Grp<P>::WARPS * 256; }  // a 16x16 f32 tile per warp
 };
 
-template <typename T>
+template <typename T, int P = TILE>
 struct Tile {
-  T* act;          // [TILE][Ld::A]  activations
-  T* xpe;          // [TILE][Ld::X]  PE of the sample positions
-  T* dpe;          // [TILE][Ld::D]  PE of the ray directions
-  float* scratch;  // Ld::SCRATCH floats
-  float* sig;      // [TILE]
-  float* rgb;      // [TILE][3]
-  float* rays;     // [TILE][6]      o, d
+  T* act;          // [P][Ld::A]  activations
+  T* xpe;          // [P][Ld::X]  PE of the sample positions
+  T* dpe;          // [P][Ld::D]  PE of the ray directions
+  float* scratch;  // Ld::scratch<P>() floats
+  float* sig;      // [P]
+  float* rgb;      // [P][3]
+  float* rays;     // [P][6]      o, d
+  // The rows of group g of Q-point groups (bf16: each group's warps keep
+  // their own scratch).
+  template <int Q>
+  __device__ Tile<T, Q> part(int g) const {
+    static_assert(std::is_same<T, bf16>::value && P % Q == 0, "bf16 tiles split into equal groups");
+    Tile<T, Q> s;
+    s.act = act + g * Q * Ld<T>::A;
+    s.xpe = xpe + g * Q * Ld<T>::X;
+    s.dpe = dpe + g * Q * Ld<T>::D;
+    s.scratch = scratch + g * Ld<T>::template scratch<Q>();
+    s.sig = sig + g * Q;
+    s.rgb = rgb + 3 * g * Q;
+    s.rays = rays + 6 * g * Q;
+    return s;
+  }
 };
 
-template <typename T>
+template <typename T, int P = TILE>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return sizeof(T) * TILE * (Ld<T>::A + Ld<T>::X + Ld<T>::D) +
-         sizeof(float) * (Ld<T>::SCRATCH + TILE + 3 * TILE + 6 * TILE);
+  return sizeof(T) * P * (Ld<T>::A + Ld<T>::X + Ld<T>::D) +
+         sizeof(float) * (Ld<T>::template scratch<P>() + P + 3 * P + 6 * P);
 }
 
-template <typename T>
-__device__ Tile<T> carve(unsigned char* smem) {
-  Tile<T> t;
+template <typename T, int P = TILE>
+__device__ Tile<T, P> carve(unsigned char* smem) {
+  Tile<T, P> t;
   t.act = reinterpret_cast<T*>(smem);
-  t.xpe = t.act + TILE * Ld<T>::A;
-  t.dpe = t.xpe + TILE * Ld<T>::X;
-  t.scratch = reinterpret_cast<float*>(t.dpe + TILE * Ld<T>::D);
-  t.sig = t.scratch + Ld<T>::SCRATCH;
-  t.rgb = t.sig + TILE;
-  t.rays = t.rgb + 3 * TILE;
+  t.xpe = t.act + P * Ld<T>::A;
+  t.dpe = t.xpe + P * Ld<T>::X;
+  t.scratch = reinterpret_cast<float*>(t.dpe + P * Ld<T>::D);
+  t.sig = t.scratch + Ld<T>::template scratch<P>();
+  t.rgb = t.sig + P;
+  t.rays = t.rgb + 3 * P;
   return t;
 }
 
@@ -179,19 +223,49 @@ __device__ void pe_channel(float x, int c, int n_freqs, T* row) {
   }
 }
 
+// The points [p0, p0 + P) into t.rays as [xyz, dir] (points past n, and the
+// directions when dirs is null, are zeros), the zero padding of xpe and dpe,
+// and the PE of both.  Ends synchronised.
+template <typename T, typename G = Block>
+__device__ void load_points(const Tile<T, G::POINTS>& t, const float* __restrict__ xyz,
+                            const float* __restrict__ dirs, int p0, int n) {
+  constexpr int P = G::POINTS;
+  const int tid = G::tid();
+  for (int i = tid; i < P * 6; i += G::THREADS) {
+    const int p = i / 6, c = i % 6;
+    float v = 0.f;
+    if (p0 + p < n) {
+      if (c < 3) v = xyz[(size_t)(p0 + p) * 3 + c];
+      else if (dirs != nullptr) v = dirs[(size_t)(p0 + p) * 3 + c - 3];
+    }
+    t.rays[i] = v;
+  }
+  if (tid < P) {
+    t.xpe[tid * Ld<T>::X + XYZ_CH] = to_cd<T>(0.f);
+    for (int c = DIR_CH; c < DIR_PAD; ++c) t.dpe[tid * Ld<T>::D + c] = to_cd<T>(0.f);
+  }
+  G::sync();
+  if (tid < P * 3) {
+    const int p = tid / 3, c = tid % 3;
+    pe_channel<T>(t.rays[p * 6 + c], c, N_FREQS_XYZ, t.xpe + p * Ld<T>::X);
+    pe_channel<T>(t.rays[p * 6 + 3 + c], c, N_FREQS_DIR, t.dpe + p * Ld<T>::D);
+  }
+  G::sync();
+}
+
 // ---------------------------------------------------------------- f32 path
 // acc[i][j] holds point (warp*8 + i), output (lane + 32*j).
-template <int O>
+template <typename G, int O>
 __device__ void gemm_f32(float (&acc)[8][O / 32], const float* A, int lda, int K,
                          const float* __restrict__ W, float* slab) {
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int ty = G::tid() >> 5, tx = G::tid() & 31;
   for (int k0 = 0; k0 < K; k0 += SLAB) {
-    __syncthreads();  // the previous slab's readers are done
-    for (int idx = threadIdx.x; idx < O * SLAB; idx += THREADS) {
+    G::sync();  // the previous slab's readers are done
+    for (int idx = G::tid(); idx < O * SLAB; idx += G::THREADS) {
       int o = idx / SLAB, kk = idx % SLAB;
       slab[kk * SLAB_LD + o] = __ldg(W + (size_t)o * K + k0 + kk);
     }
-    __syncthreads();
+    G::sync();
 #pragma unroll
     for (int kk = 0; kk < SLAB; ++kk) {
       float a[8], w[O / 32];
@@ -207,20 +281,20 @@ __device__ void gemm_f32(float (&acc)[8][O / 32], const float* A, int lda, int K
   }
 }
 
-template <int O>
-__device__ void layer_f32(const Tile<float>& t, const float* A1, int lda1, int K1, const float* W1g,
+template <typename G, int O>
+__device__ void layer_f32(const Tile<float, G::POINTS>& t, const float* A1, int lda1, int K1, const float* W1g,
                           const float* A2, int lda2, int K2, const float* W2g,
                           const float* __restrict__ bias, int act, float* dst, float* pre) {
   constexpr int NJ = O / 32;
-  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int ty = G::tid() >> 5, tx = G::tid() & 31;
   float acc[8][NJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  gemm_f32<O>(acc, A1, lda1, K1, W1g, t.scratch);
-  if (K2 > 0) gemm_f32<O>(acc, A2, lda2, K2, W2g, t.scratch);
-  __syncthreads();  // every read of the inputs is done before dst is written
+  gemm_f32<G, O>(acc, A1, lda1, K1, W1g, t.scratch);
+  if (K2 > 0) gemm_f32<G, O>(acc, A2, lda2, K2, W2g, t.scratch);
+  G::sync();  // every read of the inputs is done before dst is written
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -230,7 +304,7 @@ __device__ void layer_f32(const Tile<float>& t, const float* A1, int lda1, int K
       if (pre) pre[(ty * 8 + i) * O + o] = v;
       dst[(ty * 8 + i) * Ld<float>::A + o] = epilogue(v, act);
     }
-  __syncthreads();
+  G::sync();
 }
 
 // --------------------------------------------------------------- bf16 path
@@ -239,10 +313,11 @@ using FragAcc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
 using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
 
-// Warp w owns output columns [w*NT*16, (w+1)*NT*16) for all TILE points.
+// The calling warp owns output columns [w*NT*16, (w+1)*NT*16) for M*16
+// points (A's first M*16 rows).
 // B(k, o) = W[o][k]: the (out, in) row-major weight read as col-major B.
-template <int NT>
-__device__ void mma_bf16(FragAcc (&acc)[TILE / 16][NT], const bf16* A, int lda, int K,
+template <int M, int NT>
+__device__ void mma_bf16(FragAcc (&acc)[M][NT], const bf16* A, int lda, int K,
                          const bf16* __restrict__ W, int warp) {
   for (int k0 = 0; k0 < K; k0 += 16) {
     FragB b[NT];
@@ -250,7 +325,7 @@ __device__ void mma_bf16(FragAcc (&acc)[TILE / 16][NT], const bf16* A, int lda, 
     for (int n = 0; n < NT; ++n)
       wm::load_matrix_sync(b[n], W + (size_t)((warp * NT + n) * 16) * K + k0, K);
 #pragma unroll
-    for (int m = 0; m < TILE / 16; ++m) {
+    for (int m = 0; m < M; ++m) {
       FragA a;
       wm::load_matrix_sync(a, A + m * 16 * lda + k0, lda);
 #pragma unroll
@@ -259,57 +334,60 @@ __device__ void mma_bf16(FragAcc (&acc)[TILE / 16][NT], const bf16* A, int lda, 
   }
 }
 
-template <int O>
-__device__ void layer_bf16(const Tile<bf16>& t, const bf16* A1, int lda1, int K1, const bf16* W1g,
+// The group's warps tile the (points x O) output: OW warps along the
+// outputs (all of them while O / 16 allows), PW along the points.
+template <typename G, int O>
+__device__ void layer_bf16(const Tile<bf16, G::POINTS>& t, const bf16* A1, int lda1, int K1, const bf16* W1g,
                            const bf16* A2, int lda2, int K2, const bf16* W2g,
                            const float* __restrict__ bias, int act, bf16* dst, float* pre) {
-  constexpr int NT = O / 16 / WARPS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  FragAcc acc[TILE / 16][NT];
+  constexpr int OW = O / 16 < G::WARPS ? O / 16 : G::WARPS, PW = G::WARPS / OW;
+  constexpr int M = G::POINTS / 16 / PW, NT = O / 16 / OW;
+  const int warp = G::tid() >> 5, lane = G::tid() & 31;
+  const int wn = PW == 1 ? warp : warp % OW, r0 = PW == 1 ? 0 : warp / OW * M * 16;  // first output, point
+  FragAcc acc[M][NT];
 #pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n) wm::fill_fragment(acc[m][n], 0.f);
-  mma_bf16<NT>(acc, A1, lda1, K1, W1g, warp);
-  if (K2 > 0) mma_bf16<NT>(acc, A2, lda2, K2, W2g, warp);
-  __syncthreads();  // every read of the inputs is done before dst is written
+  mma_bf16<M, NT>(acc, A1 + r0 * lda1, lda1, K1, W1g, wn);
+  if (K2 > 0) mma_bf16<M, NT>(acc, A2 + r0 * lda2, lda2, K2, W2g, wn);
+  G::sync();  // every read of the inputs is done before dst is written
   float* sc = t.scratch + warp * 256;
 #pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       wm::store_matrix_sync(sc, acc[m][n], 16, wm::mem_row_major);
       __syncwarp();
-      const int o0 = (warp * NT + n) * 16;
+      const int o0 = (wn * NT + n) * 16;
       for (int e = lane; e < 256; e += 32) {
-        int r = e >> 4, c = e & 15;
+        int r = r0 + m * 16 + (e >> 4), c = e & 15;
         const float v = __fadd_rn(sc[e], __ldg(bias + o0 + c));
-        if (pre) pre[(m * 16 + r) * O + o0 + c] = v;
-        dst[(m * 16 + r) * Ld<bf16>::A + o0 + c] = to_cd<bf16>(epilogue(v, act));
+        if (pre) pre[r * O + o0 + c] = v;
+        dst[r * Ld<bf16>::A + o0 + c] = to_cd<bf16>(epilogue(v, act));
       }
       __syncwarp();
     }
-  __syncthreads();
+  G::sync();
 }
 
 // ------------------------------------------------------------------ shared
 // dst = act(A1 W1g^T + A2 W2g^T + bias) in the compute dtype; ``pre``, when
-// given, receives the f32 pre-activation as [TILE][O].
-template <typename T, int O>
-__device__ __forceinline__ void layer(const Tile<T>& t, const T* A1, int lda1, int K1, const T* W1g,
+// given, receives the f32 pre-activation as [P][O].
+template <typename T, typename G, int O>
+__device__ __forceinline__ void layer(const Tile<T, G::POINTS>& t, const T* A1, int lda1, int K1, const T* W1g,
                                       const T* A2, int lda2, int K2, const T* W2g,
                                       const float* bias, int act, T* dst, float* pre = nullptr) {
   if constexpr (std::is_same<T, float>::value)
-    layer_f32<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
+    layer_f32<G, O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
   else
-    layer_bf16<O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
+    layer_bf16<G, O>(t, A1, lda1, K1, W1g, A2, lda2, K2, W2g, bias, act, dst, pre);
 }
 
 // sigma = h8 . wsig + bsig, four threads per point.
-template <typename T>
-__device__ void sigma_head(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B) {
-  static_assert(TILE * 4 == THREADS, "four threads per point");
-  const int p = threadIdx.x >> 2, q = threadIdx.x & 3;
+template <typename T, typename G>
+__device__ void sigma_head(const Tile<T, G::POINTS>& t, const T* __restrict__ W, const float* __restrict__ B) {
+  const int p = G::tid() >> 2, q = G::tid() & 3;
   const T* a = t.act + p * Ld<T>::A + q * 64;
   const T* w = W + WSIG + q * 64;
   float s = 0.f;
@@ -320,11 +398,11 @@ __device__ void sigma_head(const Tile<T>& t, const T* __restrict__ W, const floa
 }
 
 // rgb = act(d . wrgb + brgb), one thread per (point, channel).
-template <typename T>
-__device__ void rgb_head(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B,
+template <typename T, typename G>
+__device__ void rgb_head(const Tile<T, G::POINTS>& t, const T* __restrict__ W, const float* __restrict__ B,
                          bool new_act, float* pre) {
-  if (threadIdx.x < TILE * 3) {
-    const int p = threadIdx.x / 3, c = threadIdx.x % 3;
+  if (G::tid() < G::POINTS * 3) {
+    const int p = G::tid() / 3, c = G::tid() % 3;
     const T* a = t.act + p * Ld<T>::A;
     const T* w = W + WRGB + c * HALF;
     float s = 0.f;
@@ -333,7 +411,7 @@ __device__ void rgb_head(const Tile<T>& t, const T* __restrict__ W, const float*
     if (pre) pre[p * 3 + c] = v;
     t.rgb[p * 3 + c] = new_act ? widened_sigmoid(v) : sigmoid(v);
   }
-  __syncthreads();
+  G::sync();
 }
 
 // What the backward kernel keeps of a forward pass; the eval kernel keeps
@@ -341,47 +419,48 @@ __device__ void rgb_head(const Tile<T>& t, const T* __restrict__ W, const float*
 // xyz_encoding_final (i = 9), with the layer's output in t.act.
 struct KeepNothing {
   __device__ void layer_done(int) const {}
-  __device__ float* dir_pre() const { return nullptr; }  // [TILE][HALF] f32
-  __device__ float* rgb_pre() const { return nullptr; }  // [TILE][3] f32
+  __device__ float* dir_pre() const { return nullptr; }  // [P][HALF] f32
+  __device__ float* rgb_pre() const { return nullptr; }  // [P][3] f32
 };
 
-// The MLP on the tile's xpe/dpe -> t.sig, t.rgb.  Expects xpe and dpe written
-// and synchronised; returns with sig and rgb visible to every thread and the
-// direction branch's activation in t.act[:, 0:HALF].  SIGMA_ONLY stops after
-// the sigma head (dpe unread, t.rgb unwritten).
-template <typename T, typename Keep = KeepNothing, bool SIGMA_ONLY = false>
-__device__ void mlp_tile(const Tile<T>& t, const T* __restrict__ W, const float* __restrict__ B,
+// The MLP on the tile's xpe/dpe -> t.sig, t.rgb, run by the group G.
+// Expects xpe and dpe written and synchronised; returns with sig and rgb
+// visible to every thread of the group and the direction branch's activation
+// in t.act[:, 0:HALF].  SIGMA_ONLY stops after the sigma head (dpe unread,
+// t.rgb unwritten).
+template <typename T, typename Keep = KeepNothing, bool SIGMA_ONLY = false, typename G = Block>
+__device__ void mlp_tile(const Tile<T, G::POINTS>& t, const T* __restrict__ W, const float* __restrict__ B,
                          bool new_act, const Keep& keep = Keep()) {
   constexpr int LA = Ld<T>::A, LX = Ld<T>::X, LD = Ld<T>::D;
   const T* none = nullptr;
-  layer<T, WIDTH>(t, t.xpe, LX, XYZ_PAD, W + W1, none, 0, 0, none, B + B1, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.xpe, LX, XYZ_PAD, W + W1, none, 0, 0, none, B + B1, ACT_RELU, t.act);
   keep.layer_done(1);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W2, none, 0, 0, none, B + B2, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W2, none, 0, 0, none, B + B2, ACT_RELU, t.act);
   keep.layer_done(2);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W3, none, 0, 0, none, B + B3, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W3, none, 0, 0, none, B + B3, ACT_RELU, t.act);
   keep.layer_done(3);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W4, none, 0, 0, none, B + B4, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W4, none, 0, 0, none, B + B4, ACT_RELU, t.act);
   keep.layer_done(4);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W5H, t.xpe, LX, XYZ_PAD, W + W5X, B + B5, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W5H, t.xpe, LX, XYZ_PAD, W + W5X, B + B5, ACT_RELU, t.act);
   keep.layer_done(5);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W6, none, 0, 0, none, B + B6, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W6, none, 0, 0, none, B + B6, ACT_RELU, t.act);
   keep.layer_done(6);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W7, none, 0, 0, none, B + B7, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W7, none, 0, 0, none, B + B7, ACT_RELU, t.act);
   keep.layer_done(7);
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + W8, none, 0, 0, none, B + B8, ACT_RELU, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + W8, none, 0, 0, none, B + B8, ACT_RELU, t.act);
   keep.layer_done(8);
   // sigma reads h8 before xyz_encoding_final overwrites it: the layer's own
   // barrier before its epilogue orders the two
-  sigma_head<T>(t, W, B);
+  sigma_head<T, G>(t, W, B);
   if constexpr (SIGMA_ONLY) {
-    __syncthreads();
+    G::sync();
     return;
   }
-  layer<T, WIDTH>(t, t.act, LA, WIDTH, W + WFIN, none, 0, 0, none, B + BFIN, ACT_NONE, t.act);
+  layer<T, G, WIDTH>(t, t.act, LA, WIDTH, W + WFIN, none, 0, 0, none, B + BFIN, ACT_NONE, t.act);
   keep.layer_done(9);
-  layer<T, HALF>(t, t.act, LA, WIDTH, W + WDH, t.dpe, LD, DIR_PAD, W + WDX, B + BD,
+  layer<T, G, HALF>(t, t.act, LA, WIDTH, W + WDH, t.dpe, LD, DIR_PAD, W + WDX, B + BD,
                  new_act ? ACT_SSP : ACT_RELU, t.act, keep.dir_pre());
-  rgb_head<T>(t, W, B, new_act, keep.rgb_pre());
+  rgb_head<T, G>(t, W, B, new_act, keep.rgb_pre());
 }
 
 }  // namespace nerf

@@ -23,45 +23,61 @@
 
 namespace nerf {
 
-// Rays of the tile into t.rays (rays past n get o = 0, d = (0, 0, 1)), the
-// zero padding of xpe and dpe, and the direction PE.  Returns ||d|| of ray
-// threadIdx.x (threads < TILE).  Ends unsynchronised: the caller's next
+// Rays [ray0, ray0 + RB) into t.rays (rays past n get o = 0, d = (0, 0, 1)),
+// the zero padding of xpe and dpe, and the direction PE of every point of
+// the P-point tile, whose point p belongs to ray p % RB (the production
+// kernels: one point per ray, RB = P = TILE).  Returns ||d|| of the ray of
+// point threadIdx.x (threads < P).  Ends unsynchronised: the caller's next
 // barrier publishes dpe.
-template <typename T>
-__device__ float load_rays_and_dir_pe(const Tile<T>& t, const float* __restrict__ rays, int ray0, int n) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < TILE * 6; i += THREADS) {
+template <typename T, int P = TILE, int RB = P>
+__device__ float load_rays_and_dir_pe(const Tile<T, P>& t, const float* __restrict__ rays, int ray0, int n) {
+  using G = Grp<P>;
+  const int tid = G::tid();
+  for (int i = tid; i < RB * 6; i += G::THREADS) {
     const int p = i / 6, c = i % 6;
     t.rays[i] = ray0 + p < n ? rays[(size_t)(ray0 + p) * 6 + c] : (c == 5 ? 1.f : 0.f);
   }
-  if (tid < TILE) {
+  if (tid < P) {
     t.xpe[tid * Ld<T>::X + XYZ_CH] = to_cd<T>(0.f);
     for (int c = DIR_CH; c < DIR_PAD; ++c) t.dpe[tid * Ld<T>::D + c] = to_cd<T>(0.f);
   }
-  __syncthreads();
-  if (tid < TILE * 3) {
-    const int p = tid / 3, c = tid % 3;
-    pe_channel<T>(t.rays[p * 6 + 3 + c], c, N_FREQS_DIR, t.dpe + p * Ld<T>::D);
+  G::sync();
+  if (tid < P * 3) {
+    const int p = tid / 3, c = tid % 3, r = RB == P ? p : p % RB;
+    pe_channel<T>(t.rays[r * 6 + 3 + c], c, N_FREQS_DIR, t.dpe + p * Ld<T>::D);
   }
   float dnorm = 0.f;
-  if (tid < TILE) {
-    const float dx = t.rays[tid * 6 + 3], dy = t.rays[tid * 6 + 4], dz = t.rays[tid * 6 + 5];
+  if (tid < P) {
+    const int r = RB == P ? tid : tid % RB;
+    const float dx = t.rays[r * 6 + 3], dy = t.rays[r * 6 + 4], dz = t.rays[r * 6 + 5];
     dnorm = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
   }
   return dnorm;
 }
 
-// PE of sample s of every ray of the tile into t.xpe (z of rays past n is 1).
-template <typename T>
-__device__ void sample_pe(const Tile<T>& t, const float* __restrict__ z, int ray0, int n, int S, int s) {
-  const int tid = threadIdx.x;
-  if (tid < TILE * 3) {
+// PE of each point's sample into xpe ([P][Ld::X], t.xpe or another buffer),
+// unsynchronised: point p is ray p % RB's sample s + (p / RB) * stride (z of
+// rays past n is 1).
+template <typename T, int P = TILE, int RB = P>
+__device__ void point_pe(const Tile<T, P>& t, T* xpe, const float* __restrict__ z, int ray0, int n, int S,
+                         int s, int stride) {
+  const int tid = Grp<P>::tid();
+  if (tid < P * 3) {
     const int p = tid / 3, c = tid % 3;
-    const float zs = ray0 + p < n ? z[(size_t)(ray0 + p) * S + s] : 1.f;
-    const float x = __fadd_rn(t.rays[p * 6 + c], __fmul_rn(t.rays[p * 6 + 3 + c], zs));
-    pe_channel<T>(x, c, N_FREQS_XYZ, t.xpe + p * Ld<T>::X);
+    const int r = RB == P ? p : p % RB, sp = RB == P ? s : s + p / RB * stride;
+    const float zs = ray0 + r < n ? z[(size_t)(ray0 + r) * S + sp] : 1.f;
+    const float x = __fadd_rn(t.rays[r * 6 + c], __fmul_rn(t.rays[r * 6 + 3 + c], zs));
+    pe_channel<T>(x, c, N_FREQS_XYZ, xpe + p * Ld<T>::X);
   }
-  __syncthreads();
+}
+
+// PE of sample s of every ray of the tile into t.xpe, synchronised (see
+// point_pe for RB < P).
+template <typename T, int P = TILE, int RB = P>
+__device__ void sample_pe(const Tile<T, P>& t, const float* __restrict__ z, int ray0, int n, int S, int s,
+                          int stride = 0) {
+  point_pe<T, P, RB>(t, t.xpe, z, ray0, n, S, s, stride);
+  Grp<P>::sync();
 }
 
 // (z_{s+1} - z_s) * ||d||, 1e10 * ||d|| on the last sample.

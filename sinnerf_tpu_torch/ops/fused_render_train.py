@@ -133,6 +133,33 @@ def render_level_train_plain(
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def composite_adjoint(z, weights, alphas, rgb_s, g_rgb, g_depth, g_w, white_back=False) -> torch.Tensor:
+    """dL/dalpha (N, S) of the compositing from its residuals and the
+    cotangents of (rgb, depth, weights), as the backward kernel computes it:
+    ``c_s T_s - S_s / max(1 - a_s + 1e-10, 1e-10)`` with the suffix sums S_s
+    by a downward sweep and the transmittance T_s by an upward one
+    (``fused_render_train_t.py:26-29``)."""
+    n, s = z.shape
+    cot = g_rgb[:, None, 0] * rgb_s[..., 0] + g_rgb[:, None, 1] * rgb_s[..., 1] + g_rgb[:, None, 2] * rgb_s[..., 2]
+    cot = cot + g_depth[:, None] * z + g_w
+    if white_back:
+        cot = cot - ((g_rgb[:, 0] + g_rgb[:, 1]) + g_rgb[:, 2])[:, None]
+    one_minus = 1.0 - alphas
+    # stage A, downwards: -S_s / u_s with S_s the suffix sum of c_j w_j
+    part = torch.empty_like(z)
+    suffix = torch.zeros(n, dtype=torch.float32, device=z.device)
+    for i in range(s - 1, -1, -1):
+        part[:, i] = -suffix / torch.clamp(one_minus[:, i] + 1e-10, min=1e-10)
+        suffix = suffix + cot[:, i] * weights[:, i]
+    # stage B, upwards: the transmittance rebuilt by its own product
+    trans = torch.empty_like(z)
+    running = torch.ones(n, dtype=torch.float32, device=z.device)
+    for i in range(s):
+        trans[:, i] = running
+        running = running * (one_minus[:, i] + 1e-10)
+    return cot * trans + part
+
+
 @torch.no_grad()
 def render_level_train_backward_plain(
     packed: PackedWeights,
@@ -161,37 +188,18 @@ def render_level_train_backward_plain(
     dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=z.device)
     db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=z.device)
     for c in _chunks(z.shape[0], chunk):
-        zc, wc, ac, rc = z[c], weights[c], alphas[c], rgb_s[c]
+        zc, wc = z[c], weights[c]
         n, s = zc.shape
-        gr, gd = g_rgb[c], g_depth[c]
-        cot = gr[:, None, 0] * rc[..., 0] + gr[:, None, 1] * rc[..., 1] + gr[:, None, 2] * rc[..., 2]
-        cot = cot + gd[:, None] * zc + g_w[c]
-        if white_back:
-            cot = cot - ((gr[:, 0] + gr[:, 1]) + gr[:, 2])[:, None]
-        one_minus = 1.0 - ac
-        # stage A, downwards: -S_s / u_s with S_s the suffix sum of c_j w_j
-        part = torch.empty_like(zc)
-        suffix = torch.zeros(n, dtype=torch.float32, device=z.device)
-        for i in range(s - 1, -1, -1):
-            part[:, i] = -suffix / torch.clamp(one_minus[:, i] + 1e-10, min=1e-10)
-            suffix = suffix + cot[:, i] * wc[:, i]
-        # stage B, upwards: the transmittance rebuilt by its own product
-        trans = torch.empty_like(zc)
-        running = torch.ones(n, dtype=torch.float32, device=z.device)
-        for i in range(s):
-            trans[:, i] = running
-            running = running * (one_minus[:, i] + 1e-10)
-        da_alpha = cot * trans + part
-
+        da_alpha = composite_adjoint(zc, wc, alphas[c], rgb_s[c], g_rgb[c], g_depth[c], g_w[c], white_back)
         kept = {}
         nz = None if noise is None else noise[c]
         _forward_plain(packed, dtype, rays6[c], zc, nz, use_new_activation, white_back, keep=kept)
         sig = kept["sigma"].view(n, s)  # the gate reads the recomputed sigma
         if nz is not None:
             sig = sig + nz
-        dsig = da_alpha * one_minus * intervals(zc, rays6[c][:, 3:6])
+        dsig = da_alpha * (1.0 - alphas[c]) * intervals(zc, rays6[c][:, 3:6])
         dsig = torch.where(sig > 0, dsig, torch.zeros_like(dsig))
-        g_rgb_s = wc[..., None] * gr[:, None, :]
+        g_rgb_s = wc[..., None] * g_rgb[c][:, None, :]
         grads, da_d = mlp_backward_plain(
             packed, kept, g_rgb_s.reshape(n * s, 3), dsig.reshape(n * s), use_new_activation
         )

@@ -1,0 +1,11 @@
+"""Entry points of the port's kernel experiments, named after the JAX
+package's ``scripts/exp_*.py``, and what they share."""
+
+from typing import Dict, List
+
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet, 700 W)
+
+
+def ratios(per_round: Dict[str, List[float]], ref: str) -> Dict[str, List[float]]:
+    """Per name, its time over ``ref``'s in each round of ``interleaved_ms``."""
+    return {name: [t / r for t, r in zip(ts, per_round[ref])] for name, ts in per_round.items()}
