@@ -5,7 +5,11 @@
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``sinnerf_tpu_torch/csrc`` (build seconds printed);
+   kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
+   kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
+   count the Hopper K3 kernels' HGMMA, bulk-copy (UBLKCP, UTMALDG) and
+   vector-reduction instructions in ``cuobjdump -sass`` of their library, and
+   fail without wgmma or bulk copies;
 2. hold K1 (``fused_render_level``) against its plain version, float32 and
    bfloat16, at 4096 rays x S = 64 and 192 and 1000 rays x S = 12 with the
    white background on and off;
@@ -29,7 +33,12 @@ Phases, any failure exits non-zero without the final result line:
 7. the same at the training path's own shapes and inputs: the 16,384 rays of
    a Step-1 batch x S = 64 and 192 as ``train_step`` chains them (K3-fwd,
    K2 with drawn ``u``, K3-fwd, then both backwards), timing each launch and
-   its plain version;
+   its plain version; in bfloat16 (the Hopper kernels) also K3_ROUNDS
+   rounds that alternate the forward with the earlier forward
+   (``launch_train_fwd_wmma``, first held against the plain forward), and
+   the backward with its flush and wgrad ablations
+   (``launch_train_bwd_ablated``) and X2's ``base`` (the earlier backward),
+   on the same inputs;
 8. the training main path: ``train_step`` (4 bundles of 4096 rays, 64 + 128
    samples, depth, photometric and smoothness losses, Adam at 2e-4) in
    bfloat16 and float32: a first step whose parameter gradients are held
@@ -69,15 +78,19 @@ Phases, any failure exits non-zero without the final result line:
    held against its plain version (timed there) and ``pe`` against
    production K4-fwd;
 13. X2, the pipelining variants of K3-bwd
-   (``sinnerf_tpu_torch.scripts.exp_bwd_pipeline``): every variant's kernel
-   against its plain version at 128 rays x S = 8 (a partly open field) and
-   333 x 10 (an open one), the exact ones also against production K3-bwd within its
+   (``sinnerf_tpu_torch.scripts.exp_bwd_pipeline``): at 128 rays x S = 8 (a
+   partly open field) and 333 x 10 (an open one), the earlier forward that
+   gives the variants their residuals against its plain version, every
+   variant's kernel against its plain version, the exact ones also against
+   ``base`` (the earlier K3-bwd, whose body they share) within its
    run-to-run spread; then the entry point at 16,384 rays x 192 samples over
    all eight variants (both two_stream tiles, timed beside ``base`` in
    alternating rounds) with the counts set to 0 just before and read just
    after; on the inputs it ran on, each variant held against its plain
    version (timed there);
-14. print one ``kernels`` JSON line, then, last,
+14. ``torch.profiler`` over PROFILED_STEPS bfloat16 stochastic
+   ``train_step``s: the device's busy and idle share and its time by kernel;
+15. print one ``kernels`` JSON line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
@@ -189,6 +202,11 @@ X1_SMALL = (4096, 333)
 # bias's gradient by 8% for production K3-bwd as for its variants (one ulp
 # of the rays moves the plain version's by 4e9)
 X2_SMALL = ((128, 8, 60), (333, 10, 62))
+# the Hopper K3 kernels (bf16) against the earlier ones at the path's shapes:
+# rounds that alternate them, launches of each per round
+K3_ROUNDS, K3_REPS = 6, 2
+# the bf16 stochastic steps that torch.profiler traces
+PROFILED_STEPS = 3
 MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
 CLI_EPOCHS = 2
 # a training run's best val PSNR must clear a black render's by this much
@@ -526,10 +544,19 @@ def cotangents(out, target):
     return 2.0 * (rgb - target), 0.2 * depth, 0.02 * weights
 
 
+def k3_fwd_error(out, ref, far: float):
+    """A K3 forward's (largest, mean) error against its plain version: over
+    rgb, depth / far and weights, and over the residuals rgb_s and alphas."""
+    err_f = k1_error(out[:3], ref[:3], far)
+    err_res = k1_error((out[4], out[3]), (ref[4], ref[3]), 1.0)
+    return max(err_f[0], err_res[0]), max(err_f[1], err_res[1])
+
+
 def k3_check(model, rays, z, noise, target, cd: str, white_back: bool, what: str, reps: int = 0):
     """K3-fwd and K3-bwd on one set of inputs against their plain versions.
-    Returns the kernel forward's outputs, the errors and, with ``reps``, the
-    times (ms) of both kernels and both plain versions."""
+    Returns the kernel forward's outputs, the plain forward's, the errors
+    and, with ``reps``, the times (ms) of both kernels and both plain
+    versions."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_render_train as frt
@@ -543,9 +570,7 @@ def k3_check(model, rays, z, noise, target, cd: str, white_back: bool, what: str
     ref = frt.render_level_train_forward_plain(packed, rays[:, :6], z, noise, True, white_back)
     if out[0].shape != (n, 3) or out[1].shape != (n,) or out[2].shape != (n, s):
         raise Failed(f"{what}: output shapes {[tuple(o.shape) for o in out[:3]]}")
-    err_f = k1_error(out[:3], ref[:3], far)
-    err_res = k1_error((out[4], out[3]), (ref[4], ref[3]), 1.0)  # rgb_s, alphas
-    err_f = (max(err_f[0], err_res[0]), max(err_f[1], err_res[1]))
+    err_f = k3_fwd_error(out, ref, far)
     hold(f"{what} fwd", err_f, K3_FWD_TOL[cd])
 
     args = (packed, rays[:, :6].contiguous(), z, noise, out[2], out[3], out[4], *cotangents(out, target), True, white_back)
@@ -565,7 +590,7 @@ def k3_check(model, rays, z, noise, target, cd: str, white_back: bool, what: str
             fwd_plain=timed(lambda: frt.render_level_train_forward_plain(packed, r6, z, noise, True, white_back), 1)[1],
             bwd_plain=timed(lambda: frt.render_level_train_backward_plain(*args), 1)[1],
         )
-    return out, err_f, err_b, spread, times
+    return out, ref, err_f, err_b, spread, times
 
 
 def merge_worst(worst, cd, err_f, err_b, spread):
@@ -588,7 +613,7 @@ def phase_k3_checks(device, rng):
         target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
         for cd in ("float32", "bfloat16"):
             what = f"K3 {cd:8s} n={n:5d} S={s:3d} white_back={int(white_back)} noise={int(use_noise)}"
-            _, err_f, err_b, spread, _ = k3_check(model, rays, z, noise, target, cd, white_back, what)
+            _, _, err_f, err_b, spread, _ = k3_check(model, rays, z, noise, target, cd, white_back, what)
             merge_worst(worst, cd, err_f, err_b, spread)
     return worst
 
@@ -650,12 +675,69 @@ def make_draws(rng, n: int, device):
     )
 
 
+def k3_rounds(model, rays, z, noise, out, ref, target, what: str):
+    """The Hopper K3 kernels (bf16) against the earlier ones on one level's
+    inputs, in K3_ROUNDS rounds that alternate them (each round's ratio is
+    the one to compare): the forward against the earlier forward
+    (``launch_train_fwd_wmma``, first held against ``ref``, the plain
+    forward's outputs) on the path's inputs; the backward, its ablations
+    (``launch_train_bwd_ablated``: ``flush`` removes the weight gradients'
+    reductions and nothing else, ``wgrad`` their products too) and X2's
+    ``base`` (the earlier K3-bwd) on them without noise and with a black
+    background, which X2's kernels take (the same work).  Returns per name
+    the mean ms, per ratio its mean and range, and the earlier forward's
+    error."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights
+    from sinnerf_tpu_torch.ops.sm90_layout import slab_buffer
+    from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    packed = pack_weights(model, torch.bfloat16)
+    slabs = slab_buffer(packed)
+    r6 = rays[:, :6].contiguous()
+    # the earlier forward times beside the new one and gives X2 its residuals:
+    # held against its plain version as the new one is
+    earlier = frt.launch_train_fwd_wmma(packed, r6, z, noise, True, True)
+    torch.cuda.synchronize()
+    earlier_err = k3_fwd_error(earlier, ref, rays[:, 7].max().item())
+    hold(f"{what} earlier fwd (wmma)", earlier_err, K3_FWD_TOL["bfloat16"])
+    del earlier
+    g_rgb, g_depth, g_w = (g.contiguous() for g in cotangents(out, target))
+    bwd = (packed, r6, z, None, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, False)
+    base_in = x2.BwdInputs(packed, r6, z, out[2], out[3], out[4], g_rgb, g_depth, g_w)
+    fns = {
+        "fwd": lambda: frt.launch_train_fwd(packed, r6, z, noise, True, True, slabs),
+        "fwd_earlier": lambda: frt.launch_train_fwd_wmma(packed, r6, z, noise, True, True),
+        "bwd": lambda: frt.launch_train_bwd(*bwd, slabs=slabs),
+        "bwd_earlier": lambda: x2.launch_variant("base", 64, 1, base_in),
+    }
+    for part in frt.ABLATE:
+        fns[f"bwd_no_{part}"] = lambda part=part: frt.launch_train_bwd_ablated(part, *bwd, slabs=slabs)
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    counts = (frt.launch_train_fwd.launches, frt.launch_train_bwd.launches)
+    per_round = interleaved_ms(fns, K3_ROUNDS, K3_REPS)
+    # these launches compare kernels: they do not count as the path's
+    frt.launch_train_fwd.launches, frt.launch_train_bwd.launches = counts
+    ms = {k: sum(v) / K3_ROUNDS for k, v in per_round.items()}
+    ratios = {}
+    for num, den in [("fwd", "fwd_earlier"), ("bwd", "bwd_earlier")] + [(f"bwd_no_{p}", "bwd") for p in frt.ABLATE]:
+        r = [a / b for a, b in zip(per_round[num], per_round[den])]
+        ratios[f"{num}/{den}"] = (sum(r) / len(r), min(r), max(r))
+    return ms, ratios, earlier_err
+
+
 def phase_train_path(device, rng, batch, draws):
     """K3 and K2 at the training path's shapes, on the inputs ``train_step``
     gives each launch: the batch's 16,384 rays, S = 64 then 192."""
     import torch
 
     from sinnerf_tpu_torch.core.sampling import stratified_z_vals
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
     from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge, sample_pdf_merge_plain
 
     rays = torch.cat([batch[k].reshape(-1, 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")])
@@ -668,13 +750,26 @@ def phase_train_path(device, rng, batch, draws):
         z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], N_SAMPLES, False, 1.0, u=draws.perturb_u)
         for level, noise in (("coarse", draws.noise_coarse), ("fine", draws.noise_fine)):
             s = z.shape[1]
-            res, err_f, err_b, spread, ms = k3_check(
+            res, ref, err_f, err_b, spread, ms = k3_check(
                 models[level], rays, z, noise, target, cd, True, f"path K3 {cd:8s} {level:6s} n={n} S={s:3d}", reps=3)
             merge_worst(worst, cd, err_f, err_b, spread)
             bounds = {d: k3_bound(n, s, cd, d == "bwd") for d in ("fwd", "bwd")}
             print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
                   f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
-            launches.append(dict(shape=f"{n}x{s}", ms=ms, bounds=bounds))
+            row = dict(shape=f"{n}x{s}", ms=ms, bounds=bounds)
+            if cd == "bfloat16":
+                row["rounds_ms"], row["ratios"], row["earlier_fwd_err"] = k3_rounds(
+                    models[level], rays, z, noise, res, ref, target, f"path K3 bfloat16 {level:6s} n={n} S={s:3d}")
+                r = row["ratios"]
+                print(f"  {K3_ROUNDS} rounds: fwd {row['rounds_ms']['fwd']:.3f} ms, earlier fwd "
+                      f"{row['rounds_ms']['fwd_earlier']:.3f} ms (ratio {r['fwd/fwd_earlier'][0]:.4f}, "
+                      f"{r['fwd/fwd_earlier'][1]:.4f}-{r['fwd/fwd_earlier'][2]:.4f}); bwd "
+                      f"{row['rounds_ms']['bwd']:.3f} ms, earlier (X2 base) {row['rounds_ms']['bwd_earlier']:.3f} ms "
+                      f"(ratio {r['bwd/bwd_earlier'][0]:.4f}, {r['bwd/bwd_earlier'][1]:.4f}-"
+                      f"{r['bwd/bwd_earlier'][2]:.4f}); bwd without each part: "
+                      + ", ".join(f"{p} {row['rounds_ms'][f'bwd_no_{p}']:.3f} ms ({r[f'bwd_no_{p}/bwd'][0]:.4f}, "
+                                  f"{r[f'bwd_no_{p}/bwd'][1]:.4f}-{r[f'bwd_no_{p}/bwd'][2]:.4f})" for p in frt.ABLATE))
+            launches.append(row)
             if level == "coarse":
                 w_c = res[2]
                 z_all, k2_ms = timed(lambda: fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, draws.pdf_u, False), 10)
@@ -700,6 +795,47 @@ def new_train_state(device, sigma_shift: float = TRAIN_SIGMA_SHIFT, lr: float = 
     models = {"coarse": make_model(30, device, sigma_shift).train(), "fine": make_model(31, device, sigma_shift).train()}
     hp = argparse.Namespace(optimizer="adam", lr=lr, momentum=0.9, weight_decay=0.0)
     return TrainState(models=models, opt_g=get_optimizer(hp, [p for m in models.values() for p in m.parameters()]))
+
+
+def phase_profile(device, batch, draws):
+    """``torch.profiler`` over PROFILED_STEPS bf16 stochastic ``train_step``s
+    (after one untraced step), last of all so that the tracer touches no
+    other measurement: the device's busy share of the host-clock window (the
+    sum of the kernels' and copies' device times over it; one stream, so
+    they do not overlap), its idle share, and device time by kernel name
+    (ms per step, largest first)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sinnerf_tpu_torch.train.step import train_step
+
+    cfg = train_config("bfloat16")
+    state, _ = train_step(new_train_state(device), batch, cfg, 0.0, draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            state, _ = train_step(state, batch, cfg, 0.0, draws)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(wall_ms_per_step=wall_ms / PROFILED_STEPS, busy_ms_per_step=busy / PROFILED_STEPS,
+               busy_share=busy / wall_ms if busy else None, idle_share=1 - busy / wall_ms if busy else None,
+               kernels_ms_per_step={k[:80]: v / PROFILED_STEPS for k, v in top})
+    if busy:
+        print(f"profiler, {PROFILED_STEPS} steps: {out['wall_ms_per_step']:.2f} ms per step (host clock, traced), "
+              f"device busy {out['busy_ms_per_step']:.2f} ms ({100 * out['busy_share']:.1f}%), idle "
+              f"{100 * out['idle_share']:.1f}%; by kernel, ms per step: "
+              + "; ".join(f"{k[:60]} {v:.3f}" for k, v in out["kernels_ms_per_step"].items()))
+    else:
+        print("profiler: the trace holds no device time (device idle share: not measured)")
+    return out
 
 
 def phase_train(device, batch, draws):
@@ -1148,39 +1284,45 @@ def phase_x1(device):
 
 
 def phase_x2_checks(device):
-    """Each X2 variant's kernel against its plain version; the exact ones
-    also against production K3-bwd within its run-to-run spread."""
+    """The earlier K3-fwd, which gives X2 its residuals, against its plain
+    version; each X2 variant's kernel against its plain version; the exact
+    ones also against ``base`` (the earlier K3-bwd, whose body they share)
+    within its run-to-run spread."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_render_train as frt
     from sinnerf_tpu_torch.ops.fused_mlp import unpack_grads
     from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
 
-    worst = {}
+    worst, earlier_worst = {}, (0.0, 0.0)
     for n, s, seed in X2_SMALL:
         i = x2.make_inputs(n, s, seed, device)
-        prod_args = (i.packed, i.rays6, i.z, None, i.weights, i.alphas, i.rgb_s, i.g_rgb, i.g_depth, i.g_w, True,
-                     False)
-        prod = frt.launch_train_bwd(*prod_args)
-        if not bool(prod[0].any()):
+        earlier = frt.launch_train_fwd_wmma(i.packed, i.rays6, i.z, None, True, False)
+        torch.cuda.synchronize()
+        err = k3_fwd_error(earlier, frt.render_level_train_forward_plain(i.packed, i.rays6, i.z, None, True, False),
+                           float(i.z.max()))
+        hold(f"X2 inputs n={n} S={s}: earlier K3 bfloat16 fwd (wmma)", err, K3_FWD_TOL["bfloat16"])
+        earlier_worst = tuple(map(max, earlier_worst, err))
+        base = x2.run_variant("base", 64, 1, i)
+        if not bool(base[0].any()):
             raise Failed(f"X2 inputs at n={n} S={s}: an empty field, every gradient is 0 and nothing is held")
-        spread = x2.leaf_errors(frt.launch_train_bwd(*prod_args), prod)
+        spread = x2.leaf_errors(x2.run_variant("base", 64, 1, i), base)
         for variant, rays, streams in x2.parse_spec(x2.ALL_SPEC):
             tag = f"{variant}:{rays}:{streams}"
             got = x2.run_variant(variant, rays, streams, i)
             torch.cuda.synchronize()
             err = grad_errors(unpack_grads(*got), unpack_grads(*x2.variant_plain(variant, i)))
             hold_grads(f"X2 {tag:16s} n={n} S={s} vs its plain version", err, K3_BWD_TOL["bfloat16"])
-            w = worst.setdefault(tag, dict(plain=(0.0, 0.0), production=None, spread=(0.0, 0.0)))
+            w = worst.setdefault(tag, dict(plain=(0.0, 0.0), base=None, spread=(0.0, 0.0)))
             w["plain"] = tuple(map(max, w["plain"], err))
             if variant in x2.EXACT:
-                err_p = x2.leaf_errors(got, prod)
-                hold_grads(f"X2 {tag:16s} n={n} S={s} vs production K3-bwd (two production runs differ by "
+                err_p = x2.leaf_errors(got, base)
+                hold_grads(f"X2 {tag:16s} n={n} S={s} vs base (two base runs differ by "
                            f"{spread[0]:.1e}, {spread[1]:.1e})", err_p, x2.EXACT_TOL_SMALL)
-                w["production"] = tuple(map(max, w["production"] or (0.0, 0.0), err_p))
+                w["base"] = tuple(map(max, w["base"] or (0.0, 0.0), err_p))
                 w["spread"] = tuple(map(max, w["spread"], spread))
                 w["tolerance"] = x2.EXACT_TOL_SMALL
-    return worst
+    return worst, earlier_worst
 
 
 def phase_x2(device):
@@ -1219,6 +1361,40 @@ def phase_x2(device):
     return res, counts
 
 
+def sass_counts(source: str):
+    """Per Hopper K3 kernel of ``csrc/<source>``'s built library, the count
+    of its SASS instructions that show the design: HGMMA (wgmma), UBLKCP
+    and UTMALDG (bulk and tensor copies into shared memory) and vector
+    reductions (RED ... x4 or .128), from ``cuobjdump -sass``."""
+    import re
+
+    from sinnerf_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(source))], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            # the backward's instantiation for the training path (ABLATE = 0),
+            # not its timing ablations
+            name = next((k for k, tag in (("train_fwd_sm90", "train_fwd_sm90"),
+                                          ("train_bwd_sm90", "train_bwd_sm90ILi0E")) if tag in mangled), None)
+            if name:
+                counts[name] = dict(HGMMA=0, UBLKCP=0, UTMALDG=0, RED_V4=0)
+        elif name:
+            for key in ("HGMMA", "UBLKCP", "UTMALDG"):
+                counts[name][key] += key in line
+            counts[name]["RED_V4"] += bool(re.search(r"\bREDG?\.\S*(x4|\.128)", line))
+    for kernel in ("train_fwd_sm90", "train_bwd_sm90"):
+        c = counts.get(kernel)
+        print(f"SASS {kernel}: {c}")
+        if not c or c["HGMMA"] == 0 or c["UBLKCP"] + c["UTMALDG"] == 0:
+            raise Failed(f"{kernel}: no wgmma or no bulk copy in its SASS: {c}")
+    return counts
+
+
 def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
@@ -1248,6 +1424,7 @@ def main() -> int:
             with open(log) as f:
                 usage = [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(os.path.basename(log), *usage, sep="\n  ")
+        sass = sass_counts("fused_render_train_sm90.cu")
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
         k2_err = phase_k2_checks(device, rng)
@@ -1266,8 +1443,9 @@ def main() -> int:
             cli = phase_train_cli(device, workdir, root)
         x1_err = phase_x1_checks(device, rng)
         x1_res, x1_counts = phase_x1(device)
-        x2_err = phase_x2_checks(device)
+        x2_err, x2_earlier_fwd_err = phase_x2_checks(device)
         x2_res, x2_counts = phase_x2(device)
+        profile = phase_profile(device, batch, draws)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1295,7 +1473,7 @@ def main() -> int:
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
             entry = dict(
                 name=f"fused_render_level_train_{d}[{cd}]", route="cuda",
-                source="sinnerf_tpu_torch/csrc/fused_render_train.cu",
+                source="sinnerf_tpu_torch/csrc/fused_render_train" + ("_sm90" if cd == "bfloat16" else "") + ".cu",
                 replaces=f"sinnerf_tpu/ops/fused_render_train_t.py:{line}",
                 launches=t["counts"][i], max_abs_err=err[0], tolerance=tol,
                 ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
@@ -1308,6 +1486,26 @@ def main() -> int:
             else:  # max_abs_err is the worst leaf's largest difference over its largest entry
                 entry.update(rel_l2_err=err[1], run_to_run=max(k3_err[cd]["spread"], p["spread"]),
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
+            if cd == "bfloat16":  # the Hopper kernels: the earlier ones timed beside them in alternating rounds
+                x = p["launches"]
+                entry.update(
+                    earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
+                    rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
+                    earlier_source="sinnerf_tpu_torch/csrc/" + ("fused_render_train.cu" if d == "fwd"
+                                                               else "exp_bwd_pipeline.cu (X2 base)"),
+                    vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
+                    rounds=K3_ROUNDS, sass=sass[f"train_{d}_sm90"],
+                )
+                if d == "fwd":  # the earlier forward against its plain version, path and X2 inputs
+                    entry.update(earlier_err=tuple(map(max, x2_earlier_fwd_err,
+                                                       *(r["earlier_fwd_err"] for r in x))))
+                if d == "bwd":
+                    entry.update(ablation_ms={r["shape"]: {k[len("bwd_no_"):]: v for k, v in r["rounds_ms"].items()
+                                                           if k.startswith("bwd_no_")} for r in x},
+                                 ablation_vs_bwd={r["shape"]: {k[len("bwd_no_"):].split("/")[0]: v
+                                                               for k, v in r["ratios"].items()
+                                                               if k.startswith("bwd_no_")} for r in x},
+                                 step_profile=profile)
             kernels.append(entry)
     for cd in ("bfloat16", "float32"):
         p, t = det["k4"][cd], det["step"][cd]
@@ -1370,10 +1568,10 @@ def main() -> int:
             vs_base=r["vs_base"], vs_base_range=r["vs_base_range"], production_ms=x2_res["production"]["ms"],
             production_vs_base_range=x2_res["production"]["vs_base_range"],
         )
-        if x2_err[tag]["production"] is not None:
-            entry.update(err_vs_production=x2_err[tag]["production"], err_vs_production_full=r["err_vs_production"],
-                         production_run_to_run=x2_err[tag]["spread"], production_tolerance=x2_err[tag]["tolerance"],
-                         production_tolerance_full=r["exact_tol"])
+        if x2_err[tag]["base"] is not None:
+            entry.update(err_vs_base=x2_err[tag]["base"], err_vs_base_full=r["err_vs_base"],
+                         base_run_to_run=x2_err[tag]["spread"], base_tolerance=x2_err[tag]["tolerance"],
+                         base_tolerance_full=r["exact_tol"])
         kernels.append(entry)
     print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
           f"(K1: one eval image; K3 and K4: one train step; K2: both; X1 and X2: one launch of the experiment's "

@@ -5,6 +5,11 @@
 // (:164, called through _frlt_bwd :509).  Wrapper (a torch.autograd.Function),
 // plain versions and launch counters: ops/fused_render_train.py.
 //
+// The training path runs these kernels in float32; in bfloat16 it runs the
+// Hopper kernels of fused_render_train_sm90.cu.  The bfloat16 forward here
+// (wmma) stays as the earlier body whose residuals the kernel experiment X2
+// recomputes against; the bfloat16 backward is X2's ``base``.
+//
 // K3-fwd is render_level.cuh's render_tile with TRAIN set: K1's work plus the
 // sigma noise, and alpha and rgb stored per sample beside w as residuals.
 // Bound: operations, 593,408 multiply-adds per point, as K1.
@@ -158,9 +163,7 @@ int fused_render_level_train_bwd(const void* rays, const void* z, const void* no
                                  const void* g_w, void* dsig_part, void* scratch, void* dw, void* db,
                                  int n, int s, int blocks, int use_bf16, int new_act, int white_back,
                                  void* stream) {
-  if (use_bf16)
-    return launch_bwd<bf16>(rays, z, noise, w, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w,
-                            dsig_part, scratch, dw, db, n, s, blocks, new_act, white_back, stream);
+  if (use_bf16) return (int)cudaErrorNotSupported;  // fused_render_train_sm90.cu
   return launch_bwd<float>(rays, z, noise, w, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w,
                            dsig_part, scratch, dw, db, n, s, blocks, new_act, white_back, stream);
 }

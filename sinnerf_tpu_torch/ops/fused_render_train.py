@@ -2,12 +2,23 @@
 
 Counterpart of ``sinnerf_tpu/ops/fused_render_train_t.py::
 fused_render_level_train`` (:599), whose TPU kernels are ``_train_fwd_kernel``
-(:86) and ``_train_bwd_kernel`` (:164).  The CUDA kernels are in
-``csrc/fused_render_train.cu`` (the forward's body is shared with K1 in
-``csrc/render_level.cuh``); the source note gives the bound (operations:
-1.19 MFLOP per point forward, 3.48 MFLOP backward) and what the design does
-about the activations and the 2.4 MB gradient accumulator that fit in no
-block.
+(:86) and ``_train_bwd_kernel`` (:164).  Two pairs of CUDA kernels, by
+compute dtype:
+
+* bfloat16: ``csrc/fused_render_train_sm90.cu``, Hopper kernels on
+  ``wgmma`` with the weights streamed through shared memory by bulk copies
+  (``mlp_wgmma.cuh``, ``render_level_sm90.cuh``,
+  ``mlp_backward_wgmma.cuh``); they read the weights as
+  ``sm90_layout.slab_buffer`` lays them out, once per call;
+* float32: ``csrc/fused_render_train.cu`` (the forward's body shared with K1
+  in ``csrc/render_level.cuh``).
+
+The source notes give the bound (operations: 1.19 MFLOP per point forward,
+3.48 MFLOP backward) and what each design does about the weights, the
+activations and the 2.4 MB gradient accumulator that fit in no block.
+``launch_train_fwd_wmma`` launches the earlier bfloat16 forward
+(``fused_render_train.cu``, ``nvcuda::wmma``), the body whose residuals the
+kernel experiment X2 reads.
 
 ``fused_render_level_train`` is a ``torch.autograd.Function`` over the
 module's 24 float32 parameters: it casts them to the compute dtype inside
@@ -39,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from sinnerf_tpu_torch.core.composite import compute_alphas_weights, intervals
 from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
 from sinnerf_tpu_torch.models.nerf import NeRF
-from sinnerf_tpu_torch.ops import _build
+from sinnerf_tpu_torch.ops import _build, sm90_layout
 from sinnerf_tpu_torch.ops.fused_mlp import (
     BIAS_SIZE,
     DIR_PAD,
@@ -62,6 +73,7 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
 from sinnerf_tpu_torch.ops.fused_render import _check_inputs
 
 SOURCE = "fused_render_train.cu"
+SOURCE_SM90 = "fused_render_train_sm90.cu"
 PLAIN_CHUNK = 2048  # rays per pass of a plain version: bounds its (P, 256) activations
 
 
@@ -218,6 +230,7 @@ def render_level_train_backward_plain(
 # --------------------------------------------------------------------------
 
 _signature_set = False
+_sm90_signature_set = False
 
 
 def _lib() -> ctypes.CDLL:
@@ -239,60 +252,212 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back):
-    """K3-fwd on CUDA tensors: (rgb, depth, weights, alphas, rgb_s)."""
+def _lib_sm90() -> ctypes.CDLL:
+    global _sm90_signature_set
+    lib = _build.load(SOURCE_SM90)
+    if not _sm90_signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k3_sm90_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        lib.k3_sm90_fwd.restype = i
+        lib.k3_sm90_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
+        lib.k3_sm90_bwd.restype = i
+        lib.k3_sm90_bwd_ablated.argtypes = [p] * 15 + [i] * 6 + [p]
+        lib.k3_sm90_bwd_ablated.restype = i
+        lib.k3_sm90_probe.argtypes = [i] + [p] * 5
+        lib.k3_sm90_probe.restype = i
+        lib.k3_sm90_smem_bytes.argtypes = [i]
+        lib.k3_sm90_smem_bytes.restype = i
+        lib.k3_sm90_scratch_bytes.argtypes = []
+        lib.k3_sm90_scratch_bytes.restype = ctypes.c_longlong
+        lib.k3_sm90_slab_elems.argtypes = []
+        lib.k3_sm90_slab_elems.restype = i
+        L = sm90_layout
+        got = (lib.k3_sm90_smem_bytes(0), lib.k3_sm90_smem_bytes(1), lib.k3_sm90_scratch_bytes(),
+               lib.k3_sm90_slab_elems())
+        if got != (L.FWD_SMEM, L.BWD_SMEM, L.BWD_SCRATCH, L.SLAB_BUFFER_SIZE):
+            raise RuntimeError(f"csrc/fused_render_train_sm90.cu and ops/sm90_layout.py disagree: {got}")
+        _sm90_signature_set = True
+    return lib
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _slabs(packed: PackedWeights, slabs: Optional[torch.Tensor]) -> torch.Tensor:
+    return sm90_layout.slab_buffer(packed) if slabs is None else slabs
+
+
+def _forward_outputs(n, s, dev):
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((n, 3), (n,), (n, s), (n, s), (n, s, 3)))
+
+
+def _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back):
+    """fused_render_train.cu's forward kernel (64-point blocks: FMA in float32, wmma in
+    bfloat16): (rgb, depth, weights, alphas, rgb_s)."""
     n, s = z.shape
     dev = z.device
-    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    depth = torch.empty((n,), dtype=torch.float32, device=dev)
-    weights = torch.empty((n, s), dtype=torch.float32, device=dev)
-    alphas = torch.empty((n, s), dtype=torch.float32, device=dev)
-    rgb_s = torch.empty((n, s, 3), dtype=torch.float32, device=dev)
+    out = _forward_outputs(n, s, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.fused_render_level_train_fwd(
             rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
-            rgb.data_ptr(), depth.data_ptr(), weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(),
-            n, s, int(packed.w.dtype == torch.bfloat16), int(use_new_activation), int(white_back),
-            torch.cuda.current_stream(dev).cuda_stream,
+            *(o.data_ptr() for o in out), n, s, int(packed.w.dtype == torch.bfloat16), int(use_new_activation),
+            int(white_back), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "fused_render_level_train (forward)")
+    return out
+
+
+def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, slabs=None):
+    """K3-fwd on CUDA tensors: (rgb, depth, weights, alphas, rgb_s).  bfloat16
+    weights run the Hopper kernel (``slabs``: their ``slab_buffer``, built
+    here when not given), float32 the FMA kernel."""
+    if packed.w.dtype != torch.bfloat16:
+        out = _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
+    else:
+        n, s = z.shape
+        dev = z.device
+        slabs = _slabs(packed, slabs)
+        out = _forward_outputs(n, s, dev)
+        lib = _lib_sm90()
+        with torch.cuda.device(dev):
+            rc = lib.k3_sm90_fwd(
+                rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), packed.b.data_ptr(),
+                *(o.data_ptr() for o in out), n, s, sm90_layout.launch_plan(n, s, _sm_count(dev))["ctas"],
+                int(use_new_activation), int(white_back), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "fused_render_level_train (forward, sm90)")
     launch_train_fwd.launches += 1
-    return rgb, depth, weights, alphas, rgb_s
+    return out
 
 
 launch_train_fwd.launches = 0
 
 
-def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
-                     use_new_activation, white_back):
-    """K3-bwd on CUDA tensors: the packed float32 gradient buffers (dw, db)."""
+def launch_train_fwd_wmma(packed, rays6, z, noise, use_new_activation, white_back):
+    """The earlier bfloat16 K3-fwd (``fused_render_train.cu``, ``nvcuda::wmma``
+    from L2) on CUDA tensors: (rgb, depth, weights, alphas, rgb_s).  Off the
+    main path: the kernel experiment X2 takes its residuals from it, and
+    ``chip_smoke.py`` times it beside the Hopper kernel."""
+    out = _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
+    launch_train_fwd_wmma.launches += 1
+    return out
+
+
+launch_train_fwd_wmma.launches = 0
+
+
+def _bwd_buffers(n, s, dev):
+    """dsig_part, dw and db of a K3-bwd launch (dw and db zeroed: the kernels add into them)."""
+    return (torch.empty((n, s), dtype=torch.float32, device=dev),
+            torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev),
+            torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev))
+
+
+def _launch_bwd_sm90(entry, extra, packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                     use_new_activation, white_back, slabs):
+    """A Hopper K3-bwd entry point of ``fused_render_train_sm90.cu`` (``extra``:
+    its arguments after white_back): (dw, db)."""
     n, s = z.shape
     dev = z.device
-    bf16 = packed.w.dtype == torch.bfloat16
-    lib = _lib()
-    # a persistent grid: as many blocks as the card holds at once
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if bf16 else 1)
-    scratch = torch.empty(blocks * lib.fused_render_level_train_bwd_scratch_bytes(int(bf16)),
-                          dtype=torch.uint8, device=dev)
-    dsig_part = torch.empty((n, s), dtype=torch.float32, device=dev)
-    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev)
-    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev)
+    dsig_part, dw, db = _bwd_buffers(n, s, dev)
+    slabs = _slabs(packed, slabs)
+    lib = _lib_sm90()
+    plan = sm90_layout.launch_plan(n, s, _sm_count(dev))  # persistent CTAs, one per SM at most
+    scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.fused_render_level_train_bwd(
-            rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
-            weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(),
-            g_rgb.data_ptr(), g_depth.data_ptr(), g_w.data_ptr(),
+        rc = getattr(lib, entry)(
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), packed.b.data_ptr(), weights.data_ptr(),
+            alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(), g_w.data_ptr(),
             dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            n, s, blocks, int(bf16), int(use_new_activation), int(white_back),
+            n, s, plan["ctas"], int(use_new_activation), int(white_back), *extra,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(lib, rc, "fused_render_level_train (backward)")
-    launch_train_bwd.launches += 1
+    _build.check(lib, rc, f"fused_render_level_train (backward, sm90, {entry})")
     return dw, db
 
 
+def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                     use_new_activation, white_back, slabs=None):
+    """K3-bwd on CUDA tensors: the packed float32 gradient buffers (dw, db).
+    bfloat16 weights run the Hopper kernel, float32 the FMA kernel."""
+    if packed.w.dtype == torch.bfloat16:
+        out = _launch_bwd_sm90("k3_sm90_bwd", (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth,
+                               g_w, use_new_activation, white_back, slabs)
+    else:
+        n, s = z.shape
+        dev = z.device
+        dsig_part, dw, db = _bwd_buffers(n, s, dev)
+        lib = _lib()
+        blocks = _sm_count(dev)  # a persistent grid: as many blocks as the card holds at once
+        scratch = torch.empty(blocks * lib.fused_render_level_train_bwd_scratch_bytes(0), dtype=torch.uint8,
+                              device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.fused_render_level_train_bwd(
+                rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
+                weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(),
+                g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                n, s, blocks, 0, int(use_new_activation), int(white_back),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "fused_render_level_train (backward)")
+        out = dw, db
+    launch_train_bwd.launches += 1
+    return out
+
+
 launch_train_bwd.launches = 0
+
+
+# The timing ablations of the bfloat16 K3-bwd (csrc/mlp_backward_wgmma.cuh
+# Ablate): each removes one part of the kernel and nothing else, ``flush`` the
+# weight gradients' reductions into dw, ``wgrad`` the weight-gradient
+# products and their flush.
+ABLATE = {"flush": 1, "wgrad": 2}
+
+
+def launch_train_bwd_ablated(part, packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                             use_new_activation, white_back, slabs=None):
+    """The bfloat16 K3-bwd without ``part`` (a key of ABLATE), for timing only:
+    its own instantiation of the kernel, so the training path's carries no
+    switch.  The gradients it returns are wrong by design."""
+    if packed.w.dtype != torch.bfloat16:
+        raise ValueError("the ablations remove parts of the bfloat16 kernel only")
+    out = _launch_bwd_sm90("k3_sm90_bwd_ablated", (ABLATE[part],), packed, rays6, z, noise, weights, alphas, rgb_s,
+                           g_rgb, g_depth, g_w, use_new_activation, white_back, slabs)
+    launch_train_bwd_ablated.launches += 1
+    return out
+
+
+launch_train_bwd_ablated.launches = 0
+
+
+def sm90_probe(mode: int, a: torch.Tensor, c: torch.Tensor, w_slab: torch.Tensor) -> torch.Tensor:
+    """One warpgroup's product through the Hopper kernels' descriptors (the
+    card's tests hold it against ``sm90_probe_plain``).  a, c: (128, 256)
+    bf16 CUDA tensors; w_slab: the swizzled image of a (256, 64) bf16 matrix
+    (``sm90_layout.swizzle``).  mode 0: a[:64, :64] W^T (64, 256); 1:
+    a[:64] W (64, 64); 2: a[:, :64]^T c (64, 256); 3: a[:, :64]^T c[:, :64]."""
+    shape = {0: (64, 256), 1: (64, 64), 2: (64, 256), 3: (64, 64)}[mode]
+    out = torch.zeros(shape, dtype=torch.float32, device=a.device)
+    lib = _lib_sm90()
+    with torch.cuda.device(a.device):
+        rc = lib.k3_sm90_probe(mode, a.data_ptr(), c.data_ptr(), w_slab.data_ptr(), out.data_ptr(),
+                               torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, rc, f"k3_sm90_probe mode {mode}")
+    return out
+
+
+def sm90_probe_plain(mode: int, a: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``sm90_probe`` with the unswizzled (256, 64) ``w``."""
+    a, c, w = a.float(), c.float(), w.float()
+    if mode == 0:
+        return a[:64, :64] @ w.T
+    if mode == 1:
+        return a[:64] @ w
+    return a[:, :64].T @ (c if mode == 2 else c[:, :64])
 
 
 class _TrainRender(torch.autograd.Function):
@@ -302,8 +467,11 @@ class _TrainRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rays6, z, noise, use_new_activation, white_back, compute_dtype, *params):
         packed = pack_tensors(params, torch_dtype(compute_dtype))
+        ctx.slabs = None
         if z.device.type == "cuda":
-            out = launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back)
+            if packed.w.dtype == torch.bfloat16:  # the Hopper kernels' weight layout, once for both directions
+                ctx.slabs = sm90_layout.slab_buffer(packed)
+            out = launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, ctx.slabs)
         else:
             out = render_level_train_forward_plain(packed, rays6, z, noise, use_new_activation, white_back)
         rgb, depth, weights, alphas, rgb_s = out
@@ -324,7 +492,7 @@ class _TrainRender(torch.autograd.Function):
         args = (PackedWeights(w, b), rays6, z, noise, weights, alphas, rgb_s,
                 cot(g_rgb, (n, 3)), cot(g_depth, (n,)), cot(g_w, (n, s)), *ctx.flags)
         if z.device.type == "cuda":
-            dw, db = launch_train_bwd(*args)
+            dw, db = launch_train_bwd(*args, slabs=ctx.slabs)
         else:
             dw, db = render_level_train_backward_plain(*args)
         return (None,) * 6 + unpack_grads(dw, db)

@@ -1,0 +1,206 @@
+"""Shared-memory layouts and the launch plan of the Hopper K3 kernels
+(``csrc/fused_render_train_sm90.cu``, bf16 only).
+
+The kernels stream the MLP's weights through a ring of shared-memory stages
+with one 1-D bulk copy (``cp.async.bulk``) per stage, and ``wgmma`` reads
+them there through 128-byte-swizzled shared-memory descriptors.  A bulk copy
+moves bytes as they lie, so the weights are laid out once per call (one
+gather), already swizzled, in the order the kernels consume them: a **slab** is
+the 64 input columns ``[k0, k0 + 64)`` of one weight block (all its output
+rows), and ``slab_buffer`` concatenates the slabs of every product of the
+MLP (``FWD_SLABS``) followed by the two head weights (``wrgb``, ``wsig``),
+which the kernels read with plain loads.  ``unpack_slab_buffer`` inverts it
+to ``pack_weights``' layout.
+
+The 128-byte swizzle (``wgmma``'s ``SWIZZLE_128B``, CUTLASS's
+``Swizzle<3,4,3>``): a slab row is 64 bf16 values, 128 bytes, in eight
+16-byte chunks; chunk ``c`` of row ``r`` lies at chunk position
+``c ^ (r % 8)``.  Every slab starts on a 1,024-byte boundary, as the
+descriptor's swizzle (computed from address bits) requires.  The same bytes
+serve both directions: the forward reads a slab as the K-major B operand
+(row = output, 128 bytes along the input), the backward's input gradient as
+the MN-major B operand (row = the reduction over outputs, 128 bytes along the
+64 inputs it produces); the ``wgmma`` transpose bit tells the two apart, and
+no second copy of the weights exists.
+
+Activation tiles in shared memory use the same swizzle, ``ACT_BLOCK`` bytes
+per 64 columns: column block ``k // 64`` of point ``p`` is row ``p`` of that
+block (``act_offset``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
+
+from sinnerf_tpu_torch.ops.fused_mlp import WEIGHT_OFFSETS, WEIGHT_SIZE, PackedWeights
+
+SW = 64  # bf16 values in one swizzled row (128 bytes)
+TILE_RAYS = 128  # rays per CTA tile: two consumer warpgroups of 64
+ACT_BLOCK = TILE_RAYS * SW * 2  # bytes of one 64-column block of a 128-point tile
+
+
+class Slab(NamedTuple):
+    block: str  # weight block of fused_mlp.WEIGHT_LAYOUT
+    k0: int  # first input column
+    rows: int  # output rows (256, or 128 for the direction layer)
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows * SW * 2
+
+
+def _slabs_of(block: str) -> List[Slab]:
+    _, (rows, cols) = WEIGHT_OFFSETS[block]
+    return [Slab(block, k0, rows) for k0 in range(0, cols, SW)]
+
+
+# The forward's products, in the order the kernels run them: layer 1 on the
+# PE, layers 2-4, layer 5 (trunk then PE: one accumulator), 6-8,
+# xyz_encoding_final, the direction layer (trunk then the direction PE, whose
+# 32 padded columns fill one slab with zeros past column 32).
+FWD_BLOCKS = ("w1", "w2", "w3", "w4", "w5h", "w5x", "w6", "w7", "w8", "wfin", "wdh", "wdx")
+FWD_SLABS: Tuple[Slab, ...] = tuple(s for b in FWD_BLOCKS for s in _slabs_of(b))
+# The backward's input gradients read the trunk's blocks again, from the
+# direction layer down to layer 2 (no gradient reaches the PE): indices into
+# FWD_SLABS, in the order the backward consumes them.
+BWD_BLOCKS = ("wdh", "wfin", "w8", "w7", "w6", "w5h", "w4", "w3", "w2")
+BWD_SLABS: Tuple[int, ...] = tuple(i for b in BWD_BLOCKS for i, s in enumerate(FWD_SLABS) if s.block == b)
+HEAD_BLOCKS = ("wrgb", "wsig")
+
+
+def slab_offsets() -> Tuple[List[int], int]:
+    """Byte offset of each slab of FWD_SLABS in ``slab_buffer``, and of the
+    head weights after them."""
+    offs, at = [], 0
+    for s in FWD_SLABS:
+        offs.append(at)
+        at += s.nbytes
+    return offs, at
+
+
+SLAB_OFFSETS, HEAD_OFFSET = slab_offsets()
+HEAD_SIZE = sum(WEIGHT_OFFSETS[b][1][0] * WEIGHT_OFFSETS[b][1][1] for b in HEAD_BLOCKS)
+SLAB_BUFFER_SIZE = HEAD_OFFSET // 2 + HEAD_SIZE  # bf16 values
+
+
+def swizzle_index(rows: int, device=None) -> torch.Tensor:
+    """For a (rows, 64) row-major tile, the position of each element in its
+    swizzled image: ``r * 64 + ((c ^ (r % 8)) * 8) + e`` for column ``8c + e``."""
+    r = torch.arange(rows, device=device)[:, None]
+    col = torch.arange(SW, device=device)[None, :]
+    return (r * SW + ((col // 8) ^ (r % 8)) * 8 + col % 8).reshape(-1)
+
+
+def swizzle(tile: torch.Tensor) -> torch.Tensor:
+    """(rows, 64) -> its swizzled image, flat."""
+    out = torch.empty(tile.numel(), dtype=tile.dtype, device=tile.device)
+    out[swizzle_index(tile.shape[0], tile.device)] = tile.reshape(-1)
+    return out
+
+
+def unswizzle(flat: torch.Tensor, rows: int) -> torch.Tensor:
+    """The inverse of ``swizzle``: (rows, 64)."""
+    return flat[swizzle_index(rows, flat.device)].view(rows, SW)
+
+
+def _block(w: torch.Tensor, name: str) -> torch.Tensor:
+    off, (rows, cols) = WEIGHT_OFFSETS[name]
+    return w[off : off + rows * cols].view(rows, cols)
+
+
+def _gather_index() -> torch.Tensor:
+    """For each value of the slab buffer, its position in ``pack_weights``'
+    buffer, or WEIGHT_SIZE for a zero past a block's last column."""
+    idx = torch.full((SLAB_BUFFER_SIZE,), WEIGHT_SIZE, dtype=torch.int64)
+    for s, off in zip(FWD_SLABS, SLAB_OFFSETS):
+        boff, (rows, cols) = WEIGHT_OFFSETS[s.block]
+        col = s.k0 + torch.arange(SW)[None, :]
+        src = torch.where(col < cols, boff + torch.arange(rows)[:, None] * cols + col, WEIGHT_SIZE)
+        idx[off // 2 + swizzle_index(rows)] = src.reshape(-1)
+    at = HEAD_OFFSET // 2
+    for b in HEAD_BLOCKS:
+        boff, (rows, cols) = WEIGHT_OFFSETS[b]
+        idx[at : at + rows * cols] = torch.arange(boff, boff + rows * cols)
+        at += rows * cols
+    return idx
+
+
+_GATHER: Dict[torch.device, torch.Tensor] = {}
+
+
+def slab_buffer(packed: PackedWeights) -> torch.Tensor:
+    """``pack_weights``' bf16 weights -> the kernels' slab buffer (bf16,
+    SLAB_BUFFER_SIZE values): every slab of FWD_SLABS swizzled, zero past a
+    block's last column, then wrgb and wsig as packed.  One gather with an
+    index built once per device (the training step builds the buffer once
+    per level)."""
+    w = packed.w
+    if w.dtype != torch.bfloat16 or w.shape != (WEIGHT_SIZE,):
+        raise ValueError(f"slab_buffer takes pack_weights' bfloat16 ({WEIGHT_SIZE},) weights, got {w.dtype} {tuple(w.shape)}")
+    if w.device not in _GATHER:
+        _GATHER[w.device] = _gather_index().to(w.device)
+    return torch.cat([w, w.new_zeros(1)])[_GATHER[w.device]]
+
+
+def unpack_slab_buffer(buf: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``slab_buffer``: ``pack_weights``' (WEIGHT_SIZE,) layout."""
+    if buf.shape != (SLAB_BUFFER_SIZE,):
+        raise ValueError(f"a slab buffer has {SLAB_BUFFER_SIZE} values, got {tuple(buf.shape)}")
+    w = torch.zeros(WEIGHT_SIZE, dtype=buf.dtype, device=buf.device)
+    for s, off in zip(FWD_SLABS, SLAB_OFFSETS):
+        tile = unswizzle(buf[off // 2 : off // 2 + s.rows * SW], s.rows)
+        blk = _block(w, s.block)
+        cols = min(SW, blk.shape[1] - s.k0)
+        blk[:, s.k0 : s.k0 + cols] = tile[:, :cols]
+    at = HEAD_OFFSET // 2
+    for b in HEAD_BLOCKS:
+        blk = _block(w, b)
+        blk.copy_(buf[at : at + blk.numel()].view_as(blk))
+        at += blk.numel()
+    return w
+
+
+def act_offset(p: int, k: int) -> int:
+    """Byte offset of (point p, column k) in a swizzled 128-point bf16
+    activation tile: block k // 64, row p, chunk (k % 64) // 8 at position
+    chunk ^ (p % 8)."""
+    return (k // SW) * ACT_BLOCK + p * 128 + ((((k % SW) // 8) ^ (p % 8)) * 16) + (k % 8) * 2
+
+
+# ---------------------------------------------------------------- launch plan
+# Shared memory of one CTA, bytes (csrc/fused_render_train_sm90.cu's
+# FwdSmem/BwdSmem; the wrapper holds the two together on the card):
+ACT_BYTES = 4 * ACT_BLOCK  # a 128 x 256 activation or delta tile
+PE_BYTES = ACT_BLOCK  # a 128 x 64 PE tile
+STAGE_BYTES = 256 * SW * 2  # one ring stage: the largest slab
+FWD_STAGES, BWD_STAGES = 3, 2
+SMALL_BYTES = 8192  # rays, per-point head cotangents, barriers
+ALIGN_SLACK = 1024  # the dynamic base is aligned to 1,024 bytes by hand
+FWD_SMEM = ACT_BYTES + 2 * PE_BYTES + FWD_STAGES * STAGE_BYTES + SMALL_BYTES + ALIGN_SLACK
+BWD_SMEM = 2 * ACT_BYTES + PE_BYTES + BWD_STAGES * STAGE_BYTES + SMALL_BYTES + ALIGN_SLACK
+N_KEPT = 9  # h1..h8 and xyz_encoding_final, kept per CTA for the backward
+HALF = 128
+# global scratch per CTA of the backward: the kept tiles (their shared-memory
+# images) and the per-ray f32 sum of the direction delta
+BWD_SCRATCH = N_KEPT * ACT_BYTES + TILE_RAYS * HALF * 4
+THREADS = 384  # two consumer warpgroups and one producer warpgroup
+
+
+def launch_plan(n: int, s: int, sm_count: int) -> Dict[str, int]:
+    """What one launch of either kernel runs for n rays x s samples on a card
+    of ``sm_count`` SMs: ray tiles, persistent CTAs (one per SM at most, each
+    walking tiles ctas apart), the most tiles one CTA runs, slabs streamed per
+    CTA (forward and backward), and the backward's scratch bytes."""
+    if n < 0 or s < 1 or sm_count < 1:
+        raise ValueError(f"launch_plan: n={n}, s={s}, sm_count={sm_count}")
+    tiles = -(-n // TILE_RAYS)
+    ctas = min(tiles, sm_count)
+    per_cta = -(-tiles // ctas) if ctas else 0
+    return dict(
+        tiles=tiles, ctas=ctas, threads=THREADS, tiles_per_cta=per_cta,
+        fwd_slabs_per_cta=per_cta * s * len(FWD_SLABS),
+        bwd_slabs_per_cta=per_cta * s * (len(FWD_SLABS) + len(BWD_SLABS)),
+        fwd_smem=FWD_SMEM, bwd_smem=BWD_SMEM, scratch_bytes=ctas * BWD_SCRATCH,
+    )

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``scripts/exp_bwd_pipeline.py``:
 ``run_variant`` (:326) with its kernel ``_exp_bwd_kernel`` (:73-323, call
 :369).  The CUDA kernel is ``csrc/exp_bwd_pipeline.cu``, one template over
-the production backward's body (``csrc/train_backward.cuh``); its note says
+the earlier K3-bwd's body (``csrc/train_backward.cuh``); its note says
 what each variant changes.  bfloat16, no noise, a black background and the
 new activation only, as JAX's.
 
@@ -12,9 +12,13 @@ new activation only, as JAX's.
 runs the experiment on the card: the production K3-bwd (the anchor) and
 every ``variant:rays:streams`` entry of SPEC at 16,384 rays x 192 samples,
 timed with CUDA events after a warm-up in rounds that alternate them all,
-each beside ``base`` in the same round (mean and range of the ratio; the
-range of production over ``base``, the same work, is the measurement's
-spread); the exact variants' gradients are held against production's.  SPEC's middle field is the port's tile, rays per
+each beside ``base`` in the same round (mean and range of the ratio).  The
+variants share the earlier K3-bwd body (``train_backward.cuh``, ``wmma``):
+``base`` is that kernel, and production over ``base`` is the Hopper K3-bwd
+(``fused_render_train_sm90.cu``) over the earlier one.  The inputs' residuals
+come from the earlier forward (``launch_train_fwd_wmma``), so that the
+variants' recompute rounds as their forward did; the exact variants'
+gradients are held against ``base``'s.  SPEC's middle field is the port's tile, rays per
 block: JAX's ``r_tile`` 512 and 1024 are 32 and 64 rays (``R_TILE``).  The
 default is JAX's (:445) in those terms.
 
@@ -82,7 +86,8 @@ BASE = "base:64:1"  # what every variant is timed against, in the same round
 # direction PE) and wgrad (the direction-PE block once per ray); no_dw
 # drops the wgrad
 MAC_RECOMPUTE, MAC_DGRAD, MAC_WGRAD = 593_408, 556_544, 589_312
-# the exact variants against production K3-bwd, worst leaf (largest
+# the exact variants against ``base`` (the earlier K3-bwd, whose body they
+# share), worst leaf (largest
 # difference over the leaf's largest entry, relative L2): the same function,
 # its f32 dW/db summed in another order (two_stream's 128-point tiles, the
 # atomics' order from run to run).  Set from K3-bwd's own readings on an
@@ -329,8 +334,9 @@ def leaf_errors(got, want) -> Tuple[float, float]:
 def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
     """JAX ``main``'s inputs (:402-417) from a numpy seed: random weights,
     rays with o ~ 0.1 N(0, 1) and d ~ N(0, 1), sorted uniform depths in
-    [2, 6], the residuals of the production forward kernel (K3-fwd on the
-    card, its plain version on the CPU) and normal cotangents (g_w x 0.01)."""
+    [2, 6], the residuals of the earlier forward kernel, whose body the
+    variants recompute with (``launch_train_fwd_wmma`` on the card, the plain
+    version on the CPU) and normal cotangents (g_w x 0.01)."""
     rng = np.random.default_rng(seed)
     packed = pack_weights(nerf_from_state(state_dict_from_jax(random_params(rng))).to(device), torch.bfloat16)
 
@@ -340,7 +346,7 @@ def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
     rays6 = t(np.concatenate([rng.normal(size=(n_rays, 3)) * 0.1, rng.normal(size=(n_rays, 3))], axis=1))
     z = t(np.sort(rng.uniform(2.0, 6.0, size=(n_rays, n_samples)), axis=1))
     if device.type == "cuda":
-        _, _, weights, alphas, rgb_s = frt.launch_train_fwd(packed, rays6, z, None, True, False)
+        _, _, weights, alphas, rgb_s = frt.launch_train_fwd_wmma(packed, rays6, z, None, True, False)
     else:
         _, _, weights, alphas, rgb_s = frt.render_level_train_forward_plain(packed, rays6, z, None, True, False)
     g_rgb, g_depth = t(rng.normal(size=(n_rays, 3))), t(rng.normal(size=(n_rays,)))
@@ -353,7 +359,7 @@ def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dic
     flags' size by default): production K3-bwd's time and run-to-run spread,
     and per entry of ``--variants`` its ms, share of the bound, ratio to
     production and to ``base`` and, for the exact variants, the error
-    against production (or why it failed)."""
+    against ``base`` (or why it failed)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n_rays", type=int, default=N_RAYS)
     ap.add_argument("--n_samples", type=int, default=N_SAMPLES)
@@ -388,6 +394,7 @@ def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dic
           f"({100 * bound / prod_ms:.1f}% of its {bound:.3f} ms bound), two runs differ by {spread[0]:.2e} / "
           f"{spread[1]:.2e}; {ROUNDS} rounds x {REPS} launches each; production over {ref} per round "
           f"{min(vs_ref['production']):.4f}-{max(vs_ref['production']):.4f}", flush=True)
+    base = grads[BASE] if BASE in grads else run_variant("base", 64, 1, i)
     for tag, got in grads.items():
         variant = tag.split(":")[0]
         ms = sum(per_round[tag]) / ROUNDS
@@ -399,10 +406,10 @@ def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dic
         line = (f"{tag:18s} {ms:9.3f} ms {100 * b / ms:5.1f}% of bound {r['vs_production']:6.3f} x production "
                 f"{r['vs_base']:6.4f} x {ref} ({r['vs_base_range'][0]:.4f}-{r['vs_base_range'][1]:.4f})")
         if variant in EXACT:
-            r["err_vs_production"] = err = leaf_errors(got, prod)
+            r["err_vs_base"] = err = leaf_errors(got, base)
             r["exact_tol"] = EXACT_TOL
             r["exact_ok"] = err[0] <= EXACT_TOL[0] and err[1] <= EXACT_TOL[1]
-            line += f"   vs production {err[0]:.2e} / {err[1]:.2e} (tol {EXACT_TOL[0]:.0e} / {EXACT_TOL[1]:.0e})"
+            line += f"   vs base {err[0]:.2e} / {err[1]:.2e} (tol {EXACT_TOL[0]:.0e} / {EXACT_TOL[1]:.0e})"
             if not r["exact_ok"]:
                 line += " DIVERGED"
         results[tag] = r
