@@ -7,20 +7,25 @@ Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
    kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
-   count the Hopper K3 kernels' HGMMA, bulk-copy (UBLKCP, UTMALDG) and
-   vector-reduction instructions in ``cuobjdump -sass`` of their library, and
-   fail without wgmma or bulk copies;
-2. hold K1 (``fused_render_level``) against its plain version, float32 and
-   bfloat16, at 4096 rays x S = 64 and 192 and 1000 rays x S = 12 with the
-   white background on and off;
+   count the Hopper kernels' (K3 and K1 in bf16, K1 in f32) HGMMA,
+   bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA and 128-bit shared
+   load instructions in ``cuobjdump -sass`` of their libraries, and fail
+   without wgmma (bf16) or FFMA (f32), or without bulk copies;
+2. hold K1 (``fused_render_level``, the Hopper kernels) against its plain
+   version, float32 and bfloat16, at 4096 rays x S = 64 and 192, at 1000
+   rays x S = 12, and at every ragged shape of K1_RAGGED (1 to 5292 rays, S
+   = 1 to 192), each with the white background on and off; at one ray the
+   bfloat16 mean is held over K1_SINGLE_RAYS launches of one ray each;
 3. hold K2 (``fused_sample_pdf_merge``) against its plain version;
 4. on a synthetic 504x378 LLFF scene with a reference-format ``.ckpt``,
    hold each kernel against its plain version on the inputs and at the
    shapes the eval path gives it (one val image in tiles of 131,072 rays:
    K1 at 131072 and 59440 rays x S = 64 and 192, K2 at 131072 and 59440
-   rays x 64 -> 192), timing each launch and its plain version; then hold
-   the kernel render of the whole image against the plain render path and
-   time it;
+   rays x 64 -> 192), timing each launch and its plain version; at 131072
+   rays x S = 64 and 192 the earlier K1 (``launch_render_block64``) held
+   against the plain version too and timed beside the Hopper kernel in
+   K1_ROUNDS rounds that alternate them; then hold the kernel render of the
+   whole image against the plain render path and time it;
 5. the eval main path: ``sinnerf_tpu_torch.eval`` on the val and test
    splits at 64 + 128 samples in bfloat16 and float32, with every launch
    count set to 0 just before and read just after; check PSNR and PNGs;
@@ -205,6 +210,24 @@ X2_SMALL = ((128, 8, 60), (333, 10, 62))
 # the Hopper K3 kernels (bf16) against the earlier ones at the path's shapes:
 # rounds that alternate them, launches of each per round
 K3_ROUNDS, K3_REPS = 6, 2
+# the Hopper K1 kernels against the earlier ones at 131072 rays x S = 64 and
+# 192: (rounds, launches of each per round) per dtype
+K1_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
+# ragged K1 shapes: ray counts about one tile of 128 and none, and sample
+# counts down to one; at one ray the mean error is that of one ray's few
+# elements, where one bf16 rounding taken apart from the plain version
+# decides it, so the bf16 mean is held over K1_SINGLE_RAYS single-ray
+# launches (as tests/test_torch_k3_sm90.py holds K3-fwd's)
+K1_RAGGED = ((1, 127, 128, 129, 1000, 5292), (1, 9, 12, 64, 192))
+K1_SINGLE_RAYS = 64
+# the Hopper kernels whose SASS phase 1 reads: (source, a tag of the mangled
+# name, what the SASS must hold)
+SASS_KERNELS = {
+    "train_fwd_sm90": ("fused_render_train_sm90.cu", "train_fwd_sm90ILb1E", ("HGMMA", "BULK")),
+    "train_bwd_sm90": ("fused_render_train_sm90.cu", "train_bwd_sm90ILi0E", ("HGMMA", "BULK")),
+    "k1_sm90[bfloat16]": ("fused_render_sm90.cu", "train_fwd_sm90ILb0E", ("HGMMA", "BULK")),
+    "k1_sm90[float32]": ("fused_render_sm90.cu", "render_f32_sm90", ("FFMA", "BULK")),
+}
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
 MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
@@ -353,7 +376,9 @@ def phase_k1_checks(device, rng):
 
     model = make_model(1, device)
     worst = {}
-    for n, s, white_back in ((4096, 64, False), (4096, 192, False), (1000, 12, False), (1000, 12, True)):
+    shapes = [(4096, 64, False), (4096, 192, False), (1000, 12, False), (1000, 12, True)]
+    shapes += [(n, s, wb) for n in K1_RAGGED[0] for s in K1_RAGGED[1] for wb in (False, True)]
+    for n, s, white_back in shapes:
         rays, z = make_rays(rng, n, s, device)
         for cd in ("float32", "bfloat16"):
             got = fused_render_level(model, rays, z, True, white_back, cd)
@@ -362,9 +387,42 @@ def phase_k1_checks(device, rng):
             if got[2].shape != (n, s) or got[0].shape != (n, 3):
                 raise Failed(f"fused_render_level shapes {[tuple(g.shape) for g in got]}")
             err = k1_error(got, ref)
-            hold(f"K1 {cd:8s} n={n:5d} S={s:3d} white_back={int(white_back)}", err, K1_TOL[cd])
+            what = f"K1 {cd:8s} n={n:5d} S={s:3d} white_back={int(white_back)}"
+            if n == 1 and cd == "bfloat16":  # its mean is held over single-ray launches below
+                print(f"{what}: max err {err[0]:.3e} (tol {K1_TOL[cd][0]:.0e}), mean {err[1]:.3e} (one ray)")
+                if not err[0] <= K1_TOL[cd][0]:
+                    raise Failed(f"{what} disagrees with its plain version")
+                err = (err[0], 0.0)
+            else:
+                hold(what, err, K1_TOL[cd])
             worst[cd] = tuple(max(a, b) for a, b in zip(worst.get(cd, (0.0, 0.0)), err))
+    means = k1_single_ray_means(model, device, rng)
+    hold(f"K1 bfloat16 n=1, the worst output's mean over {K1_SINGLE_RAYS} single-ray launches per case "
+         f"(rgb, depth, weights: {', '.join(f'{m:.3e}' for m in means)})", (worst["bfloat16"][0], max(means)),
+         K1_TOL["bfloat16"])
+    worst["bfloat16"] = (worst["bfloat16"][0], max(worst["bfloat16"][1], max(means)))
     return worst
+
+
+def k1_single_ray_means(model, device, rng):
+    """K1 bf16's mean error per output (rgb, depth / far, weights) over
+    K1_SINGLE_RAYS launches of one ray each, at S = 9 and at S = 12 with the
+    white background."""
+    from sinnerf_tpu_torch.ops.fused_render import fused_render_level, render_level_plain
+
+    sums, counts = [0.0] * 3, [0] * 3
+    for s, white_back in ((9, False), (12, True)):
+        for _ in range(K1_SINGLE_RAYS):
+            rays, z = make_rays(rng, 1, s, device)
+            got = fused_render_level(model, rays, z, True, white_back, "bfloat16")
+            ref = render_level_plain(model, rays, z, True, white_back, "bfloat16")
+            for k, (g, r, scale) in enumerate(zip(got, ref, (1.0, 6.0, 1.0))):
+                d = (g - r).abs() / scale
+                if not bool(d.isfinite().all()):
+                    raise Failed("fused_render_level returned non-finite values")
+                sums[k] += d.double().sum().item()
+                counts[k] += d.numel()
+    return [sm / c for sm, c in zip(sums, counts)]
 
 
 def phase_k2_checks(device, rng):
@@ -429,6 +487,8 @@ def phase_path(device, root: str, ckpt: str):
     for cd in ("bfloat16", "float32"):
         launches, worst = [], (0.0, 0.0)
 
+        first_tile = []  # (level, rays, z, plain outputs) of the first tile's launches, for the rounds
+
         def k1(level, r, z):
             nonlocal worst
             n, s = z.shape
@@ -441,6 +501,8 @@ def phase_path(device, root: str, ckpt: str):
                  f"bound {bound_ms:.3f} ms)", err, K1_TOL[cd])
             worst = tuple(max(a, b) for a, b in zip(worst, err))
             launches.append(dict(shape=f"{n}x{s}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            if n == tile:
+                first_tile.append((level, r, z, ref))
             return got
 
         for i in range(0, n_all, tile):
@@ -456,7 +518,15 @@ def phase_path(device, root: str, ckpt: str):
                                   err=k2_error(z_all, ref, f"path K2 {cd:8s} n={n:6d} ({ms:.3f} ms, "
                                                            f"plain {plain_ms:.3f} ms)")))
             k1("fine", r, z_all)
-        out["k1"][cd] = dict(launches=launches, err=worst)
+        rounds = {}
+        for level, r, z, ref in first_tile:
+            n, s = z.shape
+            what = f"path K1 {cd:8s} {level:6s} n={n} S={s:3d}"
+            x = rounds[f"{n}x{s}"] = k1_rounds(models[level], r, z, ref, cd, far, what)
+            print(f"  {K1_ROUNDS[cd][0]} rounds: K1 {x['new_ms']:.3f} ms, earlier {x['earlier_ms']:.3f} ms "
+                  f"(ratio {x['ratio'][0]:.4f}, {x['ratio'][1]:.4f}-{x['ratio'][2]:.4f})")
+        del first_tile
+        out["k1"][cd] = dict(launches=launches, err=worst, rounds=rounds)
 
         settings = RenderSettings(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, compute_dtype=cd)
         res, ms = timed(lambda: render_chunked(models, rays, settings, tile), 2)
@@ -472,6 +542,40 @@ def phase_path(device, root: str, ckpt: str):
         out["image"][cd] = dict(ms=ms, err=err)
         torch.cuda.empty_cache()
     return out
+
+
+def k1_rounds(model, rays, z, ref, cd: str, far: float, what: str):
+    """The Hopper K1 against the earlier one (``launch_render_block64``, first
+    held against ``ref``, the plain version's outputs) on one launch's
+    inputs, in K1_ROUNDS[cd] rounds that alternate them (each round's ratio
+    is the one to compare).  Returns the mean ms of each, the ratio's mean
+    and range over the rounds, and the earlier kernel's error."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render as fr
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_tensors, param_tensors, torch_dtype
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    packed = pack_tensors(param_tensors(model), torch_dtype(cd))
+    r6 = rays[:, :6].contiguous()
+    earlier = fr.launch_render_block64(packed, r6, z, True, False)
+    torch.cuda.synchronize()
+    earlier_err = k1_error(earlier, ref, far)
+    hold(f"{what} earlier kernel (64-ray blocks)", earlier_err, K1_TOL[cd])
+    del earlier
+    fns = {"new": lambda: fr.launch_render(packed, r6, z, True, False),
+           "earlier": lambda: fr.launch_render_block64(packed, r6, z, True, False)}
+    count = fr.fused_render_level.launches
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    rounds, reps = K1_ROUNDS[cd]
+    per_round = interleaved_ms(fns, rounds, reps)
+    # these launches compare kernels: they do not count as the path's
+    fr.fused_render_level.launches = count
+    ratio = [a / b for a, b in zip(per_round["new"], per_round["earlier"])]
+    return dict(new_ms=sum(per_round["new"]) / rounds, earlier_ms=sum(per_round["earlier"]) / rounds,
+                ratio=(sum(ratio) / rounds, min(ratio), max(ratio)), earlier_err=earlier_err)
 
 
 def phase_eval(device, workdir: str, root: str, ckpt: str, splits):
@@ -1361,38 +1465,42 @@ def phase_x2(device):
     return res, counts
 
 
-def sass_counts(source: str):
-    """Per Hopper K3 kernel of ``csrc/<source>``'s built library, the count
-    of its SASS instructions that show the design: HGMMA (wgmma), UBLKCP
-    and UTMALDG (bulk and tensor copies into shared memory) and vector
-    reductions (RED ... x4 or .128), from ``cuobjdump -sass``."""
+def sass_counts():
+    """Per Hopper kernel of SASS_KERNELS, from its built library: the count
+    of the SASS instructions that show the design (``cuobjdump -sass``):
+    HGMMA (wgmma), UBLKCP and UTMALDG (bulk and tensor copies into shared
+    memory), vector reductions (RED ... x4 or .128), FFMA and LDS.128, and
+    all of them; and what ``-Xptxas -v`` reported (registers, stack,
+    spills).  Fails if a kernel lacks what SASS_KERNELS says it must hold."""
     import re
 
     from sinnerf_tpu_torch.ops import _build
 
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path(source))], capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            # the backward's instantiation for the training path (ABLATE = 0),
-            # not its timing ablations
-            name = next((k for k, tag in (("train_fwd_sm90", "train_fwd_sm90"),
-                                          ("train_bwd_sm90", "train_bwd_sm90ILi0E")) if tag in mangled), None)
-            if name:
-                counts[name] = dict(HGMMA=0, UBLKCP=0, UTMALDG=0, RED_V4=0)
-        elif name:
-            for key in ("HGMMA", "UBLKCP", "UTMALDG"):
-                counts[name][key] += key in line
-            counts[name]["RED_V4"] += bool(re.search(r"\bREDG?\.\S*(x4|\.128)", line))
-    for kernel in ("train_fwd_sm90", "train_bwd_sm90"):
-        c = counts.get(kernel)
-        print(f"SASS {kernel}: {c}")
-        if not c or c["HGMMA"] == 0 or c["UBLKCP"] + c["UTMALDG"] == 0:
-            raise Failed(f"{kernel}: no wgmma or no bulk copy in its SASS: {c}")
-    return counts
+    counts, usage, libs = {}, {}, {}
+    for name, (source, tag, needs) in SASS_KERNELS.items():
+        lib = _build.lib_path(source)
+        if source not in libs:
+            libs[source] = (_build.sass_opcodes(lib), _build.ptxas_usage(lib.with_suffix(".log")))
+        sass, ptxas = libs[source]
+        mangled = [m for m in sass if tag in m]
+        if len(mangled) != 1:
+            raise Failed(f"{name}: {len(mangled)} kernels named *{tag}* in {source}")
+        ops = sass[mangled[0]]
+
+        def n(pred):
+            return sum(v for k, v in ops.items() if pred(k))
+
+        c = dict(HGMMA=n(lambda k: k.startswith("HGMMA")), UBLKCP=n(lambda k: k.startswith("UBLKCP")),
+                 UTMALDG=n(lambda k: k.startswith("UTMALDG")),
+                 RED_V4=n(lambda k: re.match(r"REDG?\.\S*(x4|\.128)", k) is not None),
+                 FFMA=n(lambda k: k.startswith("FFMA")), LDS_128=n(lambda k: k.startswith("LDS.128")),
+                 total=sum(ops.values()))
+        counts[name], usage[name] = c, ptxas.get(mangled[0], {})
+        print(f"SASS {name}: {c}; ptxas {usage[name]}")
+        have = dict(c, BULK=c["UBLKCP"] + c["UTMALDG"])
+        if any(have[x] == 0 for x in needs):
+            raise Failed(f"{name}: its SASS lacks one of {needs}: {c}")
+    return counts, usage
 
 
 def mean_of(rows, key: str) -> float:
@@ -1424,7 +1532,7 @@ def main() -> int:
             with open(log) as f:
                 usage = [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(os.path.basename(log), *usage, sep="\n  ")
-        sass = sass_counts("fused_render_train_sm90.cu")
+        sass, ptxas = sass_counts()
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
         k2_err = phase_k2_checks(device, rng)
@@ -1453,10 +1561,12 @@ def main() -> int:
     kernels = []
     for cd in ("bfloat16", "float32"):
         p = path["k1"][cd]
-        launches = p["launches"]
+        launches, rounds = p["launches"], p["rounds"]
         kernels.append(dict(
             name=f"fused_render_level[{cd}]", route="cuda",
-            source="sinnerf_tpu_torch/csrc/fused_render.cu",
+            source="sinnerf_tpu_torch/csrc/fused_render_sm90.cu",
+            body="sinnerf_tpu_torch/csrc/" + ("render_level_sm90.cuh + mlp_wgmma.cuh" if cd == "bfloat16"
+                                              else "mlp_f32_sm90.cuh"),
             replaces="sinnerf_tpu/ops/fused_render_t.py:61",
             launches=ev["launches"][cd][0],
             max_abs_err=max(k1_err[cd][0], p["err"][0]), mean_abs_err=max(k1_err[cd][1], p["err"][1]),
@@ -1465,6 +1575,12 @@ def main() -> int:
             bound_ms=mean_of(launches, "bound_ms"), bound_by=launches[0]["bound_by"], library_ms=None,
             per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in launches},
             image_ms=path["image"][cd]["ms"], image_err=path["image"][cd]["err"], images=ev["launches"][cd][2],
+            # the earlier kernel (fused_render.cu) timed beside it in alternating rounds at the first tile's shapes
+            earlier_source="sinnerf_tpu_torch/csrc/fused_render.cu",
+            earlier_ms=mean_of(list(rounds.values()), "earlier_ms"), rounds_ms=mean_of(list(rounds.values()), "new_ms"),
+            vs_earlier={k: v["ratio"] for k, v in rounds.items()}, rounds=K1_ROUNDS[cd][0],
+            earlier_err=tuple(map(max, *(v["earlier_err"] for v in rounds.values()))),
+            sass=sass[f"k1_sm90[{cd}]"], ptxas=ptxas[f"k1_sm90[{cd}]"],
         ))
     for cd in ("bfloat16", "float32"):
         p, t = tpath["k3"][cd], train[cd]
@@ -1494,7 +1610,7 @@ def main() -> int:
                     earlier_source="sinnerf_tpu_torch/csrc/" + ("fused_render_train.cu" if d == "fwd"
                                                                else "exp_bwd_pipeline.cu (X2 base)"),
                     vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
-                    rounds=K3_ROUNDS, sass=sass[f"train_{d}_sm90"],
+                    rounds=K3_ROUNDS, sass=sass[f"train_{d}_sm90"], ptxas=ptxas[f"train_{d}_sm90"],
                 )
                 if d == "fwd":  # the earlier forward against its plain version, path and X2 inputs
                     entry.update(earlier_err=tuple(map(max, x2_earlier_fwd_err,

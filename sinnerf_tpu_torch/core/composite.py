@@ -27,9 +27,10 @@ def ray_norm(rays_d: torch.Tensor) -> torch.Tensor:
 
 
 def intervals(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
-    """``(z_{s+1} - z_s) * ||d||`` (N, S), with ``1e10 * ||d||`` on the last."""
+    """``(z_{s+1} - z_s) * ||d||`` (N, S), with ``1e10 * ||d||`` on the last
+    (the only one when S = 1)."""
     deltas = z_vals[..., 1:] - z_vals[..., :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], dim=-1)
+    deltas = torch.cat([deltas, torch.full_like(z_vals[..., :1], 1e10)], dim=-1)
     return deltas * ray_norm(rays_d)
 
 

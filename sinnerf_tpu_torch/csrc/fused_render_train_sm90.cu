@@ -141,11 +141,11 @@ extern "C" {
 int k3_sm90_fwd(const void* rays, const void* z, const void* noise, const void* slabs, const void* b, void* rgb,
                 void* depth, void* weights, void* alpha, void* rgb_s, int n, int s, int blocks, int new_act,
                 int white_back, void* stream) {
-  int e = set_smem((const void*)train_fwd_sm90, FwdSmem::BYTES);
+  int e = set_smem((const void*)train_fwd_sm90<true>, FwdSmem::BYTES);
   if (e) return e;
   const int tiles = (n + RAYS - 1) / RAYS;
   if (tiles == 0) return 0;
-  train_fwd_sm90<<<tiles < blocks ? tiles : blocks, CTA_THREADS, FwdSmem::BYTES, (cudaStream_t)stream>>>(
+  train_fwd_sm90<true><<<tiles < blocks ? tiles : blocks, CTA_THREADS, FwdSmem::BYTES, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)z, (const float*)noise, (const unsigned char*)slabs, (const float*)b,
       (float*)rgb, (float*)depth, (float*)weights, (float*)alpha, (float*)rgb_s, n, s, new_act, white_back);
   return (int)cudaGetLastError();

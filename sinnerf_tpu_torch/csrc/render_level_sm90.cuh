@@ -1,10 +1,17 @@
-// K3-fwd bf16 on Hopper: the training render of one level, forward, with the
-// residuals its backward reads (fused_render_train_sm90.cu holds the kernel).
+// The render of one level in bf16 on Hopper, one kernel template for two
+// kernels: train_fwd_sm90<true> is K3-fwd, the training forward with the
+// residuals its backward reads (launched by fused_render_train_sm90.cu);
+// train_fwd_sm90<false> is K1, the eval render (launched by
+// fused_render_sm90.cu), which reads no noise and stores no residuals but
+// the per-sample weights that K2 reads.  Both composite in the same order,
+// so for the same rays, depths and weights K1 equals K3-fwd without noise
+// bit for bit.
 //
-// Replaces, in bf16, render_level.cuh's render_tile<bf16, true> (which K1
-// and the float32 K3-fwd keep).  The TPU kernel it stands for is
+// Replaces, in bf16, render_level.cuh's render_tile<bf16, TRAIN> (which the
+// float32 K3-fwd keeps).  The TPU kernels it stands for are
 // sinnerf_tpu/ops/fused_render_train_t.py::_train_fwd_kernel (:86, through
-// _run_fwd :417).
+// _run_fwd :417) and sinnerf_tpu/ops/fused_render_t.py::_render_kernel (:61,
+// through fused_render_level :124).
 //
 // Persistent CTAs walk the ray tiles of RAYS = 128 rays.  Per tile: the rays
 // and the direction PE (once); per sample s: xyz = o + d z and its
@@ -13,7 +20,7 @@
 // compositing state stays with the four threads that hold its row of the
 // accumulators (the row's thread with lane % 4 == 0 writes), carried across
 // the samples.  The sigma noise, and the residuals w, alpha and rgb_s, are
-// exactly as render_tile<T, true> writes them.
+// exactly as render_tile<T, true> writes them; TRAIN = false drops them.
 //
 // Bound: operations, 593,408 multiply-adds per point (K1's); the weights'
 // 1.2 MB come from L2 once per 128 points, and the card's L2 bandwidth per
@@ -44,6 +51,7 @@ __device__ __forceinline__ float rgb_act(float a, bool new_act) {
   return new_act ? widened_sigmoid(a) : sigmoid(a);
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(CTA_THREADS, 1)
 train_fwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, const float* __restrict__ noise,
                const unsigned char* __restrict__ slabs, const float* __restrict__ B, float* __restrict__ rgb_out,
@@ -110,17 +118,19 @@ train_fwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
         const float zs = z[at];
         const float delta = interval(z + (size_t)my * S, S, s, dn[i]);
         float sig = o.sig[i];
-        if (noise != nullptr) sig = __fadd_rn(sig, noise[at]);
+        if (TRAIN && noise != nullptr) sig = __fadd_rn(sig, noise[at]);
         const float alpha = __fsub_rn(1.f, expf(__fmul_rn(-delta, fmaxf(sig, 0.f))));
         const float w = __fmul_rn(alpha, trans[i]);
         const float r = rgb_act(o.rpre[i][0], new_act), g = rgb_act(o.rpre[i][1], new_act),
                     b = rgb_act(o.rpre[i][2], new_act);
         if (ln.q == 0) {
           w_out[at] = w;
-          alpha_out[at] = alpha;
-          rgb_s_out[at * 3 + 0] = r;
-          rgb_s_out[at * 3 + 1] = g;
-          rgb_s_out[at * 3 + 2] = b;
+          if (TRAIN) {
+            alpha_out[at] = alpha;
+            rgb_s_out[at * 3 + 0] = r;
+            rgb_s_out[at * 3 + 1] = g;
+            rgb_s_out[at * 3 + 2] = b;
+          }
         }
         acc_r[i] = __fadd_rn(acc_r[i], __fmul_rn(w, r));
         acc_g[i] = __fadd_rn(acc_g[i], __fmul_rn(w, g));

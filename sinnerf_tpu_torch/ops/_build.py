@@ -14,17 +14,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_render.cu", "fused_sample_pdf.cu", "fused_render_train.cu", "fused_render_train_sm90.cu",
-           "fused_mlp.cu", "exp_kernel_variants.cu", "exp_bwd_pipeline.cu")
+SOURCES = ("fused_render.cu", "fused_render_sm90.cu", "fused_sample_pdf.cu", "fused_render_train.cu",
+           "fused_render_train_sm90.cu", "fused_mlp.cu", "exp_kernel_variants.cu", "exp_bwd_pipeline.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -107,3 +109,40 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptxas_usage(log: Path) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of a build's .log, what ``-Xptxas -v`` said:
+    registers, stack frame, spill stores and spill loads (bytes)."""
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in Path(log).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            usage[name].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "registers" in line:
+            usage[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
+def sass_opcodes(lib: Path) -> Dict[str, Counter]:
+    """Per kernel (mangled name) of a built library, how often each SASS
+    opcode (with its modifiers) occurs, from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: Dict[str, Counter] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = Counter()
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            words = line.split("*/", 1)[1].split(";")[0].split()
+            words = [w for w in words if not w.startswith("@")]
+            if words:
+                counts[name][words[0]] += 1
+    return counts

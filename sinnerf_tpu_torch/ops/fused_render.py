@@ -1,11 +1,22 @@
 """K1: fused per-ray render of one level, PE + MLP + online compositing.
 
 Counterpart of ``sinnerf_tpu/ops/fused_render_t.py::fused_render_level``
-(:124), whose TPU kernel is ``_render_kernel`` (:61).  The CUDA kernel is
-``csrc/fused_render.cu`` (body in ``csrc/render_level.cuh``, shared with the
-training forward, on the K0 routines of ``csrc/nerf_mlp.cuh``); its source
-note gives the bound (compute: 1.19 MFLOP per point) and what the
-design does about it.  ``render_level_plain`` is the plain PyTorch version.
+(:124), whose TPU kernel is ``_render_kernel`` (:61).  The CUDA kernels are
+the Hopper ones of ``csrc/fused_render_sm90.cu``, one per compute dtype:
+
+* bfloat16: the K3-fwd kernel without noise and residuals
+  (``render_level_sm90.cuh::train_fwd_sm90<false>``) on the ``wgmma`` body
+  of ``mlp_wgmma.cuh``, weights as ``sm90_layout.slab_buffer``;
+* float32: FFMA in float32 on ``mlp_f32_sm90.cuh``, weights as
+  ``sm90_layout.slab_buffer_f32``.
+
+Their source notes give the bound (operations: 1.19 MFLOP per point) and
+what each design does about it; both need an ``sm_90`` card.
+``launch_render_block64`` launches the earlier kernel
+(``csrc/fused_render.cu``: 64-ray blocks on ``render_level.cuh`` and the
+wmma / FMA bodies of ``nerf_mlp.cuh``), which ``chip_smoke.py`` times beside
+the Hopper kernels; no path of the port runs it.
+``render_level_plain`` is the plain PyTorch version.
 
 ``fused_render_level`` is a ``torch.autograd.Function`` over the module's 24
 float32 parameters, the rays and the depths.  Its forward is the kernel on
@@ -29,7 +40,7 @@ import torch
 from sinnerf_tpu_torch.core.composite import composite
 from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
 from sinnerf_tpu_torch.models.nerf import NeRF
-from sinnerf_tpu_torch.ops import _build
+from sinnerf_tpu_torch.ops import _build, sm90_layout
 from sinnerf_tpu_torch.ops.fused_mlp import (
     N_FREQS_DIR,
     N_FREQS_XYZ,
@@ -42,7 +53,8 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
     torch_dtype,
 )
 
-SOURCE = "fused_render.cu"
+SOURCE = "fused_render_sm90.cu"
+SOURCE_BLOCK64 = "fused_render.cu"  # the earlier kernel
 
 
 def _check_inputs(model: NeRF, rays_od: torch.Tensor, z_vals: torch.Tensor) -> None:
@@ -102,6 +114,7 @@ def render_level_recompute(params, rays6, z_vals, use_new_activation, white_back
 
 
 _signature_set = False
+_block64_signature_set = False
 
 
 def _lib() -> ctypes.CDLL:
@@ -109,23 +122,82 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not _signature_set:
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k1_sm90.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.k1_sm90.restype = i
+        for name in ("k1_sm90_smem_bytes", "k1_sm90_threads", "k1_sm90_slab_elems"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = i
+        L = sm90_layout
+        got = tuple((lib.k1_sm90_smem_bytes(b), lib.k1_sm90_threads(b), lib.k1_sm90_slab_elems(b)) for b in (1, 0))
+        want = ((L.FWD_SMEM, L.THREADS, L.SLAB_BUFFER_SIZE), (L.K1_F32_SMEM, L.F32_THREADS, L.SLAB_BUFFER_F32_SIZE))
+        if got != want:
+            raise RuntimeError(f"csrc/fused_render_sm90.cu and ops/sm90_layout.py disagree: {got} != {want}")
+        _signature_set = True
+    return lib
+
+
+def _lib_block64() -> ctypes.CDLL:
+    global _block64_signature_set
+    lib = _build.load(SOURCE_BLOCK64)
+    if not _block64_signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_render_level.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.fused_render_level.restype = i
         lib.nerf_packed_weight_size.argtypes = []
         lib.nerf_packed_weight_size.restype = i
         if lib.nerf_packed_weight_size() != WEIGHT_SIZE:
             raise RuntimeError("csrc/nerf_mlp.cuh and ops/fused_mlp.py disagree on the weight layout")
-        _signature_set = True
+        _block64_signature_set = True
     return lib
 
 
-def _launch(packed: PackedWeights, rays6, z, use_new_activation, white_back):
-    """K1 on CUDA tensors: (rgb (N, 3), depth (N,), weights (N, S))."""
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def require_sm90(capability: Tuple[int, int]) -> None:
+    """Raise unless ``capability`` (a card's compute capability) is Hopper's
+    9.0, the only target the Hopper kernels are built for."""
+    if tuple(capability) != (9, 0):
+        raise RuntimeError(f"the Hopper kernels need an sm_90 card, this one is sm_{capability[0]}{capability[1]}")
+
+
+def _outputs(n, s, dev):
+    return (torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n, s), dtype=torch.float32, device=dev))
+
+
+def launch_render(packed: PackedWeights, rays6, z, use_new_activation, white_back):
+    """K1 on CUDA tensors, the Hopper kernel of the weights' dtype: (rgb (N, 3),
+    depth (N,), weights (N, S))."""
     n, s = z.shape
-    rgb = torch.empty((n, 3), dtype=torch.float32, device=z.device)
-    depth = torch.empty((n,), dtype=torch.float32, device=z.device)
-    weights = torch.empty((n, s), dtype=torch.float32, device=z.device)
+    dev = z.device
+    require_sm90(torch.cuda.get_device_capability(dev))
+    bf16 = packed.w.dtype == torch.bfloat16
+    slabs = sm90_layout.slab_buffer(packed) if bf16 else sm90_layout.slab_buffer_f32(packed)
+    plan = sm90_layout.k1_launch_plan(n, s, _sm_count(dev), "bfloat16" if bf16 else "float32")
+    rgb, depth, weights = _outputs(n, s, dev)
     lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.k1_sm90(
+            rays6.data_ptr(), z.data_ptr(), slabs.data_ptr(), packed.b.data_ptr(),
+            rgb.data_ptr(), depth.data_ptr(), weights.data_ptr(),
+            n, s, plan["ctas"], int(bf16), int(use_new_activation), int(white_back),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_render_level")
+    fused_render_level.launches += 1
+    return rgb, depth, weights
+
+
+def launch_render_block64(packed: PackedWeights, rays6, z, use_new_activation, white_back):
+    """The earlier K1 (``csrc/fused_render.cu``: 64-ray blocks, wmma in
+    bfloat16, FMA in float32) on CUDA tensors: (rgb (N, 3), depth (N,),
+    weights (N, S)).  Off every path: ``chip_smoke.py`` times it beside the
+    Hopper kernels and holds it against the plain version."""
+    n, s = z.shape
+    rgb, depth, weights = _outputs(n, s, z.device)
+    lib = _lib_block64()
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         rc = lib.fused_render_level(
@@ -133,9 +205,12 @@ def _launch(packed: PackedWeights, rays6, z, use_new_activation, white_back):
             rgb.data_ptr(), depth.data_ptr(), weights.data_ptr(),
             n, s, int(packed.w.dtype == torch.bfloat16), int(use_new_activation), int(white_back), stream,
         )
-    _build.check(lib, rc, "fused_render_level")
-    fused_render_level.launches += 1
+    _build.check(lib, rc, "fused_render_level (block64)")
+    launch_render_block64.launches += 1
     return rgb, depth, weights
+
+
+launch_render_block64.launches = 0
 
 
 class _Render(torch.autograd.Function):
@@ -146,7 +221,7 @@ class _Render(torch.autograd.Function):
     def forward(ctx, rays6, z, use_new_activation, white_back, compute_dtype, *params):
         packed = pack_tensors(params, torch_dtype(compute_dtype))
         if z.device.type == "cuda":
-            out = _launch(packed, rays6, z, use_new_activation, white_back)
+            out = launch_render(packed, rays6, z, use_new_activation, white_back)
         else:
             out = _render_plain(packed, rays6, z, use_new_activation, white_back)
         ctx.save_for_backward(rays6, z, *params)

@@ -70,7 +70,7 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
     torch_dtype,
     unpack_grads,
 )
-from sinnerf_tpu_torch.ops.fused_render import _check_inputs
+from sinnerf_tpu_torch.ops.fused_render import _check_inputs, _sm_count
 
 SOURCE = "fused_render_train.cu"
 SOURCE_SM90 = "fused_render_train_sm90.cu"
@@ -278,10 +278,6 @@ def _lib_sm90() -> ctypes.CDLL:
             raise RuntimeError(f"csrc/fused_render_train_sm90.cu and ops/sm90_layout.py disagree: {got}")
         _sm90_signature_set = True
     return lib
-
-
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _slabs(packed: PackedWeights, slabs: Optional[torch.Tensor]) -> torch.Tensor:

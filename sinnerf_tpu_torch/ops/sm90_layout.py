@@ -1,5 +1,7 @@
-"""Shared-memory layouts and the launch plan of the Hopper K3 kernels
-(``csrc/fused_render_train_sm90.cu``, bf16 only).
+"""Weight layouts and launch plans of the Hopper kernels: K3 in bf16
+(``csrc/fused_render_train_sm90.cu``) and K1 in both dtypes
+(``csrc/fused_render_sm90.cu``; bf16 on the same slabs as K3, float32 on
+``slab_buffer_f32``, at the end of this module).
 
 The kernels stream the MLP's weights through a ring of shared-memory stages
 with one 1-D bulk copy (``cp.async.bulk``) per stage, and ``wgmma`` reads
@@ -34,7 +36,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from sinnerf_tpu_torch.ops.fused_mlp import WEIGHT_OFFSETS, WEIGHT_SIZE, PackedWeights
+from sinnerf_tpu_torch.ops.fused_mlp import WEIGHT_OFFSETS, WEIGHT_SIZE, WIDTH, PackedWeights
 
 SW = 64  # bf16 values in one swizzled row (128 bytes)
 TILE_RAYS = 128  # rays per CTA tile: two consumer warpgroups of 64
@@ -70,11 +72,11 @@ BWD_SLABS: Tuple[int, ...] = tuple(i for b in BWD_BLOCKS for i, s in enumerate(F
 HEAD_BLOCKS = ("wrgb", "wsig")
 
 
-def slab_offsets() -> Tuple[List[int], int]:
-    """Byte offset of each slab of FWD_SLABS in ``slab_buffer``, and of the
-    head weights after them."""
+def slab_offsets(slabs=FWD_SLABS) -> Tuple[List[int], int]:
+    """Byte offset of each of ``slabs`` in their buffer (``slab_buffer`` for
+    FWD_SLABS), and of the head weights after them."""
     offs, at = [], 0
-    for s in FWD_SLABS:
+    for s in slabs:
         offs.append(at)
         at += s.nbytes
     return offs, at
@@ -203,4 +205,116 @@ def launch_plan(n: int, s: int, sm_count: int) -> Dict[str, int]:
         fwd_slabs_per_cta=per_cta * s * len(FWD_SLABS),
         bwd_slabs_per_cta=per_cta * s * (len(FWD_SLABS) + len(BWD_SLABS)),
         fwd_smem=FWD_SMEM, bwd_smem=BWD_SMEM, scratch_bytes=ctas * BWD_SCRATCH,
+    )
+
+
+# --------------------------------------------------------- float32 (K1 f32)
+# csrc/mlp_f32_sm90.cuh streams the float32 weights as slabs of F32_ROWS
+# input rows of one block with every output column, transposed to K-major
+# [k][out] f32: element (row k0 + kk, output o) of slab (block, k0, out) lies
+# at byte 4 * (kk * out + o) from the slab's start.  ``slab_buffer_f32``
+# concatenates the slabs in the order the kernel consumes them (F32_SLABS:
+# the forward's blocks, FWD_BLOCKS, 16 rows at a time), then wrgb and wsig as
+# packed.  Every block's padded width is a multiple of 16, so the buffer is a
+# permutation of ``pack_weights``' float32 buffer: WEIGHT_SIZE values, no
+# padding of its own.  The kernel's static_asserts and ``k1_sm90_slab_elems``
+# hold it to these numbers.
+F32_ROWS = 16
+
+
+class F32Slab(NamedTuple):
+    block: str  # weight block of fused_mlp.WEIGHT_LAYOUT
+    k0: int  # first input column of the block (first row of the slab)
+    out: int  # output columns (256, or 128 for the direction layer)
+
+    @property
+    def nbytes(self) -> int:
+        return F32_ROWS * self.out * 4
+
+
+def _f32_slabs_of(block: str) -> List[F32Slab]:
+    _, (rows, cols) = WEIGHT_OFFSETS[block]
+    return [F32Slab(block, k0, rows) for k0 in range(0, cols, F32_ROWS)]
+
+
+F32_SLABS: Tuple[F32Slab, ...] = tuple(s for b in FWD_BLOCKS for s in _f32_slabs_of(b))
+F32_SLAB_OFFSETS, F32_HEAD_OFFSET = slab_offsets(F32_SLABS)
+SLAB_BUFFER_F32_SIZE = F32_HEAD_OFFSET // 4 + HEAD_SIZE  # float32 values
+
+
+def _gather_index_f32() -> torch.Tensor:
+    """For each value of the float32 slab buffer, its position in
+    ``pack_weights``' buffer."""
+    idx = torch.empty(SLAB_BUFFER_F32_SIZE, dtype=torch.int64)
+    for s, off in zip(F32_SLABS, F32_SLAB_OFFSETS):
+        boff, (rows, cols) = WEIGHT_OFFSETS[s.block]
+        kk = torch.arange(F32_ROWS)[:, None]
+        o = torch.arange(rows)[None, :]
+        idx[off // 4 : off // 4 + F32_ROWS * rows] = (boff + o * cols + s.k0 + kk).reshape(-1)
+    at = F32_HEAD_OFFSET // 4
+    for b in HEAD_BLOCKS:
+        boff, (rows, cols) = WEIGHT_OFFSETS[b]
+        idx[at : at + rows * cols] = torch.arange(boff, boff + rows * cols)
+        at += rows * cols
+    return idx
+
+
+_GATHER_F32: Dict[torch.device, torch.Tensor] = {}
+
+
+def slab_buffer_f32(packed: PackedWeights) -> torch.Tensor:
+    """``pack_weights``' float32 weights -> K1 f32's slab buffer (float32,
+    SLAB_BUFFER_F32_SIZE values): every slab of F32_SLABS as [16][out], then
+    wrgb and wsig as packed.  One gather with an index built once per
+    device."""
+    w = packed.w
+    if w.dtype != torch.float32 or w.shape != (WEIGHT_SIZE,):
+        raise ValueError(f"slab_buffer_f32 takes pack_weights' float32 ({WEIGHT_SIZE},) weights, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if w.device not in _GATHER_F32:
+        _GATHER_F32[w.device] = _gather_index_f32().to(w.device)
+    return w[_GATHER_F32[w.device]]
+
+
+def unpack_slab_buffer_f32(buf: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``slab_buffer_f32``: ``pack_weights``' (WEIGHT_SIZE,)
+    layout."""
+    if buf.shape != (SLAB_BUFFER_F32_SIZE,):
+        raise ValueError(f"a float32 slab buffer has {SLAB_BUFFER_F32_SIZE} values, got {tuple(buf.shape)}")
+    w = torch.zeros(WEIGHT_SIZE, dtype=buf.dtype, device=buf.device)
+    for s, off in zip(F32_SLABS, F32_SLAB_OFFSETS):
+        tile = buf[off // 4 : off // 4 + F32_ROWS * s.out].view(F32_ROWS, s.out)
+        _block(w, s.block)[:, s.k0 : s.k0 + F32_ROWS] = tile.T
+    at = F32_HEAD_OFFSET // 4
+    for b in HEAD_BLOCKS:
+        blk = _block(w, b)
+        blk.copy_(buf[at : at + blk.numel()].view_as(blk))
+        at += blk.numel()
+    return w
+
+
+# Shared memory of one K1 f32 CTA, bytes (csrc/mlp_f32_sm90.cuh Smem): the
+# [k][point] activation tile, the PE tile (the sample PE, then the direction
+# PE), a ring of F32_STAGES slabs of 256 outputs, then rays, the heads'
+# partial sums of two warp columns and the ring's barriers.
+F32_STAGES = 3
+F32_THREADS = 384  # two consumer warpgroups (eight warps) and the producer warpgroup
+K1_F32_SMEM = (4 * WIDTH * TILE_RAYS + 4 * 64 * TILE_RAYS + F32_STAGES * F32_ROWS * WIDTH * 4
+               + 4 * TILE_RAYS * (6 + 2 + 2 * 3) + 64)
+
+
+def k1_launch_plan(n: int, s: int, sm_count: int, compute_dtype: str) -> Dict[str, int]:
+    """What one K1 launch runs for n rays x s samples on a card of
+    ``sm_count`` SMs: ray tiles of 128, persistent CTAs (one per SM at most,
+    each walking tiles ctas apart), threads and shared memory of a CTA, the
+    most tiles one CTA runs and the slabs it streams."""
+    if compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"k1_launch_plan: compute_dtype {compute_dtype!r}")
+    bf16 = compute_dtype == "bfloat16"
+    plan = launch_plan(n, s, sm_count)
+    slabs = len(FWD_SLABS) if bf16 else len(F32_SLABS)
+    return dict(
+        tiles=plan["tiles"], ctas=plan["ctas"], tiles_per_cta=plan["tiles_per_cta"],
+        threads=THREADS if bf16 else F32_THREADS, smem=FWD_SMEM if bf16 else K1_F32_SMEM,
+        slabs_per_cta=plan["tiles_per_cta"] * s * slabs,
     )
