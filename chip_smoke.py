@@ -7,10 +7,12 @@ Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
    kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
-   count the Hopper kernels' (K3 and K1 in bf16, K1 in f32) HGMMA,
-   bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA and 128-bit shared
-   load instructions in ``cuobjdump -sass`` of their libraries, and fail
-   without wgmma (bf16) or FFMA (f32), or without bulk copies;
+   count the Hopper kernels' (K3 and K1 in bf16, K1, K3 and K4-bwd in f32)
+   HGMMA, bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA and 128-bit
+   shared load instructions in ``cuobjdump -sass`` of their libraries, and
+   fail without wgmma (bf16) or FFMA (f32), or without bulk copies, or (the
+   f32 training kernels) without vector reductions in a backward or with a
+   spill;
 2. hold K1 (``fused_render_level``, the Hopper kernels) against its plain
    version, float32 and bfloat16, at 4096 rays x S = 64 and 192, at 1000
    rays x S = 12, and at every ragged shape of K1_RAGGED (1 to 5292 rays, S
@@ -34,16 +36,18 @@ Phases, any failure exits non-zero without the final result line:
    background on and off, with nonzero cotangents on all three outputs, at
    small shapes (1000 x 12, 333 x 9, the 56x70 patch x 16, the 63x84 patch x 9); the
    backward's sums are order-dependent, so the spread of its gradient over
-   two runs on the same inputs is printed;
+   two runs on the same inputs is printed; K1 and K3-fwd without noise must
+   agree bit for bit in both dtypes (one kernel template each);
 7. the same at the training path's own shapes and inputs: the 16,384 rays of
    a Step-1 batch x S = 64 and 192 as ``train_step`` chains them (K3-fwd,
    K2 with drawn ``u``, K3-fwd, then both backwards), timing each launch and
-   its plain version; in bfloat16 (the Hopper kernels) also K3_ROUNDS
-   rounds that alternate the forward with the earlier forward
-   (``launch_train_fwd_wmma``, first held against the plain forward), and
-   the backward with its flush and wgrad ablations
-   (``launch_train_bwd_ablated``) and X2's ``base`` (the earlier backward),
-   on the same inputs;
+   its plain version; then K3_ROUNDS rounds that alternate the Hopper
+   kernels with the earlier ones on the same inputs: the forward with the
+   earlier forward (``launch_train_fwd_block64``: wmma in bfloat16, FMA in
+   float32; first held against the plain forward), the
+   backward with its ablations (``launch_train_bwd_ablated``: bfloat16 flush
+   and wgrad, float32 flush and scratch) and the earlier backward (bfloat16
+   X2's ``base``, float32 ``launch_train_bwd_block64``);
 8. the training main path: ``train_step`` (4 bundles of 4096 rays, 64 + 128
    samples, depth, photometric and smoothness losses, Adam at 2e-4) in
    bfloat16 and float32: a first step whose parameter gradients are held
@@ -59,7 +63,9 @@ Phases, any failure exits non-zero without the final result line:
    printed;
 10. the deterministic training path (``perturb=0``, ``noise_std=0``): K4 at
    its shapes (1,048,576 and 3,145,728 points, the points of the 16,384 rays
-   x 64 and x 192 samples) against its plain version and timed; the first
+   x 64 and x 192 samples) against its plain version and timed, and the
+   Hopper K4-bwd f32 beside the earlier one (``launch_mlp_bwd_block64``) in
+   K4_ROUNDS_F32 alternating rounds; the first
    ``train_step``'s gradients against the plain path's; 3 timed steps with
    the counts set to 0 just before and read just after (per step K1 2, K2 1,
    K4-fwd 2, K4-bwd 2, K3 0), the loss finite and falling;
@@ -207,9 +213,11 @@ X1_SMALL = (4096, 333)
 # bias's gradient by 8% for production K3-bwd as for its variants (one ulp
 # of the rays moves the plain version's by 4e9)
 X2_SMALL = ((128, 8, 60), (333, 10, 62))
-# the Hopper K3 kernels (bf16) against the earlier ones at the path's shapes:
-# rounds that alternate them, launches of each per round
-K3_ROUNDS, K3_REPS = 6, 2
+# the Hopper K3 kernels against the earlier ones at the path's shapes:
+# (rounds that alternate them, launches of each per round) per dtype
+K3_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
+# the Hopper K4-bwd f32 against the earlier one at the path's shapes
+K4_ROUNDS_F32 = (4, 1)
 # the Hopper K1 kernels against the earlier ones at 131072 rays x S = 64 and
 # 192: (rounds, launches of each per round) per dtype
 K1_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
@@ -226,7 +234,10 @@ SASS_KERNELS = {
     "train_fwd_sm90": ("fused_render_train_sm90.cu", "train_fwd_sm90ILb1E", ("HGMMA", "BULK")),
     "train_bwd_sm90": ("fused_render_train_sm90.cu", "train_bwd_sm90ILi0E", ("HGMMA", "BULK")),
     "k1_sm90[bfloat16]": ("fused_render_sm90.cu", "train_fwd_sm90ILb0E", ("HGMMA", "BULK")),
-    "k1_sm90[float32]": ("fused_render_sm90.cu", "render_f32_sm90", ("FFMA", "BULK")),
+    "k1_sm90[float32]": ("fused_render_sm90.cu", "render_f32_sm90ILb0E", ("FFMA", "BULK")),
+    "k3_f32_fwd": ("f32_train_sm90.cu", "render_f32_sm90ILb1E", ("FFMA", "BULK", "NO_SPILLS")),
+    "k3_f32_bwd": ("f32_train_sm90.cu", "k3_bwd_f32_sm90ILi0E", ("FFMA", "BULK", "RED_V4", "NO_SPILLS")),
+    "k4_f32_bwd": ("f32_train_sm90.cu", "k4_bwd_f32_sm90", ("FFMA", "BULK", "RED_V4", "NO_SPILLS")),
 }
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
@@ -703,10 +714,31 @@ def merge_worst(worst, cd, err_f, err_b, spread):
         w[key] = tuple(max(a, b) for a, b in zip(w[key], err))
 
 
+def k1_equals_k3_fwd(model, device, rng):
+    """K1 and K3-fwd without noise share one kernel template per dtype: the
+    same rgb, depth and weights, bit for bit, at ragged shapes."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render as fr
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights, torch_dtype
+
+    for cd in ("float32", "bfloat16"):
+        packed = pack_weights(model, torch_dtype(cd))
+        for n, s, white_back in ((129, 13, False), (1000, 64, True)):
+            rays, z = make_rays(rng, n, s, device)
+            k1 = fr.launch_render(packed, rays, z, True, white_back)
+            k3 = frt.launch_train_fwd(packed, rays, z, None, True, white_back)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k1, k3[:3])):
+                raise Failed(f"K1 {cd} and K3-fwd {cd} without noise differ at n={n} S={s}")
+    print("K1 equals K3-fwd without noise, bit for bit, in both dtypes")
+
+
 def phase_k3_checks(device, rng):
     import torch
 
     model = make_model(2, device)
+    k1_equals_k3_fwd(model, device, rng)
     worst = {}
     # 1000 and 333 rays are no tile multiple; 56x70 and 63x84 are patch sizes;
     # S = 12 and 9 are no multiple of 8
@@ -779,57 +811,66 @@ def make_draws(rng, n: int, device):
     )
 
 
-def k3_rounds(model, rays, z, noise, out, ref, target, what: str):
-    """The Hopper K3 kernels (bf16) against the earlier ones on one level's
-    inputs, in K3_ROUNDS rounds that alternate them (each round's ratio is
-    the one to compare): the forward against the earlier forward
-    (``launch_train_fwd_wmma``, first held against ``ref``, the plain
-    forward's outputs) on the path's inputs; the backward, its ablations
-    (``launch_train_bwd_ablated``: ``flush`` removes the weight gradients'
-    reductions and nothing else, ``wgrad`` their products too) and X2's
-    ``base`` (the earlier K3-bwd) on them without noise and with a black
-    background, which X2's kernels take (the same work).  Returns per name
-    the mean ms, per ratio its mean and range, and the earlier forward's
-    error."""
+def k3_rounds(model, rays, z, noise, out, ref, target, what: str, cd: str):
+    """The Hopper K3 kernels against the earlier ones on one level's inputs,
+    in K3_ROUNDS[cd] rounds that alternate them (each round's ratio is the
+    one to compare).  The forward against the earlier forward
+    (``launch_train_fwd_block64``: wmma in bfloat16, FMA in float32), first
+    held against ``ref``, the plain forward's outputs, on the path's inputs;
+    the backward and its ablations (``launch_train_bwd_ablated``; bfloat16:
+    ``flush`` removes the weight gradients' reductions and nothing else,
+    ``wgrad`` their products too; float32: ``flush``, and ``scratch`` the kept
+    tiles' round trip through global memory) against the earlier backward:
+    in bfloat16 X2's ``base`` on the inputs without noise and with a black
+    background, which X2's kernels take (the same work), in float32
+    ``launch_train_bwd_block64`` on the path's own.  Returns per name the
+    mean ms, per ratio its mean and range, and the earlier forward's error."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_render_train as frt
-    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights
-    from sinnerf_tpu_torch.ops.sm90_layout import slab_buffer
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights, torch_dtype
     from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
     from sinnerf_tpu_torch.utils.timing import interleaved_ms
 
-    packed = pack_weights(model, torch.bfloat16)
-    slabs = slab_buffer(packed)
+    bf16 = cd == "bfloat16"
+    packed = pack_weights(model, torch_dtype(cd))
+    slabs = frt._slabs(packed, None)
     r6 = rays[:, :6].contiguous()
-    # the earlier forward times beside the new one and gives X2 its residuals:
-    # held against its plain version as the new one is
-    earlier = frt.launch_train_fwd_wmma(packed, r6, z, noise, True, True)
+    # the earlier forward times beside the new one (and gives X2 its
+    # residuals): held against its plain version as the new one is
+    earlier = frt.launch_train_fwd_block64(packed, r6, z, noise, True, True)
     torch.cuda.synchronize()
     earlier_err = k3_fwd_error(earlier, ref, rays[:, 7].max().item())
-    hold(f"{what} earlier fwd (wmma)", earlier_err, K3_FWD_TOL["bfloat16"])
+    hold(f"{what} earlier fwd", earlier_err, K3_FWD_TOL[cd])
     del earlier
     g_rgb, g_depth, g_w = (g.contiguous() for g in cotangents(out, target))
-    bwd = (packed, r6, z, None, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, False)
-    base_in = x2.BwdInputs(packed, r6, z, out[2], out[3], out[4], g_rgb, g_depth, g_w)
+    if bf16:
+        bwd = (packed, r6, z, None, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, False)
+        base_in = x2.BwdInputs(packed, r6, z, out[2], out[3], out[4], g_rgb, g_depth, g_w)
+        bwd_earlier = lambda: x2.launch_variant("base", 64, 1, base_in)  # noqa: E731
+    else:
+        bwd = (packed, r6, z, noise, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, True)
+        bwd_earlier = lambda: frt.launch_train_bwd_block64(*bwd)  # noqa: E731
     fns = {
         "fwd": lambda: frt.launch_train_fwd(packed, r6, z, noise, True, True, slabs),
-        "fwd_earlier": lambda: frt.launch_train_fwd_wmma(packed, r6, z, noise, True, True),
+        "fwd_earlier": lambda: frt.launch_train_fwd_block64(packed, r6, z, noise, True, True),
         "bwd": lambda: frt.launch_train_bwd(*bwd, slabs=slabs),
-        "bwd_earlier": lambda: x2.launch_variant("base", 64, 1, base_in),
+        "bwd_earlier": bwd_earlier,
     }
-    for part in frt.ABLATE:
+    parts = frt.ABLATE if bf16 else frt.ABLATE_F32
+    for part in parts:
         fns[f"bwd_no_{part}"] = lambda part=part: frt.launch_train_bwd_ablated(part, *bwd, slabs=slabs)
     for fn in fns.values():  # warm-up
         fn()
     torch.cuda.synchronize()
     counts = (frt.launch_train_fwd.launches, frt.launch_train_bwd.launches)
-    per_round = interleaved_ms(fns, K3_ROUNDS, K3_REPS)
+    rounds, reps = K3_ROUNDS[cd]
+    per_round = interleaved_ms(fns, rounds, reps)
     # these launches compare kernels: they do not count as the path's
     frt.launch_train_fwd.launches, frt.launch_train_bwd.launches = counts
-    ms = {k: sum(v) / K3_ROUNDS for k, v in per_round.items()}
+    ms = {k: sum(v) / rounds for k, v in per_round.items()}
     ratios = {}
-    for num, den in [("fwd", "fwd_earlier"), ("bwd", "bwd_earlier")] + [(f"bwd_no_{p}", "bwd") for p in frt.ABLATE]:
+    for num, den in [("fwd", "fwd_earlier"), ("bwd", "bwd_earlier")] + [(f"bwd_no_{p}", "bwd") for p in parts]:
         r = [a / b for a, b in zip(per_round[num], per_round[den])]
         ratios[f"{num}/{den}"] = (sum(r) / len(r), min(r), max(r))
     return ms, ratios, earlier_err
@@ -861,18 +902,17 @@ def phase_train_path(device, rng, batch, draws):
             print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
                   f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
             row = dict(shape=f"{n}x{s}", ms=ms, bounds=bounds)
-            if cd == "bfloat16":
-                row["rounds_ms"], row["ratios"], row["earlier_fwd_err"] = k3_rounds(
-                    models[level], rays, z, noise, res, ref, target, f"path K3 bfloat16 {level:6s} n={n} S={s:3d}")
-                r = row["ratios"]
-                print(f"  {K3_ROUNDS} rounds: fwd {row['rounds_ms']['fwd']:.3f} ms, earlier fwd "
-                      f"{row['rounds_ms']['fwd_earlier']:.3f} ms (ratio {r['fwd/fwd_earlier'][0]:.4f}, "
-                      f"{r['fwd/fwd_earlier'][1]:.4f}-{r['fwd/fwd_earlier'][2]:.4f}); bwd "
-                      f"{row['rounds_ms']['bwd']:.3f} ms, earlier (X2 base) {row['rounds_ms']['bwd_earlier']:.3f} ms "
-                      f"(ratio {r['bwd/bwd_earlier'][0]:.4f}, {r['bwd/bwd_earlier'][1]:.4f}-"
-                      f"{r['bwd/bwd_earlier'][2]:.4f}); bwd without each part: "
-                      + ", ".join(f"{p} {row['rounds_ms'][f'bwd_no_{p}']:.3f} ms ({r[f'bwd_no_{p}/bwd'][0]:.4f}, "
-                                  f"{r[f'bwd_no_{p}/bwd'][1]:.4f}-{r[f'bwd_no_{p}/bwd'][2]:.4f})" for p in frt.ABLATE))
+            row["rounds_ms"], row["ratios"], row["earlier_fwd_err"] = k3_rounds(
+                models[level], rays, z, noise, res, ref, target, f"path K3 {cd:8s} {level:6s} n={n} S={s:3d}", cd)
+            r, rm = row["ratios"], row["rounds_ms"]
+            parts = frt.ABLATE if cd == "bfloat16" else frt.ABLATE_F32
+            print(f"  {K3_ROUNDS[cd][0]} rounds: fwd {rm['fwd']:.3f} ms, earlier fwd {rm['fwd_earlier']:.3f} ms "
+                  f"(ratio {r['fwd/fwd_earlier'][0]:.4f}, {r['fwd/fwd_earlier'][1]:.4f}-{r['fwd/fwd_earlier'][2]:.4f}); "
+                  f"bwd {rm['bwd']:.3f} ms, earlier ({'X2 base' if cd == 'bfloat16' else 'block64'}) "
+                  f"{rm['bwd_earlier']:.3f} ms (ratio {r['bwd/bwd_earlier'][0]:.4f}, {r['bwd/bwd_earlier'][1]:.4f}-"
+                  f"{r['bwd/bwd_earlier'][2]:.4f}); bwd without each part: "
+                  + ", ".join(f"{p} {rm[f'bwd_no_{p}']:.3f} ms ({r[f'bwd_no_{p}/bwd'][0]:.4f}, "
+                              f"{r[f'bwd_no_{p}/bwd'][1]:.4f}-{r[f'bwd_no_{p}/bwd'][2]:.4f})" for p in parts))
             launches.append(row)
             if level == "coarse":
                 w_c = res[2]
@@ -1061,6 +1101,29 @@ def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: in
     return err_f, err_b, spread, times
 
 
+def k4_rounds(model, xyz, dirs, g):
+    """The Hopper K4-bwd f32 against the earlier one (``launch_mlp_bwd_block64``)
+    on one launch's inputs, in K4_ROUNDS_F32 rounds that alternate them.
+    Returns per name the mean ms and the ratio's mean and range."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_mlp as fm
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    packed = fm.pack_weights(model, torch.float32)
+    fns = {"bwd": lambda: fm.launch_mlp_bwd(packed, xyz, dirs, g), "bwd_earlier": lambda: fm.launch_mlp_bwd_block64(
+        packed, xyz, dirs, g)}
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    count = fm.launch_mlp_bwd.launches
+    rounds, reps = K4_ROUNDS_F32
+    per_round = interleaved_ms(fns, rounds, reps)
+    fm.launch_mlp_bwd.launches = count  # these launches compare kernels: they do not count as the path's
+    r = [a / b for a, b in zip(per_round["bwd"], per_round["bwd_earlier"])]
+    return {k: sum(v) / rounds for k, v in per_round.items()}, (sum(r) / len(r), min(r), max(r))
+
+
 def phase_k4_checks(device, rng):
     import torch
 
@@ -1123,6 +1186,11 @@ def phase_det_train(device, rng, batch):
             print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
                   f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
             rows.append(dict(shape=f"{n * s}", ms=ms, bounds=bounds))
+            if cd == "float32":
+                rows[-1]["rounds_ms"], rows[-1]["ratio"] = k4_rounds(model, xyz, dirs, g)
+                rm, r = rows[-1]["rounds_ms"], rows[-1]["ratio"]
+                print(f"  {K4_ROUNDS_F32[0]} rounds: bwd {rm['bwd']:.3f} ms, earlier bwd {rm['bwd_earlier']:.3f} ms "
+                      f"(ratio {r[0]:.4f}, {r[1]:.4f}-{r[2]:.4f})")
             del xyz, dirs, g
             torch.cuda.empty_cache()
         out["k4"][cd] = dict(launches=rows, **worst[cd])
@@ -1401,7 +1469,7 @@ def phase_x2_checks(device):
     worst, earlier_worst = {}, (0.0, 0.0)
     for n, s, seed in X2_SMALL:
         i = x2.make_inputs(n, s, seed, device)
-        earlier = frt.launch_train_fwd_wmma(i.packed, i.rays6, i.z, None, True, False)
+        earlier = frt.launch_train_fwd_block64(i.packed, i.rays6, i.z, None, True, False)
         torch.cuda.synchronize()
         err = k3_fwd_error(earlier, frt.render_level_train_forward_plain(i.packed, i.rays6, i.z, None, True, False),
                            float(i.z.max()))
@@ -1497,9 +1565,11 @@ def sass_counts():
                  total=sum(ops.values()))
         counts[name], usage[name] = c, ptxas.get(mangled[0], {})
         print(f"SASS {name}: {c}; ptxas {usage[name]}")
-        have = dict(c, BULK=c["UBLKCP"] + c["UTMALDG"])
+        have = dict(c, BULK=c["UBLKCP"] + c["UTMALDG"],
+                    NO_SPILLS=int(usage[name].get("spill_stores", 1) == 0 == usage[name].get("spill_loads", 1)))
         if any(have[x] == 0 for x in needs):
-            raise Failed(f"{name}: its SASS lacks one of {needs}: {c}")
+            raise Failed(f"{name}: its SASS lacks one of {needs} (NO_SPILLS: no spill stores or loads): "
+                         f"{c}, ptxas {usage[name]}")
     return counts, usage
 
 
@@ -1587,9 +1657,14 @@ def main() -> int:
         for i, (d, line, tol) in enumerate((("fwd", 86, K3_FWD_TOL[cd]), ("bwd", 164, K3_BWD_TOL[cd]))):
             err = tuple(max(a, b) for a, b in zip(k3_err[cd][d], p[d]))
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
+            bf16 = cd == "bfloat16"
             entry = dict(
                 name=f"fused_render_level_train_{d}[{cd}]", route="cuda",
-                source="sinnerf_tpu_torch/csrc/fused_render_train" + ("_sm90" if cd == "bfloat16" else "") + ".cu",
+                source="sinnerf_tpu_torch/csrc/" + ("fused_render_train_sm90.cu" if bf16 else "f32_train_sm90.cu"),
+                body="sinnerf_tpu_torch/csrc/" + {("fwd", True): "render_level_sm90.cuh + mlp_wgmma.cuh",
+                                                  ("bwd", True): "mlp_backward_wgmma.cuh + mlp_wgmma.cuh",
+                                                  ("fwd", False): "render_f32_sm90.cuh + mlp_f32_sm90.cuh",
+                                                  ("bwd", False): "mlp_backward_f32_sm90.cuh + mlp_f32_sm90.cuh"}[d, bf16],
                 replaces=f"sinnerf_tpu/ops/fused_render_train_t.py:{line}",
                 launches=t["counts"][i], max_abs_err=err[0], tolerance=tol,
                 ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
@@ -1602,26 +1677,28 @@ def main() -> int:
             else:  # max_abs_err is the worst leaf's largest difference over its largest entry
                 entry.update(rel_l2_err=err[1], run_to_run=max(k3_err[cd]["spread"], p["spread"]),
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
-            if cd == "bfloat16":  # the Hopper kernels: the earlier ones timed beside them in alternating rounds
-                x = p["launches"]
-                entry.update(
-                    earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
-                    rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
-                    earlier_source="sinnerf_tpu_torch/csrc/" + ("fused_render_train.cu" if d == "fwd"
-                                                               else "exp_bwd_pipeline.cu (X2 base)"),
-                    vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
-                    rounds=K3_ROUNDS, sass=sass[f"train_{d}_sm90"], ptxas=ptxas[f"train_{d}_sm90"],
-                )
-                if d == "fwd":  # the earlier forward against its plain version, path and X2 inputs
-                    entry.update(earlier_err=tuple(map(max, x2_earlier_fwd_err,
-                                                       *(r["earlier_fwd_err"] for r in x))))
-                if d == "bwd":
-                    entry.update(ablation_ms={r["shape"]: {k[len("bwd_no_"):]: v for k, v in r["rounds_ms"].items()
-                                                           if k.startswith("bwd_no_")} for r in x},
-                                 ablation_vs_bwd={r["shape"]: {k[len("bwd_no_"):].split("/")[0]: v
-                                                               for k, v in r["ratios"].items()
-                                                               if k.startswith("bwd_no_")} for r in x},
-                                 step_profile=profile)
+            # the Hopper kernels: the earlier ones timed beside them in alternating rounds
+            x = p["launches"]
+            sass_key = f"train_{d}_sm90" if bf16 else f"k3_f32_{d}"
+            entry.update(
+                earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
+                rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
+                earlier_source="sinnerf_tpu_torch/csrc/" + ("exp_bwd_pipeline.cu (X2 base)" if bf16 and d == "bwd"
+                                                           else "fused_render_train.cu"),
+                vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
+                rounds=K3_ROUNDS[cd][0], sass=sass[sass_key], ptxas=ptxas[sass_key],
+            )
+            if d == "fwd":  # the earlier forward against its plain version, path (and X2) inputs
+                entry.update(earlier_err=tuple(map(max, *([x2_earlier_fwd_err] if bf16 else []),
+                                                   *(r["earlier_fwd_err"] for r in x))))
+            if d == "bwd":
+                entry.update(ablation_ms={r["shape"]: {k[len("bwd_no_"):]: v for k, v in r["rounds_ms"].items()
+                                                       if k.startswith("bwd_no_")} for r in x},
+                             ablation_vs_bwd={r["shape"]: {k[len("bwd_no_"):].split("/")[0]: v
+                                                           for k, v in r["ratios"].items()
+                                                           if k.startswith("bwd_no_")} for r in x})
+                if bf16:
+                    entry.update(step_profile=profile)
             kernels.append(entry)
     for cd in ("bfloat16", "float32"):
         p, t = det["k4"][cd], det["step"][cd]
@@ -1630,9 +1707,12 @@ def main() -> int:
             # the short tails' forward errors are held to the same limit
             err = tuple(map(max, k4_err[cd][d], p[d], *([k4_err[f"{cd}_short"][d]] if d == "fwd" else [])))
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
+            hopper = d == "bwd" and cd == "float32"
             entry = dict(
                 name=f"fused_nerf_mlp_{d}[{cd}]", route="cuda",
-                source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
+                source="sinnerf_tpu_torch/csrc/" + ("f32_train_sm90.cu" if hopper else "fused_mlp.cu"),
+                body="sinnerf_tpu_torch/csrc/" + ("mlp_backward_f32_sm90.cuh + mlp_f32_sm90.cuh" if hopper else
+                                                  "mlp_backward.cuh + nerf_mlp.cuh" if d == "bwd" else "nerf_mlp.cuh"),
                 replaces=f"sinnerf_tpu/ops/fused_mlp_t.py:{line}",
                 launches=counts[f"K4-{d}"], max_abs_err=err[0], tolerance=tol,
                 ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
@@ -1647,6 +1727,13 @@ def main() -> int:
                 entry.update(rel_l2_err=err[1], run_to_run=max(k4_err[cd]["spread"], p["spread"]),
                              short_tail_err=k4_err[f"{cd}_short"]["bwd"], short_tail_tolerance=K4_BWD_TOL_SHORT,
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
+            if hopper:  # the earlier kernel (fused_mlp.cu) timed beside it in alternating rounds
+                x = p["launches"]
+                entry.update(earlier_source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
+                             earlier_ms=mean_of([r["rounds_ms"] for r in x], "bwd_earlier"),
+                             rounds_ms=mean_of([r["rounds_ms"] for r in x], "bwd"),
+                             vs_earlier={r["shape"]: r["ratio"] for r in x}, rounds=K4_ROUNDS_F32[0],
+                             sass=sass["k4_f32_bwd"], ptxas=ptxas["k4_f32_bwd"])
             kernels.append(entry)
     k2 = path["k2"] + tpath["k2"]
     kernels.append(dict(

@@ -6,7 +6,9 @@
 // torch.autograd.Function), plain versions and launch counters:
 // ops/fused_mlp.py.  Its callers are K1's backward (the deterministic
 // training render), the renderer's test_time branch (sigma only) and the
-// fast_eval=False / fast_train=False branches.
+// fast_eval=False / fast_train=False branches.  The float32 backward of the
+// path runs f32_train_sm90.cu (mlp_backward_f32_sm90.cuh); the float32
+// mlp_bwd_kernel here stays, on no path, for chip_smoke.py's timing rounds.
 //
 // K4-fwd is K1 without the compositing: a block owns TILE consecutive points,
 // computes the PE of each point's xyz and of its own direction (not once per
@@ -32,42 +34,6 @@
 #include "mlp_backward.cuh"
 
 using namespace nerf;
-
-// dL/dx of input channel c (value x) from the gradient row g of its PE
-// (interleaved: g[c] for x, g[3+6k+c] for sin 2^k x, g[6+6k+c] for cos): the
-// exact adjoint of pe_channel's recurrence, _pe_bwd (fused_mlp_t.py:160-181)
-// in the same order of operations, f32.
-template <int F>
-__device__ float pe_adjoint(float x, int c, const float* g) {
-  float s[F], co[F];
-#pragma unroll
-  for (int k = 0; k < F; ++k) {  // the forward's values, as pe_channel computes them
-    if (k % PE_RESTART == 0) {
-      const float xk = __fmul_rn(x, (float)(1 << k));
-      s[k] = sinf(xk);
-      co[k] = cosf(xk);
-    } else {
-      const float s2 = __fmul_rn(2.f, s[k - 1]);
-      s[k] = __fmul_rn(s2, co[k - 1]);
-      co[k] = __fsub_rn(1.f, __fmul_rn(s2, s[k - 1]));
-    }
-  }
-  float dx = g[c], ds_next = 0.f, dc_next = 0.f;
-#pragma unroll
-  for (int k = F - 1; k >= 0; --k) {
-    float ds = g[3 + 6 * k + c], dc = g[6 + 6 * k + c];
-    if (k + 1 < F && (k + 1) % PE_RESTART != 0) {  // level k+1 came from level k
-      ds = __fsub_rn(__fadd_rn(ds, __fmul_rn(2.f, __fmul_rn(co[k], ds_next))),
-                     __fmul_rn(4.f, __fmul_rn(s[k], dc_next)));
-      dc = __fadd_rn(dc, __fmul_rn(2.f, __fmul_rn(s[k], ds_next)));
-    }
-    if (k % PE_RESTART == 0)  // exact level: s = sin(2^k x), c = cos(2^k x)
-      dx = __fadd_rn(dx, __fmul_rn((float)(1 << k), __fsub_rn(__fmul_rn(co[k], ds), __fmul_rn(s[k], dc))));
-    ds_next = ds;
-    dc_next = dc;
-  }
-  return dx;
-}
 
 // out[p][k] (add: +=) sum_o D[p][o] Wg[o][k] for k < K, an f32 sum of the cast
 // delta D (shared, [TILE][ldd]) against an (O, K) row-major weight block: the

@@ -16,10 +16,12 @@
 //     wgmma over weights streamed as pre-swizzled slabs through shared memory
 //     by bulk copies, 128 points per weight read.  For the same inputs it
 //     equals K3-fwd without noise bit for bit.
-//   * float32: render_f32_sm90 below on mlp_f32_sm90.cuh's body: FFMA in
-//     float32 from a register tile of 8 points x 16 outputs per thread, the
-//     activations K-major in shared memory, the weights streamed as
-//     pre-transposed slabs by bulk copies.
+//   * float32: render_f32_sm90<false> (render_f32_sm90.cuh, the float32
+//     K3-fwd kernel without its noise and residuals) on mlp_f32_sm90.cuh's
+//     body: FFMA in float32 from a register tile of 8 points x 16 outputs
+//     per thread, the activations K-major in shared memory, the weights
+//     streamed as pre-transposed slabs by bulk copies.  For the same inputs
+//     it equals K3-fwd f32 without noise bit for bit.
 // Both are persistent: at most one CTA per SM, each walking ray tiles of 128
 // rays gridDim.x apart; per tile the rays (and in bf16 the direction PE)
 // once, per sample the PE, the MLP and the compositing of
@@ -28,103 +30,9 @@
 // version and pin both slab layouts and the launch plan
 // (tests/test_torch_k1_sm90.py); on the card, python3 chip_smoke.py builds,
 // checks and times them.
-#include "mlp_f32_sm90.cuh"
-#include "render_level_sm90.cuh"
+#include "render_f32_sm90.cuh"
 
 using namespace nerf;
-
-// The f32 kernel loads its rays with mlp_wgmma.cuh's load_rays: one tile, the same consumers
-static_assert(f32s::RAYS == k3::RAYS && f32s::CONSUMERS == k3::CONSUMER_THREADS, "K1 tiles");
-
-// The float32 render: eight consumer warps run the MLP of mlp_f32_sm90.cuh
-// on the tile's 128 rays per sample; consumer thread r < 128 carries ray r's
-// compositing state across the samples.
-__global__ void __launch_bounds__(f32s::CTA_THREADS, 1)
-render_f32_sm90(const float* __restrict__ rays, const float* __restrict__ z, const unsigned char* __restrict__ slabs,
-                const float* __restrict__ B, float* __restrict__ rgb_out, float* __restrict__ depth_out,
-                float* __restrict__ w_out, int n, int S, int new_act, int white_back) {
-  using namespace nerf::f32s;
-  extern __shared__ __align__(16) unsigned char sm[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Smem::BARS);
-  uint64_t* empty = full + STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-  const int n_tiles = (n + RAYS - 1) / RAYS;
-
-  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
-    sm90::setmaxnreg_dec<24>();
-    if (threadIdx.x == CONSUMERS) {
-      uint32_t it = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-        for (int s = 0; s < S; ++s) produce_pass(slabs, sm + Smem::RING, full, empty, it);
-    }
-    return;
-  }
-  sm90::setmaxnreg_inc<240>();
-  const Map m;
-  Ring ring{sm + Smem::RING, full, empty};
-  float* act = reinterpret_cast<float*>(sm + Smem::ACT);
-  float* pe = reinterpret_cast<float*>(sm + Smem::PE);
-  float* rays_s = reinterpret_cast<float*>(sm + Smem::RAYS_F);
-  float* sigp = reinterpret_cast<float*>(sm + Smem::SIGP);
-  float* rgbp = reinterpret_cast<float*>(sm + Smem::RGBP);
-  const float* heads = reinterpret_cast<const float*>(slabs + HEAD_OFF);
-  const int tid = threadIdx.x;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ray0 = tile * RAYS;
-    consumers_sync();  // the previous tile's readers of the rays are done
-    k3::load_rays(rays, ray0, n, rays_s);  // the same 128 rays by the same 256 consumers
-    consumers_sync();
-    const int my = ray0 + tid;
-    const bool live = tid < RAYS && my < n;
-    const float dnorm = tid < RAYS ? k3::ray_norm(rays_s, tid) : 0.f;
-    float trans = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f, wsum = 0.f;
-    for (int s = 0; s < S; ++s) {
-      sample_pe(rays_s, z, ray0, n, S, s, pe);
-      consumers_sync();
-      mlp_pass(ring, m, act, pe, rays_s, heads, B, new_act != 0, sigp, rgbp);
-      if (live) {
-        const size_t ix = (size_t)my * S + s;
-        const float zs = z[ix];
-        const float delta = interval(z + (size_t)my * S, S, s, dnorm);
-        const float sig = __fadd_rn(__fadd_rn(sigp[tid], sigp[RAYS + tid]), B[BSIG]);
-        float rgb[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          rgb[c] = k3::rgb_act(__fadd_rn(__fadd_rn(rgbp[tid * 3 + c], rgbp[(RAYS + tid) * 3 + c]), B[BRGB + c]),
-                               new_act != 0);
-        const float alpha = __fsub_rn(1.f, expf(__fmul_rn(-delta, fmaxf(sig, 0.f))));
-        const float w = __fmul_rn(alpha, trans);
-        w_out[ix] = w;
-        acc_r = __fadd_rn(acc_r, __fmul_rn(w, rgb[0]));
-        acc_g = __fadd_rn(acc_g, __fmul_rn(w, rgb[1]));
-        acc_b = __fadd_rn(acc_b, __fmul_rn(w, rgb[2]));
-        acc_d = __fadd_rn(acc_d, __fmul_rn(w, zs));
-        wsum = __fadd_rn(wsum, w);
-        trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f));
-      }
-    }
-    if (live) {
-      if (white_back) {
-        const float bg = __fsub_rn(1.f, wsum);
-        acc_r = __fadd_rn(acc_r, bg);
-        acc_g = __fadd_rn(acc_g, bg);
-        acc_b = __fadd_rn(acc_b, bg);
-      }
-      rgb_out[(size_t)my * 3 + 0] = acc_r;
-      rgb_out[(size_t)my * 3 + 1] = acc_g;
-      rgb_out[(size_t)my * 3 + 2] = acc_b;
-      depth_out[my] = acc_d;
-    }
-  }
-}
 
 static int set_smem(const void* kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -149,12 +57,12 @@ int k1_sm90(const void* rays, const void* z, const void* slabs, const void* b, v
         (const float*)rays, (const float*)z, nullptr, (const unsigned char*)slabs, (const float*)b, (float*)rgb,
         (float*)depth, (float*)weights, nullptr, nullptr, n, s, new_act, white_back);
   } else {
-    int e = set_smem((const void*)render_f32_sm90, f32s::Smem::BYTES);
+    int e = set_smem((const void*)f32s::render_f32_sm90<false>, f32s::Smem::BYTES);
     if (e) return e;
     if (tiles == 0) return 0;
-    render_f32_sm90<<<grid, f32s::CTA_THREADS, f32s::Smem::BYTES, (cudaStream_t)stream>>>(
-        (const float*)rays, (const float*)z, (const unsigned char*)slabs, (const float*)b, (float*)rgb,
-        (float*)depth, (float*)weights, n, s, new_act, white_back);
+    f32s::render_f32_sm90<false><<<grid, f32s::CTA_THREADS, f32s::Smem::BYTES, (cudaStream_t)stream>>>(
+        (const float*)rays, (const float*)z, nullptr, (const unsigned char*)slabs, (const float*)b, (float*)rgb,
+        (float*)depth, (float*)weights, nullptr, nullptr, n, s, new_act, white_back);
   }
   return (int)cudaGetLastError();
 }

@@ -5,10 +5,11 @@
 // (:164, called through _frlt_bwd :509).  Wrapper (a torch.autograd.Function),
 // plain versions and launch counters: ops/fused_render_train.py.
 //
-// The training path runs these kernels in float32; in bfloat16 it runs the
-// Hopper kernels of fused_render_train_sm90.cu.  The bfloat16 forward here
-// (wmma) stays as the earlier body whose residuals the kernel experiment X2
-// recomputes against; the bfloat16 backward is X2's ``base``.
+// No training path runs these kernels: it runs the Hopper kernels of
+// fused_render_train_sm90.cu in bfloat16 and f32_train_sm90.cu in float32.
+// They stay as the earlier bodies: the bfloat16 forward (wmma) gives the
+// kernel experiment X2 its residuals, the bfloat16 backward is X2's
+// ``base``, and chip_smoke.py times the float32 pair beside the Hopper ones.
 //
 // K3-fwd is render_level.cuh's render_tile with TRAIN set: K1's work plus the
 // sigma noise, and alpha and rgb stored per sample beside w as residuals.

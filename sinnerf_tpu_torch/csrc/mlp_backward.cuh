@@ -1,6 +1,7 @@
 // The backward of the NeRF MLP over a tile of points, shared by the
 // training render's backward (K3-bwd, fused_render_train.cu) and the
-// per-point MLP's backward (K4-bwd, fused_mlp.cu).
+// per-point MLP's backward (K4-bwd, fused_mlp.cu): on the paths, the bf16
+// K4-bwd; in float32 those now run mlp_backward_f32_sm90.cuh.
 //
 // After mlp_tile has recomputed the tile with a Keep (each layer's cast
 // output copied to a per-block scratch in global memory), mlp_backward_tile
@@ -273,6 +274,42 @@ __device__ __forceinline__ float rgb_act_slope(float a, bool new_act) {
   }
   const float sg = sigmoid(a);
   return __fmul_rn(sg, __fsub_rn(1.f, sg));
+}
+
+// dL/dx of input channel c (value x) from the gradient row g of its PE
+// (interleaved: g[c] for x, g[3+6k+c] for sin 2^k x, g[6+6k+c] for cos): the
+// exact adjoint of pe_channel's recurrence, _pe_bwd (fused_mlp_t.py:160-181)
+// in the same order of operations, f32.
+template <int F>
+__device__ float pe_adjoint(float x, int c, const float* g) {
+  float s[F], co[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) {  // the forward's values, as pe_channel computes them
+    if (k % PE_RESTART == 0) {
+      const float xk = __fmul_rn(x, (float)(1 << k));
+      s[k] = sinf(xk);
+      co[k] = cosf(xk);
+    } else {
+      const float s2 = __fmul_rn(2.f, s[k - 1]);
+      s[k] = __fmul_rn(s2, co[k - 1]);
+      co[k] = __fsub_rn(1.f, __fmul_rn(s2, s[k - 1]));
+    }
+  }
+  float dx = g[c], ds_next = 0.f, dc_next = 0.f;
+#pragma unroll
+  for (int k = F - 1; k >= 0; --k) {
+    float ds = g[3 + 6 * k + c], dc = g[6 + 6 * k + c];
+    if (k + 1 < F && (k + 1) % PE_RESTART != 0) {  // level k+1 came from level k
+      ds = __fsub_rn(__fadd_rn(ds, __fmul_rn(2.f, __fmul_rn(co[k], ds_next))),
+                     __fmul_rn(4.f, __fmul_rn(s[k], dc_next)));
+      dc = __fadd_rn(dc, __fmul_rn(2.f, __fmul_rn(s[k], ds_next)));
+    }
+    if (k % PE_RESTART == 0)  // exact level: s = sin(2^k x), c = cos(2^k x)
+      dx = __fadd_rn(dx, __fmul_rn((float)(1 << k), __fsub_rn(__fmul_rn(co[k], ds), __fmul_rn(s[k], dc))));
+    ds_next = ds;
+    dc_next = dc;
+  }
+  return dx;
 }
 
 template <typename T>

@@ -114,6 +114,17 @@ __device__ __forceinline__ int at(int k, int p) { return k * RAYS + (p ^ ((k & 4
 
 __device__ __forceinline__ void consumers_sync() { sm90::named_sync(1, CONSUMERS); }
 
+// x, which the compiler cannot prove equal to x: what is computed from it
+// (indices, addresses) is computed where it is used, not hoisted out of the
+// tile and sample loops into registers that live across them (and spill in
+// the backward's kernels, mlp_backward_f32_sm90.cuh).  The eval render does
+// not take it: there it cost 4% (the PE loops lose their known trip count).
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+__device__ __forceinline__ int fresh_tid() { return fresh((int)threadIdx.x); }
+
 // The calling consumer thread's register tile.
 struct Map {
   int lane;
@@ -208,8 +219,9 @@ __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 }
 
 // A trunk layer's epilogue: the thread's points and outputs of ``act`` =
-// act(acc + bias).  With ``wsig`` (layer 8) also the sigma head's partial
-// sums h8 . wsig over the warp column's outputs, into sigp[wc][point].
+// act(acc + bias), left in ``acc`` too.  With ``wsig`` (layer 8) also the
+// sigma head's partial sums h8 . wsig over the warp column's outputs, into
+// sigp[wc][point].
 __device__ __forceinline__ void trunk_epilogue(float (&acc)[8][16], const Map& m, float* act,
                                                const float* __restrict__ bias, int kind,
                                                const float* __restrict__ wsig, float* sigp) {
@@ -226,6 +238,7 @@ __device__ __forceinline__ void trunk_epilogue(float (&acc)[8][16], const Map& m
 #pragma unroll
     for (int pi = 0; pi < 8; ++pi) {
       v[pi] = epilogue(__fadd_rn(acc[pi][oi], b), kind);
+      acc[pi][oi] = v[pi];
       if (wsig) s[pi] = fmaf(v[pi], ws, s[pi]);
     }
     *reinterpret_cast<float4*>(act + o * RAYS + (m.p0 ^ sw)) = make_float4(v[0], v[1], v[2], v[3]);
@@ -299,52 +312,81 @@ __device__ __forceinline__ void pe_channel_k(float x, int c, int n_freqs, float*
 // The PE of sample s of the tile's rays (rays [RAYS][6] in shared memory,
 // as mlp_wgmma.cuh's load_rays leaves them) into ``pe`` (row 63 zero): xyz =
 // o + d z, z of rays past n is 1.  Unsynchronised.
+template <bool FRESH = false>
 __device__ __forceinline__ void sample_pe(const float* rays, const float* __restrict__ z, int ray0, int n, int S,
                                           int s, float* pe) {
-  for (int e = threadIdx.x; e < RAYS * 3; e += CONSUMERS) {
+  const int tid = FRESH ? fresh_tid() : (int)threadIdx.x;
+  for (int e = tid; e < RAYS * 3; e += CONSUMERS) {
     const int r = e / 3, c = e % 3;
     const float zs = ray0 + r < n ? z[(size_t)(ray0 + r) * S + s] : 1.f;
     pe_channel_k(__fadd_rn(rays[r * 6 + c], __fmul_rn(rays[r * 6 + 3 + c], zs)), c, N_FREQS_XYZ, pe, r);
   }
-  if (threadIdx.x < RAYS) pe[at(XYZ_CH, threadIdx.x)] = 0.f;
+  if (tid < RAYS) pe[at(XYZ_CH, tid)] = 0.f;
 }
 
 // The direction PE of the tile's rays into rows 0..31 of ``pe`` (27..31
 // zero).  Unsynchronised.
+template <bool FRESH = false>
 __device__ __forceinline__ void dir_pe(const float* rays, float* pe) {
-  for (int e = threadIdx.x; e < RAYS * 3; e += CONSUMERS) {
+  const int tid = FRESH ? fresh_tid() : (int)threadIdx.x;
+  for (int e = tid; e < RAYS * 3; e += CONSUMERS) {
     const int r = e / 3, c = e % 3;
     pe_channel_k(rays[r * 6 + 3 + c], c, N_FREQS_DIR, pe, r);
   }
-  for (int e = threadIdx.x; e < RAYS * (DIR_PAD - DIR_CH); e += CONSUMERS)
-    pe[at(DIR_CH + e / RAYS, e % RAYS)] = 0.f;
+  for (int e = tid; e < RAYS * (DIR_PAD - DIR_CH); e += CONSUMERS) pe[at(DIR_CH + e / RAYS, e % RAYS)] = 0.f;
 }
 
-// One pass of the MLP over the tile: the sample PE in ``pe`` (written and
-// synchronised by the caller) -> sigp and rgbp, the heads' partial sums
-// (sigma = sigp[0][p] + sigp[1][p] + bsig, the rgb pre-activation likewise),
-// visible to every consumer on return.  Leaves the direction PE in ``pe``.
-// Consumes the N_SLABS slabs of one pass from the ring.
+// What a pass keeps of its trunk layers: nothing for the eval render.  The
+// backward's recompute (mlp_backward_f32_sm90.cuh) keeps each layer's output
+// from the thread's registers: layer(l, m, acc) runs after trunk layer l's
+// epilogue (l = 9: xyz_encoding_final), before the consumers' barrier.
+struct KeepNone {
+  static constexpr bool FRESH = false;  // the thread indices of the PE: see fresh()
+  __device__ void layer(int, const Map&, const float (&)[8][16]) const {}
+};
+
+// Trunk layers 1..9 of one pass over the tile: the sample PE in ``pe``
+// (written and synchronised by the caller) -> sigp, the sigma head's partial
+// sums (sigma = sigp[0][p] + sigp[1][p] + bsig), and f, the output of
+// xyz_encoding_final, in ``act``; visible to every consumer on return, with
+// the direction PE in ``pe``.  Consumes the first 136 slabs of a pass.
+template <typename Keep = KeepNone>
+__device__ __forceinline__ void mlp_trunk(Ring& ring, const Map& m, float* act, float* pe, const float* rays,
+                                          const float* __restrict__ heads, const float* __restrict__ B, float* sigp,
+                                          const Keep& keep = Keep()) {
+  constexpr int BOFF[10] = {0, B1, B2, B3, B4, B5, B6, B7, B8, BFIN};
+  float acc[8][16];
+  for (int l = 1; l <= 9; ++l) {
+    zero(acc);
+    if (l == 1) product<WIDTH>(acc, ring, m, pe, XYZ_PAD / KS, nullptr, 0);
+    else product<WIDTH>(acc, ring, m, act, WIDTH / KS, pe, l == 5 ? XYZ_PAD / KS : 0);
+    consumers_sync();  // every read of the layer's inputs is done
+    trunk_epilogue(acc, m, act, B + BOFF[l], l == 9 ? ACT_NONE : ACT_RELU, l == 8 ? heads + 3 * HALF : nullptr,
+                   sigp);
+    keep.layer(l, m, acc);
+    if (l == 5) dir_pe<Keep::FRESH>(rays, pe);  // layer 5 read the sample PE for the last time
+    consumers_sync();
+  }
+}
+
+// The direction layer's product over f (in ``act``) and the direction PE (in
+// ``pe``): the last 18 slabs of a pass.
+__device__ __forceinline__ void dir_product(float (&acc)[8][8], Ring& ring, const Map& m, const float* act,
+                                            const float* pe) {
+  zero(acc);
+  product<HALF>(acc, ring, m, act, WIDTH / KS, pe, DIR_PAD / KS);
+}
+
+// One pass of the MLP over the tile: mlp_trunk, then the direction layer and
+// the heads -> sigp and rgbp, the heads' partial sums (the rgb pre-activation
+// likewise rgbp[0][p] + rgbp[1][p] + brgb), visible to every consumer on
+// return.  Consumes the N_SLABS slabs of one pass from the ring.
 __device__ __forceinline__ void mlp_pass(Ring& ring, const Map& m, float* act, float* pe, const float* rays,
                                          const float* __restrict__ heads, const float* __restrict__ B, bool new_act,
                                          float* sigp, float* rgbp) {
-  constexpr int BOFF[10] = {0, B1, B2, B3, B4, B5, B6, B7, B8, BFIN};
-  {
-    float acc[8][16];
-    for (int l = 1; l <= 9; ++l) {
-      zero(acc);
-      if (l == 1) product<WIDTH>(acc, ring, m, pe, XYZ_PAD / KS, nullptr, 0);
-      else product<WIDTH>(acc, ring, m, act, WIDTH / KS, pe, l == 5 ? XYZ_PAD / KS : 0);
-      consumers_sync();  // every read of the layer's inputs is done
-      trunk_epilogue(acc, m, act, B + BOFF[l], l == 9 ? ACT_NONE : ACT_RELU, l == 8 ? heads + 3 * HALF : nullptr,
-                     sigp);
-      if (l == 5) dir_pe(rays, pe);  // layer 5 read the sample PE for the last time
-      consumers_sync();
-    }
-  }
+  mlp_trunk(ring, m, act, pe, rays, heads, B, sigp);
   float acc[8][8];
-  zero(acc);
-  product<HALF>(acc, ring, m, act, WIDTH / KS, pe, DIR_PAD / KS);
+  dir_product(acc, ring, m, act, pe);
   dir_epilogue(acc, m, B + BD, new_act ? ACT_SSP : ACT_RELU, heads, rgbp);
   consumers_sync();
 }

@@ -5,8 +5,10 @@
 //                  try-wait on a phase parity
 //   bulk copies    1-D cp.async.bulk global -> shared (completes on an
 //                  mbarrier) and shared -> global (a bulk group)
-//   proxy fence    fence.proxy.async.shared::cta: generic-proxy writes to
-//                  shared memory become visible to wgmma and the bulk copies
+//   proxy fences   fence.proxy.async.shared::cta: generic-proxy writes to
+//                  shared memory become visible to wgmma and the bulk copies;
+//                  fence.proxy.async.global: those to global memory, to the
+//                  bulk copies
 //   wgmma          shared-memory descriptors with the 128-byte swizzle,
 //                  fence / commit_group / wait_group, and
 //                  mma_async m64nNk16 f32 += bf16 x bf16 for N = 64, 128, 256,
@@ -95,6 +97,12 @@ __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_g
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The thread's generic-proxy writes to global memory become visible to bulk
+// copies that read them (after a barrier orders the copy's issue behind them).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
 // ---------------------------------------------------------------- barriers

@@ -8,9 +8,13 @@ and ``_bwd_kernel_t`` (:298) for K4.  The CUDA routines are
 included by every kernel; ``mlp_plain`` is the forward's plain PyTorch
 version and ``mlp_backward_plain`` that of the backward's MLP body.
 
-K4 (``csrc/fused_mlp.cu``) is ``fused_nerf_mlp``, a ``torch.autograd.Function``
-over the module's 24 float32 parameters with gradients for them, the points
-and the directions; ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
+K4 is ``fused_nerf_mlp``, a ``torch.autograd.Function`` over the module's 24
+float32 parameters with gradients for them, the points and the directions.
+Its forward, and its bfloat16 backward, are ``csrc/fused_mlp.cu``; its
+float32 backward is the Hopper kernel of ``csrc/f32_train_sm90.cu`` on
+``mlp_backward_f32_sm90.cuh`` (FFMA over weights streamed through shared
+memory by bulk copies; needs an ``sm_90`` card), whose earlier kernel
+``launch_mlp_bwd_block64`` stays built on no path; ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
 ``nerf_mlp_backward_plain`` (with ``pe_backward``) are its plain versions,
 used on CPU tensors and by the tests.  Its source note gives the bound
 (operations: 1.19 MFLOP per point forward, 3.56 backward).
@@ -343,6 +347,7 @@ def pack_grads(grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tens
 # --------------------------------------------------------------------------
 
 SOURCE = "fused_mlp.cu"
+SOURCE_F32 = "f32_train_sm90.cu"  # the float32 training kernels on Hopper: K4-bwd here, K3 in fused_render_train
 POINT_CHUNK = 1 << 18  # points per pass of a plain version: bounds its (P, 256) activations
 
 
@@ -470,6 +475,43 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_f32_signature_set = False
+
+
+def _lib_f32() -> ctypes.CDLL:
+    """``csrc/f32_train_sm90.cu``, its signatures set and its layout held
+    against ``ops/sm90_layout.py``."""
+    global _f32_signature_set
+    from sinnerf_tpu_torch.ops import sm90_layout as L
+
+    lib = _build.load(SOURCE_F32)
+    if not _f32_signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k3_f32_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        lib.k3_f32_fwd.restype = i
+        lib.k3_f32_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
+        lib.k3_f32_bwd.restype = i
+        lib.k3_f32_bwd_ablated.argtypes = [p] * 16 + [i] * 6 + [p]
+        lib.k3_f32_bwd_ablated.restype = i
+        lib.k4_f32_bwd.argtypes = [p] * 11 + [i] * 3 + [p]
+        lib.k4_f32_bwd.restype = i
+        for name in ("f32_sm90_smem_bytes", "f32_bwd_slabs"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = i
+        lib.f32_bwd_scratch_bytes.argtypes = []
+        lib.f32_bwd_scratch_bytes.restype = ctypes.c_longlong
+        lib.f32_slab_elems.argtypes = []
+        lib.f32_slab_elems.restype = i
+        got = (lib.f32_sm90_smem_bytes(0), lib.f32_sm90_smem_bytes(1), lib.f32_bwd_scratch_bytes(),
+               lib.f32_bwd_slabs(0), lib.f32_bwd_slabs(1), lib.f32_slab_elems())
+        want = (L.K1_F32_SMEM, L.F32_BWD_SMEM, L.F32_BWD_SCRATCH, len(L.f32_bwd_slabs(False)),
+                len(L.f32_bwd_slabs(True)), L.SLAB_BUFFER_F32_SIZE)
+        if got != want:
+            raise RuntimeError(f"csrc/f32_train_sm90.cu and ops/sm90_layout.py disagree: {got} != {want}")
+        _f32_signature_set = True
+    return lib
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -493,23 +535,58 @@ def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, si
 launch_mlp_fwd.launches = 0
 
 
+def _bwd_args(packed: PackedWeights, xyz, g, sigma_only):
+    """The cotangent as (P, 4) (zero rgb part when ``sigma_only``) and the
+    zeroed dw, db and the dxyz, ddir outputs of a K4-bwd launch."""
+    n, dev = xyz.shape[0], xyz.device
+    g4 = g.float()
+    if sigma_only:
+        g4 = torch.cat([torch.zeros((n, 3), dtype=torch.float32, device=dev), g4[:, -1:]], dim=1)
+    return (g4.contiguous(), torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev),
+            torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev), torch.empty((n, 3), dtype=torch.float32, device=dev),
+            None if sigma_only else torch.empty((n, 3), dtype=torch.float32, device=dev))
+
+
 def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
     """K4-bwd on CUDA tensors: (dw, db, dxyz, ddir or None) as
-    ``nerf_mlp_backward_plain`` returns them."""
+    ``nerf_mlp_backward_plain`` returns them.  float32 weights run the Hopper
+    kernel of ``csrc/f32_train_sm90.cu`` (``mlp_backward_f32_sm90.cuh``),
+    bfloat16 the wmma kernel of ``csrc/fused_mlp.cu``."""
+    if packed.w.dtype == torch.bfloat16:
+        out = _launch_bwd_block64(packed, xyz, dirs, g, use_new_activation, sigma_only)
+    else:
+        from sinnerf_tpu_torch.ops import sm90_layout as L
+        from sinnerf_tpu_torch.ops.fused_render import require_sm90
+
+        n, dev = xyz.shape[0], xyz.device
+        require_sm90(torch.cuda.get_device_capability(dev))
+        g4, dw, db, dxyz, ddir = _bwd_args(packed, xyz, g, sigma_only)
+        slabs = L.slab_buffer_f32(packed)
+        plan = L.f32_bwd_launch_plan(n, 1, torch.cuda.get_device_properties(dev).multi_processor_count, True)
+        scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
+        lib = _lib_f32()
+        with torch.cuda.device(dev):
+            rc = lib.k4_f32_bwd(
+                xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), slabs.data_ptr(), packed.w.data_ptr(),
+                packed.b.data_ptr(), g4.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), dxyz.data_ptr(),
+                _ptr(ddir), n, plan["ctas"], int(use_new_activation), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "fused_nerf_mlp (backward, f32 sm90)")
+        out = dw, db, dxyz, ddir
+    launch_mlp_bwd.launches += 1
+    return out
+
+
+def _launch_bwd_block64(packed: PackedWeights, xyz, dirs, g, use_new_activation, sigma_only):
+    """``csrc/fused_mlp.cu``'s K4-bwd (64-point blocks; wmma in bfloat16, FMA
+    in float32): (dw, db, dxyz, ddir or None)."""
     n = xyz.shape[0]
     dev = xyz.device
     bf16 = packed.w.dtype == torch.bfloat16
     lib = _lib()
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if bf16 else 1)
     scratch = torch.empty(blocks * lib.fused_nerf_mlp_bwd_scratch_bytes(int(bf16)), dtype=torch.uint8, device=dev)
-    g4 = g.float()
-    if sigma_only:
-        g4 = torch.cat([torch.zeros((n, 3), dtype=torch.float32, device=dev), g4[:, -1:]], dim=1)
-    g4 = g4.contiguous()
-    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev)
-    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev)
-    dxyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    ddir = None if sigma_only else torch.empty((n, 3), dtype=torch.float32, device=dev)
+    g4, dw, db, dxyz, ddir = _bwd_args(packed, xyz, g, sigma_only)
     with torch.cuda.device(dev):
         rc = lib.fused_nerf_mlp_bwd(
             xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), packed.w.data_ptr(), packed.b.data_ptr(),
@@ -517,8 +594,22 @@ def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True,
             n, blocks, int(bf16), int(use_new_activation), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "fused_nerf_mlp (backward)")
-    launch_mlp_bwd.launches += 1
     return dw, db, dxyz, ddir
+
+
+def launch_mlp_bwd_block64(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
+    """The earlier float32 K4-bwd (``csrc/fused_mlp.cu``, FMA on 64-point
+    blocks) on CUDA tensors: (dw, db, dxyz, ddir or None).  Off every path:
+    ``chip_smoke.py`` times it beside the Hopper kernel and holds it against
+    the plain version."""
+    if packed.w.dtype != torch.float32:
+        raise ValueError("launch_mlp_bwd_block64 is the earlier float32 kernel; bfloat16 runs it on the path")
+    out = _launch_bwd_block64(packed, xyz, dirs, g, use_new_activation, sigma_only)
+    launch_mlp_bwd_block64.launches += 1
+    return out
+
+
+launch_mlp_bwd_block64.launches = 0
 
 
 launch_mlp_bwd.launches = 0

@@ -10,15 +10,23 @@ compute dtype:
   (``mlp_wgmma.cuh``, ``render_level_sm90.cuh``,
   ``mlp_backward_wgmma.cuh``); they read the weights as
   ``sm90_layout.slab_buffer`` lays them out, once per call;
-* float32: ``csrc/fused_render_train.cu`` (the forward's body shared with K1
-  in ``csrc/render_level.cuh``).
+* float32: ``csrc/f32_train_sm90.cu``, Hopper kernels on FFMA in full
+  float32 with the weights streamed through shared memory by bulk copies:
+  the forward is K1 f32's kernel with noise and residuals
+  (``render_f32_sm90.cuh``), the backward ``mlp_backward_f32_sm90.cuh``;
+  they read the weights as ``sm90_layout.slab_buffer_f32`` lays them out,
+  once per call, and the backward's dgrad reads ``pack_weights``' own rows.
+
+Both pairs need an ``sm_90`` card.
 
 The source notes give the bound (operations: 1.19 MFLOP per point forward,
 3.48 MFLOP backward) and what each design does about the weights, the
 activations and the 2.4 MB gradient accumulator that fit in no block.
-``launch_train_fwd_wmma`` launches the earlier bfloat16 forward
-(``fused_render_train.cu``, ``nvcuda::wmma``), the body whose residuals the
-kernel experiment X2 reads.
+``launch_train_fwd_block64`` launches the earlier forward
+(``fused_render_train.cu``: ``nvcuda::wmma`` in bfloat16, FMA in float32),
+whose bfloat16 residuals the kernel experiment X2 reads, and
+``launch_train_bwd_block64`` the earlier float32 backward of the same file;
+no path runs them, and ``chip_smoke.py`` times them beside the Hopper ones.
 
 ``fused_render_level_train`` is a ``torch.autograd.Function`` over the
 module's 24 float32 parameters: it casts them to the compute dtype inside
@@ -53,6 +61,7 @@ from sinnerf_tpu_torch.models.nerf import NeRF
 from sinnerf_tpu_torch.ops import _build, sm90_layout
 from sinnerf_tpu_torch.ops.fused_mlp import (
     BIAS_SIZE,
+    _lib_f32,
     DIR_PAD,
     HALF,
     N_FREQS_DIR,
@@ -70,7 +79,7 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
     torch_dtype,
     unpack_grads,
 )
-from sinnerf_tpu_torch.ops.fused_render import _check_inputs, _sm_count
+from sinnerf_tpu_torch.ops.fused_render import _check_inputs, _sm_count, require_sm90
 
 SOURCE = "fused_render_train.cu"
 SOURCE_SM90 = "fused_render_train_sm90.cu"
@@ -281,7 +290,10 @@ def _lib_sm90() -> ctypes.CDLL:
 
 
 def _slabs(packed: PackedWeights, slabs: Optional[torch.Tensor]) -> torch.Tensor:
-    return sm90_layout.slab_buffer(packed) if slabs is None else slabs
+    """The Hopper kernels' weight layout for the weights' dtype, unless given."""
+    if slabs is not None:
+        return slabs
+    return sm90_layout.slab_buffer(packed) if packed.w.dtype == torch.bfloat16 else sm90_layout.slab_buffer_f32(packed)
 
 
 def _forward_outputs(n, s, dev):
@@ -307,24 +319,23 @@ def _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
 
 
 def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, slabs=None):
-    """K3-fwd on CUDA tensors: (rgb, depth, weights, alphas, rgb_s).  bfloat16
-    weights run the Hopper kernel (``slabs``: their ``slab_buffer``, built
-    here when not given), float32 the FMA kernel."""
-    if packed.w.dtype != torch.bfloat16:
-        out = _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
-    else:
-        n, s = z.shape
-        dev = z.device
-        slabs = _slabs(packed, slabs)
-        out = _forward_outputs(n, s, dev)
-        lib = _lib_sm90()
-        with torch.cuda.device(dev):
-            rc = lib.k3_sm90_fwd(
-                rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), packed.b.data_ptr(),
-                *(o.data_ptr() for o in out), n, s, sm90_layout.launch_plan(n, s, _sm_count(dev))["ctas"],
-                int(use_new_activation), int(white_back), torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(lib, rc, "fused_render_level_train (forward, sm90)")
+    """K3-fwd on CUDA tensors, the Hopper kernel of the weights' dtype: (rgb,
+    depth, weights, alphas, rgb_s).  ``slabs``: the weights' slab buffer
+    (``_slabs``), built here when not given."""
+    n, s = z.shape
+    dev = z.device
+    require_sm90(torch.cuda.get_device_capability(dev))
+    bf16 = packed.w.dtype == torch.bfloat16
+    slabs = _slabs(packed, slabs)
+    out = _forward_outputs(n, s, dev)
+    lib = _lib_sm90() if bf16 else _lib_f32()
+    with torch.cuda.device(dev):
+        rc = (lib.k3_sm90_fwd if bf16 else lib.k3_f32_fwd)(
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), packed.b.data_ptr(),
+            *(o.data_ptr() for o in out), n, s, sm90_layout.launch_plan(n, s, _sm_count(dev))["ctas"],
+            int(use_new_activation), int(white_back), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, f"fused_render_level_train (forward, sm90, {packed.w.dtype})")
     launch_train_fwd.launches += 1
     return out
 
@@ -332,17 +343,18 @@ def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, sl
 launch_train_fwd.launches = 0
 
 
-def launch_train_fwd_wmma(packed, rays6, z, noise, use_new_activation, white_back):
-    """The earlier bfloat16 K3-fwd (``fused_render_train.cu``, ``nvcuda::wmma``
-    from L2) on CUDA tensors: (rgb, depth, weights, alphas, rgb_s).  Off the
-    main path: the kernel experiment X2 takes its residuals from it, and
-    ``chip_smoke.py`` times it beside the Hopper kernel."""
+def launch_train_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back):
+    """The earlier K3-fwd (``fused_render_train.cu``: 64-ray blocks, wmma from
+    L2 in bfloat16, FMA in float32) on CUDA tensors: (rgb, depth, weights,
+    alphas, rgb_s).  Off the main path: the kernel experiment X2 takes its
+    residuals from it (bfloat16), and ``chip_smoke.py`` times it beside the
+    Hopper kernels."""
     out = _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
-    launch_train_fwd_wmma.launches += 1
+    launch_train_fwd_block64.launches += 1
     return out
 
 
-launch_train_fwd_wmma.launches = 0
+launch_train_fwd_block64.launches = 0
 
 
 def _bwd_buffers(n, s, dev):
@@ -354,20 +366,27 @@ def _bwd_buffers(n, s, dev):
 
 def _launch_bwd_sm90(entry, extra, packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
                      use_new_activation, white_back, slabs):
-    """A Hopper K3-bwd entry point of ``fused_render_train_sm90.cu`` (``extra``:
-    its arguments after white_back): (dw, db)."""
+    """A Hopper K3-bwd entry point (``extra``: its arguments after
+    white_back): of ``fused_render_train_sm90.cu`` for bfloat16 weights, of
+    ``f32_train_sm90.cu`` for float32, which also reads the packed weights.
+    Returns (dw, db)."""
     n, s = z.shape
     dev = z.device
+    require_sm90(torch.cuda.get_device_capability(dev))
+    bf16 = packed.w.dtype == torch.bfloat16
     dsig_part, dw, db = _bwd_buffers(n, s, dev)
     slabs = _slabs(packed, slabs)
-    lib = _lib_sm90()
-    plan = sm90_layout.launch_plan(n, s, _sm_count(dev))  # persistent CTAs, one per SM at most
+    lib = _lib_sm90() if bf16 else _lib_f32()
+    if bf16:  # persistent CTAs, one per SM at most
+        plan, weights_in = sm90_layout.launch_plan(n, s, _sm_count(dev)), ()
+    else:
+        plan, weights_in = sm90_layout.f32_bwd_launch_plan(n, s, _sm_count(dev), False), (packed.w.data_ptr(),)
     scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
-            rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), packed.b.data_ptr(), weights.data_ptr(),
-            alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(), g_w.data_ptr(),
-            dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), *weights_in, packed.b.data_ptr(),
+            weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(),
+            g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
             n, s, plan["ctas"], int(use_new_activation), int(white_back), *extra,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -377,29 +396,11 @@ def _launch_bwd_sm90(entry, extra, packed, rays6, z, noise, weights, alphas, rgb
 
 def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
                      use_new_activation, white_back, slabs=None):
-    """K3-bwd on CUDA tensors: the packed float32 gradient buffers (dw, db).
-    bfloat16 weights run the Hopper kernel, float32 the FMA kernel."""
-    if packed.w.dtype == torch.bfloat16:
-        out = _launch_bwd_sm90("k3_sm90_bwd", (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth,
-                               g_w, use_new_activation, white_back, slabs)
-    else:
-        n, s = z.shape
-        dev = z.device
-        dsig_part, dw, db = _bwd_buffers(n, s, dev)
-        lib = _lib()
-        blocks = _sm_count(dev)  # a persistent grid: as many blocks as the card holds at once
-        scratch = torch.empty(blocks * lib.fused_render_level_train_bwd_scratch_bytes(0), dtype=torch.uint8,
-                              device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.fused_render_level_train_bwd(
-                rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
-                weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(),
-                g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                n, s, blocks, 0, int(use_new_activation), int(white_back),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(lib, rc, "fused_render_level_train (backward)")
-        out = dw, db
+    """K3-bwd on CUDA tensors, the Hopper kernel of the weights' dtype: the
+    packed float32 gradient buffers (dw, db)."""
+    entry = "k3_sm90_bwd" if packed.w.dtype == torch.bfloat16 else "k3_f32_bwd"
+    out = _launch_bwd_sm90(entry, (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                           use_new_activation, white_back, slabs)
     launch_train_bwd.launches += 1
     return out
 
@@ -407,22 +408,56 @@ def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_d
 launch_train_bwd.launches = 0
 
 
-# The timing ablations of the bfloat16 K3-bwd (csrc/mlp_backward_wgmma.cuh
-# Ablate): each removes one part of the kernel and nothing else, ``flush`` the
-# weight gradients' reductions into dw, ``wgrad`` the weight-gradient
-# products and their flush.
+def launch_train_bwd_block64(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                             use_new_activation, white_back):
+    """The earlier float32 K3-bwd (``fused_render_train.cu``, FMA on 64-ray
+    blocks through ``mlp_backward.cuh``) on CUDA tensors: (dw, db).  Off every
+    path: ``chip_smoke.py`` times it beside the Hopper kernel and holds it
+    against the plain version."""
+    if packed.w.dtype != torch.float32:
+        raise ValueError("launch_train_bwd_block64 is the earlier float32 kernel")
+    n, s = z.shape
+    dev = z.device
+    dsig_part, dw, db = _bwd_buffers(n, s, dev)
+    lib = _lib()
+    blocks = _sm_count(dev)  # a persistent grid: as many blocks as the card holds at once
+    scratch = torch.empty(blocks * lib.fused_render_level_train_bwd_scratch_bytes(0), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_render_level_train_bwd(
+            rays6.data_ptr(), z.data_ptr(), _ptr(noise), packed.w.data_ptr(), packed.b.data_ptr(),
+            weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(),
+            g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            n, s, blocks, 0, int(use_new_activation), int(white_back), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "fused_render_level_train (backward, block64)")
+    launch_train_bwd_block64.launches += 1
+    return dw, db
+
+
+launch_train_bwd_block64.launches = 0
+
+
+# The timing ablations of the Hopper K3-bwd kernels: each removes one part of
+# the kernel and nothing else.  bfloat16 (csrc/mlp_backward_wgmma.cuh
+# Ablate): ``flush`` the weight gradients' reductions into dw, ``wgrad`` the
+# weight-gradient products and their flush.  float32
+# (csrc/mlp_backward_f32_sm90.cuh Ablate): ``flush`` as in bfloat16,
+# ``scratch`` the kept tiles' round trip through global memory (no stores,
+# every A slab from one 64 KB region).
 ABLATE = {"flush": 1, "wgrad": 2}
+ABLATE_F32 = {"flush": 1, "scratch": 2}
 
 
 def launch_train_bwd_ablated(part, packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
                              use_new_activation, white_back, slabs=None):
-    """The bfloat16 K3-bwd without ``part`` (a key of ABLATE), for timing only:
-    its own instantiation of the kernel, so the training path's carries no
-    switch.  The gradients it returns are wrong by design."""
-    if packed.w.dtype != torch.bfloat16:
-        raise ValueError("the ablations remove parts of the bfloat16 kernel only")
-    out = _launch_bwd_sm90("k3_sm90_bwd_ablated", (ABLATE[part],), packed, rays6, z, noise, weights, alphas, rgb_s,
-                           g_rgb, g_depth, g_w, use_new_activation, white_back, slabs)
+    """The Hopper K3-bwd without ``part`` (a key of ABLATE in bfloat16, of
+    ABLATE_F32 in float32), for timing only: its own instantiation of the
+    kernel, so the training path's carries no switch.  The gradients it
+    returns are wrong by design."""
+    bf16 = packed.w.dtype == torch.bfloat16
+    entry, code = ("k3_sm90_bwd_ablated", ABLATE[part]) if bf16 else ("k3_f32_bwd_ablated", ABLATE_F32[part])
+    out = _launch_bwd_sm90(entry, (code,), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                           use_new_activation, white_back, slabs)
     launch_train_bwd_ablated.launches += 1
     return out
 
@@ -465,8 +500,7 @@ class _TrainRender(torch.autograd.Function):
         packed = pack_tensors(params, torch_dtype(compute_dtype))
         ctx.slabs = None
         if z.device.type == "cuda":
-            if packed.w.dtype == torch.bfloat16:  # the Hopper kernels' weight layout, once for both directions
-                ctx.slabs = sm90_layout.slab_buffer(packed)
+            ctx.slabs = _slabs(packed, None)  # the Hopper kernels' weight layout, once for both directions
             out = launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, ctx.slabs)
         else:
             out = render_level_train_forward_plain(packed, rays6, z, noise, use_new_activation, white_back)

@@ -318,3 +318,97 @@ def k1_launch_plan(n: int, s: int, sm_count: int, compute_dtype: str) -> Dict[st
         threads=THREADS if bf16 else F32_THREADS, smem=FWD_SMEM if bf16 else K1_F32_SMEM,
         slabs_per_cta=plan["tiles_per_cta"] * s * slabs,
     )
+
+
+# ------------------------------------------- float32 backward (K3-bwd, K4-bwd)
+# csrc/mlp_backward_f32_sm90.cuh streams three kinds of slab through the
+# ring of mlp_f32_sm90.cuh: the recompute's F32_SLABS, then per layer of the
+# backward the layer input A of its wgrad, read back from the CTA's global
+# scratch, and the weights of its dgrad.  A dgrad slab is F32_ROWS *output*
+# rows of a block with every input column: pack_weights' row-major block cut
+# by rows, so the dgrad slabs are the packed buffer's own bytes and need no
+# second copy (``dgrad_slab``).  An A slab is 32 points x 128 inputs of a
+# kept tile, which the recompute writes point-major in two 128-wide halves
+# ([half][point][128] f32), or 64 points x 64 of the sample PE ([point][64]).
+
+
+class BwdSlab(NamedTuple):
+    source: str  # "kept" (the CTA's scratch) or "weights" (pack_weights' buffer)
+    name: str  # kept: "h1".."h8", "f" or "x" (the sample PE); weights: a block of WEIGHT_LAYOUT
+    index: int  # kept: 4 h + c (half h, point chunk c), x: c; weights: o0 // F32_ROWS
+    offset: int  # bytes from the start of the scratch or of the packed float32 buffer
+    nbytes: int
+
+
+F32_KEPT = tuple(f"h{i}" for i in range(1, 9)) + ("f",)  # the kept tiles, in scratch order
+F32_HALF_BYTES = TILE_RAYS * HALF * 4  # one half of a kept tile
+F32_KEPT_BYTES = 2 * F32_HALF_BYTES
+F32_XPE_OFFSET = len(F32_KEPT) * F32_KEPT_BYTES  # the sample PE [point][64], after the kept tiles
+F32_MASKS_OFFSET = F32_XPE_OFFSET + TILE_RAYS * 64 * 4  # ReLU bits of h1..h8: [8][256 threads] x 16 bytes
+F32_EXTRA_OFFSET = F32_MASKS_OFFSET + 8 * 256 * 16  # K3: da_d summed per ray; K4: dxpe, ddpe
+F32_BWD_SCRATCH = F32_EXTRA_OFFSET + TILE_RAYS * HALF * 4  # bytes of global scratch per CTA
+
+
+def _kept_slab(tile: str, h: int, c: int) -> BwdSlab:
+    at = F32_KEPT.index(tile) * F32_KEPT_BYTES + h * F32_HALF_BYTES + c * F32_ROWS * WIDTH * 4
+    return BwdSlab("kept", tile, 4 * h + c, at, F32_ROWS * WIDTH * 4)
+
+
+def dgrad_slabs_of(block: str) -> List[BwdSlab]:
+    """The dgrad slabs of one block, F32_ROWS output rows each, in order."""
+    boff, (rows, cols) = WEIGHT_OFFSETS[block]
+    return [BwdSlab("weights", block, r, 4 * (boff + r * F32_ROWS * cols), 4 * F32_ROWS * cols)
+            for r in range(rows // F32_ROWS)]
+
+
+def f32_bwd_slabs(k4: bool) -> Tuple[BwdSlab, ...]:
+    """The slabs of one tile's backward in the order the kernels consume them
+    (``produce_bwd``): per layer, from the direction layer down to layer 1,
+    the A slabs of its wgrad, then (K4, layers 5 and 1) the input gradient's
+    slabs, then its dgrad slabs."""
+    out: List[BwdSlab] = [_kept_slab("f", h, c) for c in range(4) for h in range(2)]  # both halves per chunk
+    out += dgrad_slabs_of("wdh")
+    out += [_kept_slab("h8", h, c) for h in range(2) for c in range(4)]
+    out += dgrad_slabs_of("wfin")
+    for layer in range(8, 0, -1):
+        if layer > 1:
+            out += [_kept_slab(f"h{layer - 1}", h, c) for h in range(2) for c in range(4)]
+        if layer in (5, 1):
+            out += [BwdSlab("kept", "x", c, F32_XPE_OFFSET + c * F32_ROWS * WIDTH * 4, F32_ROWS * WIDTH * 4)
+                    for c in range(2)]
+            if k4:
+                out += dgrad_slabs_of("w5x" if layer == 5 else "w1")
+        if layer > 1:
+            out += dgrad_slabs_of("w5h" if layer == 5 else f"w{layer}")
+    return tuple(out)
+
+
+def dgrad_slab(w: torch.Tensor, slab: BwdSlab) -> torch.Tensor:
+    """The (F32_ROWS, cols) rows of ``pack_weights``' float32 buffer ``w``
+    that a dgrad slab copies, as the kernel's bulk copy reads them."""
+    if slab.source != "weights":
+        raise ValueError(f"{slab} is not a dgrad slab")
+    cols = WEIGHT_OFFSETS[slab.name][1][1]
+    start = slab.offset // 4
+    return w[start : start + F32_ROWS * cols].view(F32_ROWS, cols)
+
+
+# Shared memory of one float32 backward CTA, bytes (BwdSmem): K1 f32's, the
+# per-point head cotangents g_sigma [128] and da_rgb [128][3] and K3's
+# transmittance per ray [128].
+F32_BWD_SMEM = K1_F32_SMEM + 4 * TILE_RAYS * 5
+
+
+def f32_bwd_launch_plan(n: int, s: int, sm_count: int, k4: bool) -> Dict[str, int]:
+    """What one launch of the float32 K3-bwd (``k4`` False: n rays x s
+    samples) or K4-bwd (n points, s = 1) runs on a card of ``sm_count`` SMs:
+    tiles of 128, persistent CTAs (one per SM at most, each walking tiles
+    ctas apart), threads and shared memory of a CTA, the most tiles one CTA
+    runs, the slabs it streams and the global scratch of the launch."""
+    plan = launch_plan(n, s, sm_count)
+    per_tile = len(F32_SLABS) + len(f32_bwd_slabs(k4))
+    return dict(
+        tiles=plan["tiles"], ctas=plan["ctas"], tiles_per_cta=plan["tiles_per_cta"], threads=F32_THREADS,
+        smem=F32_BWD_SMEM, slabs_per_cta=plan["tiles_per_cta"] * s * per_tile,
+        scratch_bytes=plan["ctas"] * F32_BWD_SCRATCH,
+    )

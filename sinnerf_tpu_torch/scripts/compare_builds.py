@@ -8,7 +8,8 @@ builds each ``csrc/<SOURCE>`` in this checkout and in ``OTHER_ROOT`` (each
 with that checkout's own ``ops/_build.py``, into its own ``build/kernels``),
 pairs the kernels by their demangled names up to the argument list, and a
 kernel left alone on each side under one name before its template arguments
-(one made a template between the two) with the other, prints one JSON line
+and namespaces (one made a template, or moved into a namespace, between the
+two) with the other, prints one JSON line
 per pair, and exits 1 if a pair differs or a kernel has no partner.  Needs
 ``nvcc``, ``cuobjdump`` and ``cu++filt``: it runs on the card's machine.
 """
@@ -59,10 +60,12 @@ def pairs(mine, theirs):
     out = [(n, n) for n in sorted(set(mine) & set(theirs))]
     alone = {side: {n for n in names if n not in mine or n not in theirs}
              for side, names in (("a", mine), ("b", theirs))}
+    def base(n):  # the name before its template arguments, without its namespaces
+        return n.split("<")[0].split("::")[-1]
+
     for n in sorted(alone["a"]):
-        base = n.split("<")[0]
-        a = [m for m in alone["a"] if m.split("<")[0] == base]
-        b = [m for m in alone["b"] if m.split("<")[0] == base]
+        a = [m for m in alone["a"] if base(m) == base(n)]
+        b = [m for m in alone["b"] if base(m) == base(n)]
         if len(a) == 1 and len(b) == 1:
             out.append((n, b[0]))
             alone["b"].discard(b[0])

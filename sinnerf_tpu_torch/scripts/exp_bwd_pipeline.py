@@ -16,7 +16,7 @@ each beside ``base`` in the same round (mean and range of the ratio).  The
 variants share the earlier K3-bwd body (``train_backward.cuh``, ``wmma``):
 ``base`` is that kernel, and production over ``base`` is the Hopper K3-bwd
 (``fused_render_train_sm90.cu``) over the earlier one.  The inputs' residuals
-come from the earlier forward (``launch_train_fwd_wmma``), so that the
+come from the earlier forward (``launch_train_fwd_block64``), so that the
 variants' recompute rounds as their forward did; the exact variants'
 gradients are held against ``base``'s.  SPEC's middle field is the port's tile, rays per
 block: JAX's ``r_tile`` 512 and 1024 are 32 and 64 rays (``R_TILE``).  The
@@ -335,7 +335,7 @@ def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
     """JAX ``main``'s inputs (:402-417) from a numpy seed: random weights,
     rays with o ~ 0.1 N(0, 1) and d ~ N(0, 1), sorted uniform depths in
     [2, 6], the residuals of the earlier forward kernel, whose body the
-    variants recompute with (``launch_train_fwd_wmma`` on the card, the plain
+    variants recompute with (``launch_train_fwd_block64`` on the card, the plain
     version on the CPU) and normal cotangents (g_w x 0.01)."""
     rng = np.random.default_rng(seed)
     packed = pack_weights(nerf_from_state(state_dict_from_jax(random_params(rng))).to(device), torch.bfloat16)
@@ -346,7 +346,7 @@ def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
     rays6 = t(np.concatenate([rng.normal(size=(n_rays, 3)) * 0.1, rng.normal(size=(n_rays, 3))], axis=1))
     z = t(np.sort(rng.uniform(2.0, 6.0, size=(n_rays, n_samples)), axis=1))
     if device.type == "cuda":
-        _, _, weights, alphas, rgb_s = frt.launch_train_fwd_wmma(packed, rays6, z, None, True, False)
+        _, _, weights, alphas, rgb_s = frt.launch_train_fwd_block64(packed, rays6, z, None, True, False)
     else:
         _, _, weights, alphas, rgb_s = frt.render_level_train_forward_plain(packed, rays6, z, None, True, False)
     g_rgb, g_depth = t(rng.normal(size=(n_rays, 3))), t(rng.normal(size=(n_rays,)))

@@ -227,7 +227,7 @@ def _ragged_errors(device, n):
         before = frt.launch_train_fwd.launches, frt.launch_train_bwd.launches
         out = frt.launch_train_fwd(packed, rays, z, noise, True, white_back)
         ref = frt.render_level_train_forward_plain(packed, rays, z, noise, True, white_back)
-        earlier = frt.launch_train_fwd_wmma(packed, rays, z, noise, True, white_back)
+        earlier = frt.launch_train_fwd_block64(packed, rays, z, noise, True, white_back)
         args = (packed, rays, z, noise, out[2], out[3], out[4], *chip_smoke.cotangents(out, target), True, white_back)
         got = unpack_grads(*frt.launch_train_bwd(*args))
         want = unpack_grads(*frt.render_level_train_backward_plain(*args))
