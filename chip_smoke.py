@@ -7,7 +7,7 @@ Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
    kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
-   count the Hopper kernels' (K3 and K1 in bf16, K1, K3 and K4-bwd in f32)
+   count the Hopper kernels' (K3, K1 and K4-bwd in bf16, K1, K3 and K4 in f32)
    HGMMA, bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA and 128-bit
    shared load instructions in ``cuobjdump -sass`` of their libraries, and
    fail without wgmma (bf16) or FFMA (f32), or without bulk copies, or (the
@@ -63,9 +63,12 @@ Phases, any failure exits non-zero without the final result line:
    printed;
 10. the deterministic training path (``perturb=0``, ``noise_std=0``): K4 at
    its shapes (1,048,576 and 3,145,728 points, the points of the 16,384 rays
-   x 64 and x 192 samples) against its plain version and timed, and the
-   Hopper K4-bwd f32 beside the earlier one (``launch_mlp_bwd_block64``) in
-   K4_ROUNDS_F32 alternating rounds; the first
+   x 64 and x 192 samples) against its plain version and timed, and in
+   K4_ROUNDS alternating rounds the Hopper kernels beside the earlier ones
+   of ``fused_mlp.cu``, each held against the plain version first: float32
+   K4-bwd (``launch_mlp_bwd_block64``) and K4-fwd (``launch_mlp_fwd_block64``)
+   with the sigma-only K4-fwd, bfloat16 K4-bwd (``launch_mlp_bwd_wmma``)
+   with itself without its dW flush (``launch_mlp_bwd_ablated``); the first
    ``train_step``'s gradients against the plain path's; 3 timed steps with
    the counts set to 0 just before and read just after (per step K1 2, K2 1,
    K4-fwd 2, K4-bwd 2, K3 0), the loss finite and falling;
@@ -216,8 +219,9 @@ X2_SMALL = ((128, 8, 60), (333, 10, 62))
 # the Hopper K3 kernels against the earlier ones at the path's shapes:
 # (rounds that alternate them, launches of each per round) per dtype
 K3_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
-# the Hopper K4-bwd f32 against the earlier one at the path's shapes
-K4_ROUNDS_F32 = (4, 1)
+# the Hopper K4 kernels against the earlier ones at the path's shapes:
+# (rounds that alternate them, launches of each per round) per dtype
+K4_ROUNDS = {"bfloat16": (4, 1), "float32": (4, 1)}
 # the Hopper K1 kernels against the earlier ones at 131072 rays x S = 64 and
 # 192: (rounds, launches of each per round) per dtype
 K1_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
@@ -238,6 +242,9 @@ SASS_KERNELS = {
     "k3_f32_fwd": ("f32_train_sm90.cu", "render_f32_sm90ILb1E", ("FFMA", "BULK", "NO_SPILLS")),
     "k3_f32_bwd": ("f32_train_sm90.cu", "k3_bwd_f32_sm90ILi0E", ("FFMA", "BULK", "RED_V4", "NO_SPILLS")),
     "k4_f32_bwd": ("f32_train_sm90.cu", "k4_bwd_f32_sm90", ("FFMA", "BULK", "RED_V4", "NO_SPILLS")),
+    "k4_f32_fwd": ("f32_train_sm90.cu", "k4_fwd_f32_sm90ILb0E", ("FFMA", "BULK", "NO_SPILLS")),
+    "k4_f32_fwd_sigma": ("f32_train_sm90.cu", "k4_fwd_f32_sm90ILb1E", ("FFMA", "BULK", "NO_SPILLS")),
+    "k4_bwd_sm90": ("fused_mlp_sm90.cu", "k4_bwd_sm90ILi0E", ("HGMMA", "BULK", "RED_V4")),
 }
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
@@ -1056,10 +1063,25 @@ def input_grad_error(got, ref):
     return ((diff.abs().max() / (ref.abs().max() + 1e-30)).item(), (diff.norm() / (ref.double().norm() + 1e-30)).item())
 
 
-def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: int = 0):
+def k4_bwd_error(got, want):
+    """K4-bwd's (dw, db, dxyz, ddir) against its plain version's: the worst
+    (the worst parameter leaf's largest difference over its largest entry,
+    the worst relative L2 of a leaf, dxyz and ddir) and the parts (parameters,
+    dxyz, ddir when there is one)."""
+    from sinnerf_tpu_torch.ops import fused_mlp as fm
+
+    errs = [grad_errors(fm.unpack_grads(*got[:2]), fm.unpack_grads(*want[:2])), input_grad_error(got[2], want[2])]
+    if want[3] is not None:
+        errs.append(input_grad_error(got[3], want[3]))
+    return (errs[0][0], max(e[1] for e in errs)), errs
+
+
+def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: int = 0, refs=None):
     """K4-fwd and K4-bwd on one set of inputs against their plain versions.
     Returns the errors (fwd (max, mean), bwd worst of the parameter leaves,
-    dxyz and ddir, spread of two runs) and, with ``reps``, the times (ms)."""
+    dxyz and ddir, spread of two runs) and, with ``reps``, the times (ms).
+    A dict passed as ``refs`` receives the plain versions' results (``fwd``,
+    ``bwd``)."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_mlp as fm
@@ -1082,10 +1104,9 @@ def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: in
     want = fm.nerf_mlp_backward_plain(*args)
     if sigma_only and (got[3] is not None):
         raise Failed(f"{what}: a sigma-only backward returned ddir")
-    errs = [grad_errors(fm.unpack_grads(*got[:2]), fm.unpack_grads(*want[:2])), input_grad_error(got[2], want[2])]
-    if not sigma_only:
-        errs.append(input_grad_error(got[3], want[3]))
-    err_b = (errs[0][0], max(e[1] for e in errs))
+    err_b, errs = k4_bwd_error(got, want)
+    if refs is not None:
+        refs.update(fwd=ref, bwd=want)
     spread = grad_errors(fm.unpack_grads(*again[:2]) + again[2:3], fm.unpack_grads(*got[:2]) + got[2:3])
     hold_grads(f"{what} bwd (params {errs[0][0]:.1e}/{errs[0][1]:.1e}, dxyz {errs[1][0]:.1e}/{errs[1][1]:.1e}"
                + ("" if sigma_only else f", ddir {errs[2][0]:.1e}/{errs[2][1]:.1e}")
@@ -1101,27 +1122,54 @@ def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: in
     return err_f, err_b, spread, times
 
 
-def k4_rounds(model, xyz, dirs, g):
-    """The Hopper K4-bwd f32 against the earlier one (``launch_mlp_bwd_block64``)
-    on one launch's inputs, in K4_ROUNDS_F32 rounds that alternate them.
-    Returns per name the mean ms and the ratio's mean and range."""
+
+
+def k4_rounds(model, xyz, dirs, g, cd: str, refs):
+    """The Hopper K4 kernels against the earlier ones of ``fused_mlp.cu`` on
+    one launch's inputs, in K4_ROUNDS rounds that alternate them: float32
+    K4-bwd and K4-fwd with the sigma-only K4-fwd, bfloat16 K4-bwd with
+    itself without its dW flush.  The earlier kernels and the sigma-only
+    pass are first held against the plain versions' results ``refs``
+    (``k4_check``).  Returns per name the mean ms, per ratio its mean and
+    range, and the earlier kernels' errors."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_mlp as fm
     from sinnerf_tpu_torch.utils.timing import interleaved_ms
 
-    packed = fm.pack_weights(model, torch.float32)
-    fns = {"bwd": lambda: fm.launch_mlp_bwd(packed, xyz, dirs, g), "bwd_earlier": lambda: fm.launch_mlp_bwd_block64(
-        packed, xyz, dirs, g)}
-    for fn in fns.values():  # warm-up
-        fn()
+    packed = fm.pack_weights(model, fm.torch_dtype(cd))
+    args = (packed, xyz, dirs, g)
+    if cd == "float32":
+        fns = {"bwd": lambda: fm.launch_mlp_bwd(*args), "bwd_earlier": lambda: fm.launch_mlp_bwd_block64(*args),
+               "fwd": lambda: fm.launch_mlp_fwd(packed, xyz, dirs),
+               "fwd_earlier": lambda: fm.launch_mlp_fwd_block64(packed, xyz, dirs),
+               "fwd_sigma": lambda: fm.launch_mlp_fwd(packed, xyz, None, True, True)}
+        pairs = (("bwd", "bwd_earlier"), ("fwd", "fwd_earlier"), ("fwd_sigma", "fwd"))
+    else:
+        fns = {"bwd": lambda: fm.launch_mlp_bwd(*args), "bwd_earlier": lambda: fm.launch_mlp_bwd_wmma(*args),
+               "bwd_no_flush": lambda: fm.launch_mlp_bwd_ablated(*args)}
+        pairs = (("bwd", "bwd_earlier"), ("bwd_no_flush", "bwd"))
+    counts = fm.launch_mlp_fwd.launches, fm.launch_mlp_bwd.launches
+    outs = {name: fn() for name, fn in fns.items()}  # warm-up
     torch.cuda.synchronize()
-    count = fm.launch_mlp_bwd.launches
-    rounds, reps = K4_ROUNDS_F32
+    errs = {"bwd_earlier": k4_bwd_error(outs["bwd_earlier"], refs["bwd"])[0]}
+    hold_grads(f"  earlier K4-bwd {cd}", errs["bwd_earlier"], K4_BWD_TOL)
+    for name, ref in (("fwd_earlier", refs["fwd"]), ("fwd_sigma", refs["fwd"][:, 3:])):
+        if name in outs:
+            diff = (outs[name] - ref).abs()
+            errs[name] = (diff.max().item(), diff.mean().item())
+            hold(f"  {'earlier K4-fwd' if name == 'fwd_earlier' else 'sigma-only K4-fwd'} {cd}", errs[name],
+                 K4_FWD_TOL[cd])
+    del outs
+    rounds, reps = K4_ROUNDS[cd]
     per_round = interleaved_ms(fns, rounds, reps)
-    fm.launch_mlp_bwd.launches = count  # these launches compare kernels: they do not count as the path's
-    r = [a / b for a, b in zip(per_round["bwd"], per_round["bwd_earlier"])]
-    return {k: sum(v) / rounds for k, v in per_round.items()}, (sum(r) / len(r), min(r), max(r))
+    # these launches compare kernels: they do not count as the path's
+    fm.launch_mlp_fwd.launches, fm.launch_mlp_bwd.launches = counts
+    ratios = {}
+    for a, b in pairs:
+        r = [x / y for x, y in zip(per_round[a], per_round[b])]
+        ratios[f"{a}/{b}"] = (sum(r) / len(r), min(r), max(r))
+    return {k: sum(v) / rounds for k, v in per_round.items()}, ratios, errs
 
 
 def phase_k4_checks(device, rng):
@@ -1179,19 +1227,19 @@ def phase_det_train(device, rng, batch):
             xyz = (rays[:, None, 0:3] + rays[:, None, 3:6] * zz[..., None]).reshape(-1, 3).contiguous()
             dirs = rays[:, None, 3:6].expand(n, s, 3).reshape(-1, 3).contiguous()
             g = torch.tensor(rng.normal(scale=1e-3, size=(n * s, 4)), dtype=torch.float32, device=device)
+            refs = {}
             err_f, err_b, spread, ms = k4_check(model, xyz, dirs, g, cd, False,
-                                                f"path K4 {cd:8s} n={n}x{s}={n * s}", reps=3)
+                                                f"path K4 {cd:8s} n={n}x{s}={n * s}", reps=3, refs=refs)
             merge_worst(worst, cd, err_f, err_b, spread)
             bounds = {d: k4_bound(n * s, cd, d == "bwd") for d in ("fwd", "bwd")}
             print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd'][0]:.3f}); "
                   f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd'][0]:.3f})")
-            rows.append(dict(shape=f"{n * s}", ms=ms, bounds=bounds))
-            if cd == "float32":
-                rows[-1]["rounds_ms"], rows[-1]["ratio"] = k4_rounds(model, xyz, dirs, g)
-                rm, r = rows[-1]["rounds_ms"], rows[-1]["ratio"]
-                print(f"  {K4_ROUNDS_F32[0]} rounds: bwd {rm['bwd']:.3f} ms, earlier bwd {rm['bwd_earlier']:.3f} ms "
-                      f"(ratio {r[0]:.4f}, {r[1]:.4f}-{r[2]:.4f})")
-            del xyz, dirs, g
+            rm, ratios, earlier_err = k4_rounds(model, xyz, dirs, g, cd, refs)
+            rows.append(dict(shape=f"{n * s}", ms=ms, bounds=bounds, rounds_ms=rm, ratios=ratios,
+                             earlier_err=earlier_err))
+            print(f"  {K4_ROUNDS[cd][0]} rounds: " + ", ".join(f"{k} {v:.3f} ms" for k, v in rm.items()) + "; "
+                  + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f})" for k, v in ratios.items()))
+            del xyz, dirs, g, refs
             torch.cuda.empty_cache()
         out["k4"][cd] = dict(launches=rows, **worst[cd])
 
@@ -1707,13 +1755,16 @@ def main() -> int:
             # the short tails' forward errors are held to the same limit
             err = tuple(map(max, k4_err[cd][d], p[d], *([k4_err[f"{cd}_short"][d]] if d == "fwd" else [])))
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
-            hopper = d == "bwd" and cd == "float32"
+            # (source, body, SASS key) per kernel: every K4 kernel but bf16's forward runs on Hopper
+            source, body, sass_key = {
+                ("fwd", "bfloat16"): ("fused_mlp.cu", "nerf_mlp.cuh", None),
+                ("fwd", "float32"): ("f32_train_sm90.cu", "mlp_f32_sm90.cuh", "k4_f32_fwd"),
+                ("bwd", "bfloat16"): ("fused_mlp_sm90.cu", "mlp_backward_wgmma.cuh + mlp_wgmma.cuh", "k4_bwd_sm90"),
+                ("bwd", "float32"): ("f32_train_sm90.cu", "mlp_backward_f32_sm90.cuh + mlp_f32_sm90.cuh", "k4_f32_bwd"),
+            }[d, cd]
             entry = dict(
-                name=f"fused_nerf_mlp_{d}[{cd}]", route="cuda",
-                source="sinnerf_tpu_torch/csrc/" + ("f32_train_sm90.cu" if hopper else "fused_mlp.cu"),
-                body="sinnerf_tpu_torch/csrc/" + ("mlp_backward_f32_sm90.cuh + mlp_f32_sm90.cuh" if hopper else
-                                                  "mlp_backward.cuh + nerf_mlp.cuh" if d == "bwd" else "nerf_mlp.cuh"),
-                replaces=f"sinnerf_tpu/ops/fused_mlp_t.py:{line}",
+                name=f"fused_nerf_mlp_{d}[{cd}]", route="cuda", source="sinnerf_tpu_torch/csrc/" + source,
+                body="sinnerf_tpu_torch/csrc/" + body, replaces=f"sinnerf_tpu/ops/fused_mlp_t.py:{line}",
                 launches=counts[f"K4-{d}"], max_abs_err=err[0], tolerance=tol,
                 ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
                 bound_by=p["launches"][0]["bounds"][d][1], library_ms=None,
@@ -1727,13 +1778,23 @@ def main() -> int:
                 entry.update(rel_l2_err=err[1], run_to_run=max(k4_err[cd]["spread"], p["spread"]),
                              short_tail_err=k4_err[f"{cd}_short"]["bwd"], short_tail_tolerance=K4_BWD_TOL_SHORT,
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
-            if hopper:  # the earlier kernel (fused_mlp.cu) timed beside it in alternating rounds
-                x = p["launches"]
+            x = p["launches"]
+            if sass_key is not None:  # the earlier kernel (fused_mlp.cu) timed beside it in alternating rounds
                 entry.update(earlier_source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
-                             earlier_ms=mean_of([r["rounds_ms"] for r in x], "bwd_earlier"),
-                             rounds_ms=mean_of([r["rounds_ms"] for r in x], "bwd"),
-                             vs_earlier={r["shape"]: r["ratio"] for r in x}, rounds=K4_ROUNDS_F32[0],
-                             sass=sass["k4_f32_bwd"], ptxas=ptxas["k4_f32_bwd"])
+                             earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
+                             rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
+                             vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
+                             rounds=K4_ROUNDS[cd][0],
+                             earlier_err=tuple(map(max, *(r["earlier_err"][f"{d}_earlier"] for r in x))),
+                             sass=sass[sass_key], ptxas=ptxas[sass_key])
+            if (d, cd) == ("fwd", "float32"):  # the sigma-only pass, on the same points
+                entry.update(sigma_only_ms=mean_of([r["rounds_ms"] for r in x], "fwd_sigma"),
+                             sigma_only_vs_full={r["shape"]: r["ratios"]["fwd_sigma/fwd"] for r in x},
+                             sigma_only_err=tuple(map(max, *(r["earlier_err"]["fwd_sigma"] for r in x))),
+                             sigma_only_sass=sass["k4_f32_fwd_sigma"], sigma_only_ptxas=ptxas["k4_f32_fwd_sigma"])
+            if (d, cd) == ("bwd", "bfloat16"):  # without its dW flush, in the same rounds
+                entry.update(ablation_ms={r["shape"]: {"flush": r["rounds_ms"]["bwd_no_flush"]} for r in x},
+                             ablation_vs_bwd={r["shape"]: {"flush": r["ratios"]["bwd_no_flush/bwd"]} for r in x})
             kernels.append(entry)
     k2 = path["k2"] + tpath["k2"]
     kernels.append(dict(

@@ -1,15 +1,16 @@
-// The float32 training kernels on Hopper: K3-fwd f32, K3-bwd f32 and K4-bwd
-// f32, FFMA in full float32 over weights streamed through shared memory by
-// bulk copies.
+// The float32 training kernels on Hopper: K3-fwd f32, K3-bwd f32, K4-fwd
+// f32 and K4-bwd f32, FFMA in full float32 over weights streamed through
+// shared memory by bulk copies.
 //
 // Replaces the float32 kernels of fused_render_train.cu (train_fwd_kernel
-// and train_bwd_kernel <float>) and fused_mlp.cu (mlp_bwd_kernel<float>) on
-// the training paths; those stay built, on no path, for the alternating
-// timing rounds of chip_smoke.py.  The TPU kernels they stand for are
-// sinnerf_tpu/ops/fused_render_train_t.py::_train_fwd_kernel (:86, through
-// _run_fwd :417) and _train_bwd_kernel (:164, through _frlt_bwd :509), and
-// sinnerf_tpu/ops/fused_mlp_t.py::_bwd_kernel_t (:298, through _backward_t
-// :436).  Wrappers, plain versions and launch counters:
+// and train_bwd_kernel <float>) and fused_mlp.cu (mlp_fwd_kernel<float> and
+// mlp_bwd_kernel<float>) on the training paths; those stay built, on no
+// path, for the alternating timing rounds of chip_smoke.py.  The TPU kernels
+// they stand for are sinnerf_tpu/ops/fused_render_train_t.py::
+// _train_fwd_kernel (:86, through _run_fwd :417) and _train_bwd_kernel (:164,
+// through _frlt_bwd :509), and sinnerf_tpu/ops/fused_mlp_t.py::_kernel_t
+// (:232, through _forward_t :255) and _bwd_kernel_t (:298, through
+// _backward_t :436).  Wrappers, plain versions and launch counters:
 // ops/fused_render_train.py (K3) and ops/fused_mlp.py (K4); the slab sets,
 // scratch layout and launch plan: ops/sm90_layout.py.
 //
@@ -19,10 +20,13 @@
 // * K3-bwd f32 and K4-bwd f32 run mlp_backward_f32_sm90.cuh's body (its note
 //   gives the design and the bound: 3.48 and 3.56 MFLOP per point).  K3-bwd
 //   f32 recomputes with K3-fwd f32's own body, so its sigma gate and ReLU
-//   masks are the forward's.  K4-bwd recomputes with the same body, which
-//   K4-fwd (nerf_mlp.cuh) does not share; K4's backward uses no output of its
-//   forward, so it is consistent with itself.
-// All three refuse no shape: persistent CTAs walk tiles of 128 rays (K3) or
+//   masks are the forward's.
+// * K4-fwd f32 is K4-bwd f32's recompute without keeping (recompute<0,
+//   false>), so K4's forward and its backward's recompute are one body; the
+//   sigma-only pass stops after the sigma head and streams the trunk's
+//   slabs only.  Bound: operations, 1.19 MFLOP per point (the sigma-only
+//   pass 0.98).
+// All four refuse no shape: persistent CTAs walk tiles of 128 rays (K3) or
 // points (K4); points and rays past n get zero cotangents and write nothing.
 // Tested as the port's other kernels are: the CPU tests run the plain
 // versions and pin the layouts (tests/test_torch_f32_bwd_sm90.py); on the
@@ -60,19 +64,48 @@ struct BwdCta {
   }
 };
 
-// Recompute of one tile from the sample PE in c.pe (synchronised), keeping
-// what the backward reads, then the direction layer's accumulators in
-// ``dacc`` and the heads' partial sums visible to every consumer.
-template <int ABLATE>
+// One pass of the MLP over a tile from the sample PE in c.pe (synchronised):
+// the backwards' recompute (KEEP: keeping what they read in ``mine``) and
+// K4-fwd's pass (no keeping; LAST 8, the sigma-only pass, stops after the
+// sigma head).  Leaves the direction layer's accumulators in ``dacc`` and the
+// heads' partial sums visible to every consumer.
+template <int ABLATE, bool KEEP = true, int LAST = 9>
 __device__ __forceinline__ void recompute(float (&dacc)[8][8], Ring& ring, const Map& m, const BwdCta& c,
                                           const float* __restrict__ heads, const float* __restrict__ B, bool new_act,
                                           unsigned char* mine) {
-  constexpr bool TILES = !(ABLATE & ABL_SCRATCH);
-  if (TILES) store_xpe(c.pe, reinterpret_cast<float*>(mine + Scratch::XPE));
-  mlp_trunk(ring, m, c.act, c.pe, c.rays, heads, B, c.sigp,
-            KeepBwd<TILES>{reinterpret_cast<float*>(mine + Scratch::KEPT), reinterpret_cast<uint4*>(mine + Scratch::MASKS)});
-  dir_product(dacc, ring, m, c.act, c.pe);
-  dir_epilogue(dacc, m, B + BD, new_act ? ACT_SSP : ACT_RELU, heads, c.rgbp);
+  if constexpr (KEEP) {
+    constexpr bool TILES = !(ABLATE & ABL_SCRATCH);
+    if (TILES) store_xpe(c.pe, reinterpret_cast<float*>(mine + Scratch::XPE));
+    mlp_trunk(ring, m, c.act, c.pe, c.rays, heads, B, c.sigp,
+              KeepBwd<TILES>{reinterpret_cast<float*>(mine + Scratch::KEPT), reinterpret_cast<uint4*>(mine + Scratch::MASKS)});
+  } else {
+    mlp_trunk<f32s::KeepNone, LAST>(ring, m, c.act, c.pe, c.rays, heads, B, c.sigp);
+  }
+  if constexpr (LAST == 9) {
+    dir_product(dacc, ring, m, c.act, c.pe);
+    dir_epilogue(dacc, m, B + BD, new_act ? ACT_SSP : ACT_RELU, heads, c.rgbp);
+  }
+  consumers_sync();
+}
+
+// K4's points [p0, p0 + 128) into c.rays as [xyz, dir] (zeros past n and for
+// null dirs) and the PE of their xyz into c.pe (row 63 zero), by all consumer
+// threads (``tid``), synchronised.  The caller has synchronised the previous
+// tile's readers.
+__device__ __forceinline__ void load_points(const BwdCta& c, const float* __restrict__ xyz,
+                                            const float* __restrict__ dirs, int p0, int n, int tid) {
+  for (int i = tid; i < RAYS * 6; i += CONSUMERS) {
+    const int p = i / 6, ch = i % 6;
+    float v = 0.f;
+    if (p0 + p < n) {
+      if (ch < 3) v = xyz[(size_t)(p0 + p) * 3 + ch];
+      else if (dirs != nullptr) v = dirs[(size_t)(p0 + p) * 3 + ch - 3];
+    }
+    c.rays[i] = v;
+  }
+  consumers_sync();
+  for (int e = tid; e < RAYS * 3; e += CONSUMERS) pe_channel_k(c.rays[(e / 3) * 6 + e % 3], e % 3, N_FREQS_XYZ, c.pe, e / 3);
+  if (tid < RAYS) c.pe[at(XYZ_CH, tid)] = 0.f;
   consumers_sync();
 }
 
@@ -221,19 +254,7 @@ k4_bwd_f32_sm90(const float* __restrict__ xyz, const float* __restrict__ dirs, c
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int p0 = tile * RAYS;
     consumers_sync();  // the previous tile's readers of the rays, dxp and ddp are done
-    for (int i = tid; i < RAYS * 6; i += CONSUMERS) {  // [xyz, dir]; zeros past n and for null dirs
-      const int p = i / 6, ch = i % 6;
-      float v = 0.f;
-      if (p0 + p < n) {
-        if (ch < 3) v = xyz[(size_t)(p0 + p) * 3 + ch];
-        else if (dirs != nullptr) v = dirs[(size_t)(p0 + p) * 3 + ch - 3];
-      }
-      c.rays[i] = v;
-    }
-    consumers_sync();
-    for (int e = tid; e < RAYS * 3; e += CONSUMERS) pe_channel_k(c.rays[(e / 3) * 6 + e % 3], e % 3, N_FREQS_XYZ, c.pe, e / 3);
-    if (tid < RAYS) c.pe[at(XYZ_CH, tid)] = 0.f;
-    consumers_sync();
+    load_points(c, xyz, dirs, p0, n, tid);
     float dacc[8][8];
     recompute<0>(dacc, ring, m, c, heads, B, new_act != 0, mine);
     if (tid < RAYS) {  // head cotangents: g = [d rgb, d sigma], zero past n
@@ -255,6 +276,51 @@ k4_bwd_f32_sm90(const float* __restrict__ xyz, const float* __restrict__ dirs, c
         const size_t at = (size_t)(p0 + p) * 3 + ch;
         dxyz[at] = pe_adjoint<N_FREQS_XYZ>(c.rays[p * 6 + ch], ch, dxp + p * XYZ_PAD);
         if (ddir != nullptr) ddir[at] = pe_adjoint<N_FREQS_DIR>(c.rays[p * 6 + 3 + ch], ch, ddp + p * DIR_PAD);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- K4-fwd
+// K4-bwd's recompute without keeping, then [rgb, sigma] per point (rgb =
+// act(rgb_pre), sigma raw, as the heads sum them), or with SIGMA_ONLY the
+// pass up to the sigma head (N_SIGMA_SLABS) and sigma alone.
+template <bool SIGMA_ONLY>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+k4_fwd_f32_sm90(const float* __restrict__ xyz, const float* __restrict__ dirs, const unsigned char* __restrict__ slabs,
+                const float* __restrict__ B, float* __restrict__ out, int n, int new_act) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const BwdCta c(sm);
+  init_ring(c.full, c.empty);
+  const int n_tiles = (n + RAYS - 1) / RAYS;
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        produce_pass(slabs, sm + BwdSmem::RING, c.full, c.empty, it, SIGMA_ONLY ? N_SIGMA_SLABS : N_SLABS);
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<240>();
+  const Map m;
+  Ring ring{sm + BwdSmem::RING, c.full, c.empty};
+  const float* heads = reinterpret_cast<const float*>(slabs + HEAD_OFF);
+  const int tid = threadIdx.x;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int p0 = tile * RAYS, p = p0 + tid;
+    consumers_sync();  // the previous tile's readers of the rays and the heads' sums are done
+    load_points(c, xyz, SIGMA_ONLY ? nullptr : dirs, p0, n, tid);
+    float dacc[8][8];
+    recompute<0, false, SIGMA_ONLY ? 8 : 9>(dacc, ring, m, c, heads, B, new_act != 0, nullptr);
+    if (tid < RAYS && p < n) {
+      if (SIGMA_ONLY) {
+        out[p] = c.sigma(tid, B);
+      } else {
+        for (int ch = 0; ch < 3; ++ch) out[(size_t)p * 4 + ch] = k3::rgb_act(c.rgb_pre(tid, ch, B), new_act != 0);
+        out[(size_t)p * 4 + 3] = c.sigma(tid, B);
       }
     }
   }
@@ -360,6 +426,25 @@ int k4_f32_bwd(const void* xyz, const void* dirs, const void* slabs, const void*
   return (int)cudaGetLastError();
 }
 
+// K4-fwd f32.  xyz (n, 3) f32; dirs (n, 3) f32, unread when sigma_only;
+// slabs as for k3_f32_fwd; b packed f32 biases.  Writes out (n, 4) [rgb,
+// sigma] f32, or (n,) sigma when sigma_only, with at most ``blocks`` CTAs.
+int k4_f32_fwd(const void* xyz, const void* dirs, const void* slabs, const void* b, void* out, int n, int blocks,
+               int sigma_only, int new_act, void* stream) {
+  const void* kernel = sigma_only ? (const void*)k4_fwd_f32_sm90<true> : (const void*)k4_fwd_f32_sm90<false>;
+  int e = set_smem(kernel, BwdSmem::BYTES);
+  if (e) return e;
+  const int grid = grid_of(n, blocks);
+  if (grid == 0) return 0;
+  if (sigma_only)
+    k4_fwd_f32_sm90<true><<<grid, CTA_THREADS, BwdSmem::BYTES, (cudaStream_t)stream>>>(
+        (const float*)xyz, nullptr, (const unsigned char*)slabs, (const float*)b, (float*)out, n, new_act);
+  else
+    k4_fwd_f32_sm90<false><<<grid, CTA_THREADS, BwdSmem::BYTES, (cudaStream_t)stream>>>(
+        (const float*)xyz, (const float*)dirs, (const unsigned char*)slabs, (const float*)b, (float*)out, n, new_act);
+  return (int)cudaGetLastError();
+}
+
 // Shared memory of one CTA (bwd != 0: the backward's), global scratch of one
 // backward CTA, the backward's slabs per tile (k4: K4's) and the forward
 // slab buffer's size in floats: the wrapper holds them against
@@ -367,6 +452,8 @@ int k4_f32_bwd(const void* xyz, const void* dirs, const void* slabs, const void*
 int f32_sm90_smem_bytes(int bwd) { return bwd ? BwdSmem::BYTES : Smem::BYTES; }
 long long f32_bwd_scratch_bytes() { return (long long)Scratch::BYTES; }
 int f32_bwd_slabs(int k4) { return k4 ? N_BWD_SLABS_K4 : N_BWD_SLABS_K3; }
+// The slabs K4-fwd f32 streams per tile (sigma_only: up to the sigma head).
+int k4_f32_fwd_slabs(int sigma_only) { return sigma_only ? N_SIGMA_SLABS : N_SLABS; }
 int f32_slab_elems() { return SLAB_BUFFER_ELEMS; }
 
 const char* kernel_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -6,9 +6,12 @@
 // torch.autograd.Function), plain versions and launch counters:
 // ops/fused_mlp.py.  Its callers are K1's backward (the deterministic
 // training render), the renderer's test_time branch (sigma only) and the
-// fast_eval=False / fast_train=False branches.  The float32 backward of the
-// path runs f32_train_sm90.cu (mlp_backward_f32_sm90.cuh); the float32
-// mlp_bwd_kernel here stays, on no path, for chip_smoke.py's timing rounds.
+// fast_eval=False / fast_train=False branches.  Of the kernels here only
+// K4-fwd bf16 runs on those paths: K4-fwd f32 and K4-bwd f32 run
+// f32_train_sm90.cu (mlp_f32_sm90.cuh, mlp_backward_f32_sm90.cuh), K4-bwd
+// bf16 fused_mlp_sm90.cu (mlp_backward_wgmma.cuh).  mlp_fwd_kernel<float>
+// and mlp_bwd_kernel in both dtypes stay built, on no path, for
+// chip_smoke.py's timing rounds.
 //
 // K4-fwd is K1 without the compositing: a block owns TILE consecutive points,
 // computes the PE of each point's xyz and of its own direction (not once per

@@ -1,9 +1,11 @@
 // K3-bwd bf16 on Hopper: the training render's backward over a ray tile
-// (fused_render_train_sm90.cu holds the kernel).
+// (fused_render_train_sm90.cu holds the kernel).  Its products, flush,
+// direction delta, heads' gradients and per-tile dwdx are also K4-bwd
+// bf16's (fused_mlp_sm90.cu, whose note gives the differences).
 //
 // Replaces, in bf16, train_backward.cuh's train_bwd_tiles<bf16> with
-// mlp_backward.cuh's wmma products (which K4-bwd, the float32 K3-bwd and X2
-// keep).  The TPU kernel it stands for is
+// mlp_backward.cuh's wmma products (which X2 and the earlier K4-bwd kernels,
+// on no path, keep).  The TPU kernel it stands for is
 // sinnerf_tpu/ops/fused_render_train_t.py::_train_bwd_kernel (:164, through
 // _frlt_bwd :509).  The function, its inputs, outputs and cast points are
 // fused_render_train.cu's (see the note there).
@@ -125,14 +127,14 @@ __device__ __forceinline__ void wgrad(const Lane& ln, const unsigned char* D, in
   if (do_flush) flush<N>(acc, ln, dW + (size_t)ch * 64 * kin, kin);
 }
 
-// acc[j] = D(the warpgroup's rows) W_j for the four slabs j of a block in
-// the ring, each 64 output columns; the reduction runs over KS * 16 rows of
-// D (its columns).
-template <int KS>
-__device__ __forceinline__ void dgrad(float (&acc)[4][32], Ring& ring, const Lane& ln, const unsigned char* D) {
+// acc[j] = D(the warpgroup's rows) W_j for the NS slabs j of a block in
+// the ring (four, or one), each 64 output columns; the reduction runs over
+// KS * 16 rows of D (its columns).
+template <int KS, int NS = 4>
+__device__ __forceinline__ void dgrad(float (&acc)[NS][32], Ring& ring, const Lane& ln, const unsigned char* D) {
   const unsigned char* d = D + ln.g * WG_ROWS * ROW_BYTES;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NS; ++j) {
     const unsigned char* w = ring.wait();
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;  // the old values are dead: no live range across wgrad
@@ -212,6 +214,86 @@ __device__ __forceinline__ void reload(unsigned char* X, const unsigned char* sr
   phase ^= 1;
 }
 
+// The direction delta da_d = cast(wrgb^T da_rgb * act'(a_d)) from the
+// direction layer's accumulators (o.dacc) and the cast da_rgb of the
+// thread's rows (dr), into Y over the direction PE (the warpgroup's own
+// rows, its products done), and its per-ray f32 sum into ``dad``
+// ([RAYS][HALF], global; ``first``: the sum starts).
+__device__ __forceinline__ void dir_delta(const Lane& ln, const MlpOut& o, const float (&dr)[2][3],
+                                          const float* __restrict__ B, const bf16* wrgb, bool new_act,
+                                          unsigned char* Y, float* dad, bool first) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * ln.q;
+    const float2 bd = __ldg(reinterpret_cast<const float2*>(B + BD + c));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float dd = __fmul_rn(__bfloat162float(wrgb[c + e]), dr[i][0]);
+        dd = fmaf(__bfloat162float(wrgb[HALF + c + e]), dr[i][1], dd);
+        dd = fmaf(__bfloat162float(wrgb[2 * HALF + c + e]), dr[i][2], dd);
+        const float a = __fadd_rn(o.dacc[4 * j + 2 * i + e], e ? bd.y : bd.x);
+        const float slope = new_act ? sigmoid(__fsub_rn(a, 1.f)) : (a > 0.f ? 1.f : 0.f);
+        v[e] = __fmul_rn(dd, slope);
+      }
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+      const int r = ln.row(i);
+      *reinterpret_cast<__nv_bfloat162*>(Y + sw_off(r, c)) = h;
+      float2* acc_d = reinterpret_cast<float2*>(dad + r * HALF + c);
+      float2 sum = first ? make_float2(0.f, 0.f) : *acc_d;
+      sum.x = __fadd_rn(sum.x, __low2float(h));
+      sum.y = __fadd_rn(sum.y, __high2float(h));
+      *acc_d = sum;
+    }
+  }
+}
+
+// The heads' weight and bias gradients, in f32 over the tile's points: d in
+// X, da_d in Y, the cast per-point cotangents in darg_s and gsig_s (all
+// synchronised).
+__device__ __forceinline__ void head_grads(const unsigned char* X, const unsigned char* Y, const float* darg_s,
+                                           const float* gsig_s, float* dW, float* dB) {
+  for (int e = threadIdx.x; e < 3 * HALF; e += CONSUMER_THREADS) {  // dwrgb = da_rgb^T d
+    const int ch = e / HALF, k = e % HALF;
+    atomicAdd(dW + WRGB + e, point_sum([&](int p) { return __fmul_rn(darg_s[p * 3 + ch], tile_at(X, p, k)); }));
+  }
+  if (threadIdx.x < 3 || threadIdx.x == 32) {  // dbrgb, dbsig
+    const int ch = threadIdx.x;
+    atomicAdd(dB + (ch < 3 ? BRGB + ch : BSIG), point_sum([&](int p) { return ch < 3 ? darg_s[p * 3 + ch] : gsig_s[p]; }));
+  }
+  bias_sum(Y, HALF, dB + BD);
+}
+
+// dwdx = dad^T d_pe, one f32 product per tile of rays (K3: the direction
+// delta summed over the samples) or points (K4): the cast direction PE again,
+// into X (free: every reader of X has passed a barrier).
+__device__ __forceinline__ void dir_pe_wgrad(const Lane& ln, const float* rays_s, unsigned char* X, const float* dad,
+                                             float* dW) {
+  dir_pe(ln, rays_s, X);
+  consumers_sync();
+  for (int e = threadIdx.x; e < HALF * DIR_PAD; e += CONSUMER_THREADS) {
+    const int o = e / DIR_PAD, c = e % DIR_PAD;
+    atomicAdd(dW + WDX + e, point_sum([&](int p) { return __fmul_rn(dad[p * HALF + o], tile_at(X, p, c)); }));
+  }
+}
+
+// The barriers of a backward CTA: a full (one arrival, the producer's, and
+// the copy's bytes) and an empty one (one arrival per consumer warpgroup) per
+// ring stage, and the reload's.
+__device__ __forceinline__ void init_bwd_barriers(uint64_t* full, uint64_t* empty, uint64_t* xbar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BwdSmem::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_init(xbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
 template <int ABLATE>
 __global__ void __launch_bounds__(CTA_THREADS, 1)
 train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, const float* __restrict__ noise,
@@ -229,15 +311,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* empty = full + L::STAGES;
   uint64_t* xbar = empty + L::STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::STAGES; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 2);
-    }
-    sm90::mbar_init(xbar, 1);
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
+  init_bwd_barriers(full, empty, xbar);
   const int n_tiles = (n + RAYS - 1) / RAYS;
 
   if (threadIdx.x >= CONSUMER_THREADS) {  // the producer warpgroup
@@ -334,48 +408,11 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
           for (int ch = 0; ch < 3; ++ch) darg_s[r * 3 + ch] = dr[i][ch];
         }
       }
-      // the direction delta da_d = cast(wrgb^T da_rgb * act'(a_d)) from the
-      // direction layer's accumulators, into Y over the direction PE (the
-      // warpgroup's own rows, its products done), and its per-ray f32 sum
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = 8 * j + 2 * ln.q;
-        const float2 bd = __ldg(reinterpret_cast<const float2*>(B + BD + c));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float dd = __fmul_rn(__bfloat162float(wrgb[c + e]), dr[i][0]);
-            dd = fmaf(__bfloat162float(wrgb[HALF + c + e]), dr[i][1], dd);
-            dd = fmaf(__bfloat162float(wrgb[2 * HALF + c + e]), dr[i][2], dd);
-            const float a = __fadd_rn(o.dacc[4 * j + 2 * i + e], e ? bd.y : bd.x);
-            const float slope = new_act ? sigmoid(__fsub_rn(a, 1.f)) : (a > 0.f ? 1.f : 0.f);
-            v[e] = __fmul_rn(dd, slope);
-          }
-          const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
-          const int r = ln.row(i);
-          *reinterpret_cast<__nv_bfloat162*>(Y + sw_off(r, c)) = h;
-          float2* acc_d = reinterpret_cast<float2*>(dad + r * HALF + c);
-          float2 sum = s == 0 ? make_float2(0.f, 0.f) : *acc_d;
-          sum.x = __fadd_rn(sum.x, __low2float(h));
-          sum.y = __fadd_rn(sum.y, __high2float(h));
-          *acc_d = sum;
-        }
-      }
+      dir_delta(ln, o, dr, B, wrgb, new_act != 0, Y, dad, s == 0);
       sm90::fence_proxy_async();
       consumers_sync();  // da_d, d (in X), g_sig and da_rgb of every ray
 
-      // the heads' weight and bias gradients, in f32 over the tile's points
-      for (int e = threadIdx.x; e < 3 * HALF; e += CONSUMER_THREADS) {  // dwrgb = da_rgb^T d
-        const int ch = e / HALF, k = e % HALF;
-        atomicAdd(dW + WRGB + e, point_sum([&](int p) { return __fmul_rn(darg_s[p * 3 + ch], tile_at(X, p, k)); }));
-      }
-      if (threadIdx.x < 3 || threadIdx.x == 32) {  // dbrgb, dbsig
-        const int ch = threadIdx.x;
-        atomicAdd(dB + (ch < 3 ? BRGB + ch : BSIG), point_sum([&](int p) { return ch < 3 ? darg_s[p * 3 + ch] : gsig_s[p]; }));
-      }
-      bias_sum(Y, HALF, dB + BD);
+      head_grads(X, Y, darg_s, gsig_s, dW, dB);
       consumers_sync();  // every reader of d in X is done
 
       // 3. the direction layer: dwdh = da_d^T f, then df = da_d wdh
@@ -425,14 +462,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
       consumers_sync();  // every reader of xpe, X and Y is done before the next sample writes them
     }
 
-    // dwdx = (sum_s da_d)^T d_pe, one f32 product per ray tile: the cast
-    // direction PE again, into X
-    dir_pe(ln, rays_s, X);
-    consumers_sync();
-    for (int e = threadIdx.x; e < HALF * DIR_PAD; e += CONSUMER_THREADS) {
-      const int o = e / DIR_PAD, c = e % DIR_PAD;
-      atomicAdd(dW + WDX + e, point_sum([&](int p) { return __fmul_rn(dad[p * HALF + o], tile_at(X, p, c)); }));
-    }
+    dir_pe_wgrad(ln, rays_s, X, dad, dW);
   }
 }
 

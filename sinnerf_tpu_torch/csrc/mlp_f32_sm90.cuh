@@ -86,6 +86,7 @@ constexpr int STAGE_BYTES = KS * WIDTH * 4;  // the largest slab
 // wdx), each [16][out] f32, then wrgb and wsig as packed.
 constexpr int N_SLABS = 154;
 constexpr int FULL_SLABS = 136;
+constexpr int N_SIGMA_SLABS = FULL_SLABS - WIDTH / KS;  // w1 .. w8: what a pass up to sigma reads
 constexpr int HEAD_OFF = FULL_SLABS * STAGE_BYTES + (N_SLABS - FULL_SLABS) * (STAGE_BYTES / 2);  // bytes
 constexpr int SLAB_BUFFER_ELEMS = HEAD_OFF / 4 + 3 * HALF + WIDTH;
 static_assert(HEAD_OFF == 2375680 && SLAB_BUFFER_ELEMS == W_SIZE,
@@ -159,10 +160,11 @@ struct Ring {
   }
 };
 
-// The producer: one thread streams the N_SLABS slabs of one pass.
+// The producer: one thread streams the first ``count`` slabs of one pass
+// (all of them, or the trunk's N_SIGMA_SLABS for a pass that stops at sigma).
 __device__ __forceinline__ void produce_pass(const unsigned char* __restrict__ slabs, unsigned char* stages,
-                                             uint64_t* full, uint64_t* empty, uint32_t& it) {
-  for (int i = 0; i < N_SLABS; ++i, ++it) {
+                                             uint64_t* full, uint64_t* empty, uint32_t& it, int count = N_SLABS) {
+  for (int i = 0; i < count; ++i, ++it) {
     const int s = it % STAGES;
     sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
     sm90::mbar_arrive_expect_tx(&full[s], slab_bytes(i));
@@ -345,18 +347,19 @@ struct KeepNone {
   __device__ void layer(int, const Map&, const float (&)[8][16]) const {}
 };
 
-// Trunk layers 1..9 of one pass over the tile: the sample PE in ``pe``
+// Trunk layers 1..LAST of one pass over the tile: the sample PE in ``pe``
 // (written and synchronised by the caller) -> sigp, the sigma head's partial
-// sums (sigma = sigp[0][p] + sigp[1][p] + bsig), and f, the output of
-// xyz_encoding_final, in ``act``; visible to every consumer on return, with
-// the direction PE in ``pe``.  Consumes the first 136 slabs of a pass.
-template <typename Keep = KeepNone>
+// sums (sigma = sigp[0][p] + sigp[1][p] + bsig), and (LAST 9) f, the output
+// of xyz_encoding_final, in ``act``; visible to every consumer on return,
+// with (LAST 9) the direction PE in ``pe``.  Consumes the first 136 slabs of
+// a pass (LAST 8, a pass that stops at sigma: N_SIGMA_SLABS).
+template <typename Keep = KeepNone, int LAST = 9>
 __device__ __forceinline__ void mlp_trunk(Ring& ring, const Map& m, float* act, float* pe, const float* rays,
                                           const float* __restrict__ heads, const float* __restrict__ B, float* sigp,
                                           const Keep& keep = Keep()) {
   constexpr int BOFF[10] = {0, B1, B2, B3, B4, B5, B6, B7, B8, BFIN};
   float acc[8][16];
-  for (int l = 1; l <= 9; ++l) {
+  for (int l = 1; l <= LAST; ++l) {
     zero(acc);
     if (l == 1) product<WIDTH>(acc, ring, m, pe, XYZ_PAD / KS, nullptr, 0);
     else product<WIDTH>(acc, ring, m, act, WIDTH / KS, pe, l == 5 ? XYZ_PAD / KS : 0);
@@ -364,7 +367,7 @@ __device__ __forceinline__ void mlp_trunk(Ring& ring, const Map& m, float* act, 
     trunk_epilogue(acc, m, act, B + BOFF[l], l == 9 ? ACT_NONE : ACT_RELU, l == 8 ? heads + 3 * HALF : nullptr,
                    sigp);
     keep.layer(l, m, acc);
-    if (l == 5) dir_pe<Keep::FRESH>(rays, pe);  // layer 5 read the sample PE for the last time
+    if (LAST == 9 && l == 5) dir_pe<Keep::FRESH>(rays, pe);  // layer 5 read the sample PE for the last time
     consumers_sync();
   }
 }

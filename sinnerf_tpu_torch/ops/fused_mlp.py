@@ -3,20 +3,34 @@
 Counterpart of ``sinnerf_tpu/ops/fused_mlp_t.py``: ``pack_weights_t``
 (:72), ``_pe_fwd`` (:135), ``_pe_concat`` (:150) and ``mlp_from_pe`` (:189)
 for K0; ``fused_nerf_mlp_t`` (:543) with its kernels ``_kernel_t`` (:232)
-and ``_bwd_kernel_t`` (:298) for K4.  The CUDA routines are
+and ``_bwd_kernel_t`` (:298) for K4.  The first CUDA routines are
 ``csrc/nerf_mlp.cuh`` (forward) and ``csrc/mlp_backward.cuh`` (backward),
-included by every kernel; ``mlp_plain`` is the forward's plain PyTorch
-version and ``mlp_backward_plain`` that of the backward's MLP body.
+whose constants every kernel includes; ``mlp_plain`` is the forward's plain
+PyTorch version and ``mlp_backward_plain`` that of the backward's MLP body.
 
 K4 is ``fused_nerf_mlp``, a ``torch.autograd.Function`` over the module's 24
 float32 parameters with gradients for them, the points and the directions.
-Its forward, and its bfloat16 backward, are ``csrc/fused_mlp.cu``; its
-float32 backward is the Hopper kernel of ``csrc/f32_train_sm90.cu`` on
-``mlp_backward_f32_sm90.cuh`` (FFMA over weights streamed through shared
-memory by bulk copies; needs an ``sm_90`` card), whose earlier kernel
-``launch_mlp_bwd_block64`` stays built on no path; ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
+Which kernel each direction runs:
+
+- forward, bfloat16: ``csrc/fused_mlp.cu`` (``nerf_mlp.cuh``, wmma on
+  64-point blocks);
+- forward, float32: the Hopper kernel ``k4_fwd_f32_sm90`` of
+  ``csrc/f32_train_sm90.cu``, K4-bwd f32's own recompute on
+  ``mlp_f32_sm90.cuh`` without keeping (FFMA over weights streamed through
+  shared memory by bulk copies);
+- backward, bfloat16: the Hopper kernel of ``csrc/fused_mlp_sm90.cu``, K3-bwd
+  bf16's wgmma body (``mlp_backward_wgmma.cuh``) at one sample per ray with
+  the input gradients as three more one-slab dgrads;
+- backward, float32: the Hopper kernel ``k4_bwd_f32_sm90`` of
+  ``csrc/f32_train_sm90.cu`` (``mlp_backward_f32_sm90.cuh``).
+
+The Hopper kernels need an ``sm_90`` card.  The earlier kernels of
+``csrc/fused_mlp.cu`` they replace stay built on no path, for
+``chip_smoke.py``'s timing rounds: ``launch_mlp_fwd_block64`` (forward f32),
+``launch_mlp_bwd_wmma`` (backward bf16) and ``launch_mlp_bwd_block64``
+(backward f32).  ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
 ``nerf_mlp_backward_plain`` (with ``pe_backward``) are its plain versions,
-used on CPU tensors and by the tests.  Its source note gives the bound
+used on CPU tensors and by the tests.  The source notes give the bound
 (operations: 1.19 MFLOP per point forward, 3.56 backward).
 
 Packing.  ``pack_weights`` writes the 14 weight blocks of the split MLP into
@@ -346,8 +360,9 @@ def pack_grads(grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tens
 # K4: the per-point PE + MLP, forward and backward
 # --------------------------------------------------------------------------
 
-SOURCE = "fused_mlp.cu"
-SOURCE_F32 = "f32_train_sm90.cu"  # the float32 training kernels on Hopper: K4-bwd here, K3 in fused_render_train
+SOURCE = "fused_mlp.cu"  # K4-fwd bf16, and the earlier K4 kernels on no path
+SOURCE_F32 = "f32_train_sm90.cu"  # the float32 kernels on Hopper: K4-fwd and K4-bwd here, K3 in fused_render_train
+SOURCE_SM90 = "fused_mlp_sm90.cu"  # K4-bwd bf16 on Hopper
 POINT_CHUNK = 1 << 18  # points per pass of a plain version: bounds its (P, 256) activations
 
 
@@ -495,7 +510,9 @@ def _lib_f32() -> ctypes.CDLL:
         lib.k3_f32_bwd_ablated.restype = i
         lib.k4_f32_bwd.argtypes = [p] * 11 + [i] * 3 + [p]
         lib.k4_f32_bwd.restype = i
-        for name in ("f32_sm90_smem_bytes", "f32_bwd_slabs"):
+        lib.k4_f32_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.k4_f32_fwd.restype = i
+        for name in ("f32_sm90_smem_bytes", "f32_bwd_slabs", "k4_f32_fwd_slabs"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = i
         lib.f32_bwd_scratch_bytes.argtypes = []
@@ -503,12 +520,47 @@ def _lib_f32() -> ctypes.CDLL:
         lib.f32_slab_elems.argtypes = []
         lib.f32_slab_elems.restype = i
         got = (lib.f32_sm90_smem_bytes(0), lib.f32_sm90_smem_bytes(1), lib.f32_bwd_scratch_bytes(),
-               lib.f32_bwd_slabs(0), lib.f32_bwd_slabs(1), lib.f32_slab_elems())
+               lib.f32_bwd_slabs(0), lib.f32_bwd_slabs(1), lib.f32_slab_elems(), lib.k4_f32_fwd_slabs(0),
+               lib.k4_f32_fwd_slabs(1))
         want = (L.K1_F32_SMEM, L.F32_BWD_SMEM, L.F32_BWD_SCRATCH, len(L.f32_bwd_slabs(False)),
-                len(L.f32_bwd_slabs(True)), L.SLAB_BUFFER_F32_SIZE)
+                len(L.f32_bwd_slabs(True)), L.SLAB_BUFFER_F32_SIZE, len(L.F32_SLABS), L.K4_F32_SIGMA_SLABS)
         if got != want:
             raise RuntimeError(f"csrc/f32_train_sm90.cu and ops/sm90_layout.py disagree: {got} != {want}")
         _f32_signature_set = True
+    return lib
+
+
+_sm90_signature_set = False
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    """``csrc/fused_mlp_sm90.cu``, its signatures set and its shared memory,
+    scratch, slab buffer and slab order held against ``ops/sm90_layout.py``."""
+    global _sm90_signature_set
+    from sinnerf_tpu_torch.ops import sm90_layout as L
+
+    lib = _build.load(SOURCE_SM90)
+    if not _sm90_signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k4_sm90_bwd.argtypes = [p] * 10 + [i] * 3 + [p]
+        lib.k4_sm90_bwd.restype = i
+        lib.k4_sm90_bwd_ablated.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.k4_sm90_bwd_ablated.restype = i
+        for name in ("k4_sm90_smem_bytes", "k4_sm90_slab_elems"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.k4_sm90_scratch_bytes.argtypes = []
+        lib.k4_sm90_scratch_bytes.restype = ctypes.c_longlong
+        lib.k4_sm90_bwd_slab.argtypes = [i]
+        lib.k4_sm90_bwd_slab.restype = i
+        order = []
+        while lib.k4_sm90_bwd_slab(len(order)) >= 0:
+            order.append(lib.k4_sm90_bwd_slab(len(order)))
+        got = (lib.k4_sm90_smem_bytes(), lib.k4_sm90_scratch_bytes(), lib.k4_sm90_slab_elems(), tuple(order))
+        want = (L.BWD_SMEM, L.K4_BWD_SCRATCH, L.SLAB_BUFFER_SIZE, L.K4_BWD_SLABS)
+        if got != want:
+            raise RuntimeError(f"csrc/fused_mlp_sm90.cu and ops/sm90_layout.py disagree: {got} != {want}")
+        _sm90_signature_set = True
     return lib
 
 
@@ -516,8 +568,47 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _hopper_sms(dev) -> int:
+    """The SM count of ``dev``, after raising unless it is an ``sm_90`` card
+    (the Hopper kernels' only target)."""
+    from sinnerf_tpu_torch.ops.fused_render import _sm_count, require_sm90
+
+    require_sm90(torch.cuda.get_device_capability(dev))
+    return _sm_count(dev)
+
+
 def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, sigma_only=False) -> torch.Tensor:
-    """K4-fwd on CUDA tensors: (P, 4) ``[rgb, sigma]`` or (P, 1) sigma."""
+    """K4-fwd on CUDA tensors: (P, 4) ``[rgb, sigma]`` or (P, 1) sigma.
+    float32 weights run the Hopper kernel of ``csrc/f32_train_sm90.cu`` (K4-bwd
+    f32's recompute on ``mlp_f32_sm90.cuh``; needs an ``sm_90`` card),
+    bfloat16 the wmma kernel of ``csrc/fused_mlp.cu``."""
+    if packed.w.dtype == torch.float32:
+        from sinnerf_tpu_torch.ops import sm90_layout as L
+
+        n, dev = xyz.shape[0], xyz.device
+        sms = _hopper_sms(dev)
+        out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32, device=dev)
+        slabs = L.slab_buffer_f32(packed)
+        lib = _lib_f32()
+        with torch.cuda.device(dev):
+            rc = lib.k4_f32_fwd(
+                xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), slabs.data_ptr(), packed.b.data_ptr(),
+                out.data_ptr(), n, L.k4_fwd_f32_launch_plan(n, sms, sigma_only)["ctas"], int(sigma_only),
+                int(use_new_activation), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "fused_nerf_mlp (forward, f32 sm90)")
+    else:
+        out = _launch_fwd_block64(packed, xyz, dirs, use_new_activation, sigma_only)
+    launch_mlp_fwd.launches += 1
+    return out
+
+
+launch_mlp_fwd.launches = 0
+
+
+def _launch_fwd_block64(packed: PackedWeights, xyz, dirs, use_new_activation, sigma_only) -> torch.Tensor:
+    """``csrc/fused_mlp.cu``'s K4-fwd (64-point blocks; wmma in bfloat16, FMA
+    in float32): (P, 4) or (P, 1)."""
     n = xyz.shape[0]
     out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32, device=xyz.device)
     lib = _lib()
@@ -528,11 +619,21 @@ def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, si
             torch.cuda.current_stream(xyz.device).cuda_stream,
         )
     _build.check(lib, rc, "fused_nerf_mlp (forward)")
-    launch_mlp_fwd.launches += 1
     return out
 
 
-launch_mlp_fwd.launches = 0
+def launch_mlp_fwd_block64(packed: PackedWeights, xyz, dirs, use_new_activation=True, sigma_only=False):
+    """The earlier float32 K4-fwd (``csrc/fused_mlp.cu``, FMA on 64-point
+    blocks) on CUDA tensors.  Off every path: ``chip_smoke.py`` times it
+    beside the Hopper kernel and holds it against the plain version."""
+    if packed.w.dtype != torch.float32:
+        raise ValueError("launch_mlp_fwd_block64 is the earlier float32 kernel; bfloat16 runs it on the path")
+    out = _launch_fwd_block64(packed, xyz, dirs, use_new_activation, sigma_only)
+    launch_mlp_fwd_block64.launches += 1
+    return out
+
+
+launch_mlp_fwd_block64.launches = 0
 
 
 def _bwd_args(packed: PackedWeights, xyz, g, sigma_only):
@@ -547,22 +648,42 @@ def _bwd_args(packed: PackedWeights, xyz, g, sigma_only):
             None if sigma_only else torch.empty((n, 3), dtype=torch.float32, device=dev))
 
 
+def _launch_bwd_sm90(packed: PackedWeights, xyz, dirs, g, use_new_activation, sigma_only, ablate: int = 0):
+    """K4-bwd bf16 on Hopper (``csrc/fused_mlp_sm90.cu``): (dw, db, dxyz, ddir
+    or None); ``ablate`` 1 drops the dW flush (timing only)."""
+    from sinnerf_tpu_torch.ops import sm90_layout as L
+
+    n, dev = xyz.shape[0], xyz.device
+    plan = L.k4_bwd_launch_plan(n, _hopper_sms(dev))
+    g4, dw, db, dxyz, ddir = _bwd_args(packed, xyz, g, sigma_only)
+    slabs = L.slab_buffer(packed)
+    scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
+    lib = _lib_sm90()
+    args = (xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), slabs.data_ptr(), packed.b.data_ptr(),
+            g4.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), dxyz.data_ptr(), _ptr(ddir), n,
+            plan["ctas"], int(use_new_activation))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.k4_sm90_bwd_ablated(*args, ablate, stream) if ablate else lib.k4_sm90_bwd(*args, stream)
+    _build.check(lib, rc, "fused_nerf_mlp (backward, bf16 sm90)")
+    return dw, db, dxyz, ddir
+
+
 def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
     """K4-bwd on CUDA tensors: (dw, db, dxyz, ddir or None) as
-    ``nerf_mlp_backward_plain`` returns them.  float32 weights run the Hopper
-    kernel of ``csrc/f32_train_sm90.cu`` (``mlp_backward_f32_sm90.cuh``),
-    bfloat16 the wmma kernel of ``csrc/fused_mlp.cu``."""
+    ``nerf_mlp_backward_plain`` returns them.  Both dtypes run Hopper kernels
+    (they need an ``sm_90`` card): bfloat16 ``csrc/fused_mlp_sm90.cu``
+    (``mlp_backward_wgmma.cuh``), float32 ``csrc/f32_train_sm90.cu``
+    (``mlp_backward_f32_sm90.cuh``)."""
     if packed.w.dtype == torch.bfloat16:
-        out = _launch_bwd_block64(packed, xyz, dirs, g, use_new_activation, sigma_only)
+        out = _launch_bwd_sm90(packed, xyz, dirs, g, use_new_activation, sigma_only)
     else:
         from sinnerf_tpu_torch.ops import sm90_layout as L
-        from sinnerf_tpu_torch.ops.fused_render import require_sm90
 
         n, dev = xyz.shape[0], xyz.device
-        require_sm90(torch.cuda.get_device_capability(dev))
+        plan = L.f32_bwd_launch_plan(n, 1, _hopper_sms(dev), True)
         g4, dw, db, dxyz, ddir = _bwd_args(packed, xyz, g, sigma_only)
         slabs = L.slab_buffer_f32(packed)
-        plan = L.f32_bwd_launch_plan(n, 1, torch.cuda.get_device_properties(dev).multi_processor_count, True)
         scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
         lib = _lib_f32()
         with torch.cuda.device(dev):
@@ -575,6 +696,18 @@ def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True,
         out = dw, db, dxyz, ddir
     launch_mlp_bwd.launches += 1
     return out
+
+
+launch_mlp_bwd.launches = 0
+
+
+def launch_mlp_bwd_ablated(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
+    """The bfloat16 K4-bwd without its weight gradients' reductions into dW
+    (``ABL_FLUSH``), for timing only: the gradients are then wrong.  Off every
+    path and counted by no launch count."""
+    if packed.w.dtype != torch.bfloat16:
+        raise ValueError("launch_mlp_bwd_ablated times the bfloat16 Hopper kernel")
+    return _launch_bwd_sm90(packed, xyz, dirs, g, use_new_activation, sigma_only, ablate=1)
 
 
 def _launch_bwd_block64(packed: PackedWeights, xyz, dirs, g, use_new_activation, sigma_only):
@@ -612,7 +745,19 @@ def launch_mlp_bwd_block64(packed: PackedWeights, xyz, dirs, g, use_new_activati
 launch_mlp_bwd_block64.launches = 0
 
 
-launch_mlp_bwd.launches = 0
+def launch_mlp_bwd_wmma(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
+    """The earlier bfloat16 K4-bwd (``csrc/fused_mlp.cu``, wmma on 64-point
+    blocks) on CUDA tensors: (dw, db, dxyz, ddir or None).  Off every path:
+    ``chip_smoke.py`` times it beside the Hopper kernel and holds it against
+    the plain version."""
+    if packed.w.dtype != torch.bfloat16:
+        raise ValueError("launch_mlp_bwd_wmma is the earlier bfloat16 kernel; float32 has its own")
+    out = _launch_bwd_block64(packed, xyz, dirs, g, use_new_activation, sigma_only)
+    launch_mlp_bwd_wmma.launches += 1
+    return out
+
+
+launch_mlp_bwd_wmma.launches = 0
 
 
 class _PointMLP(torch.autograd.Function):

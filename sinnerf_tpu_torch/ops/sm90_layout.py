@@ -1,7 +1,9 @@
 """Weight layouts and launch plans of the Hopper kernels: K3 in bf16
-(``csrc/fused_render_train_sm90.cu``) and K1 in both dtypes
-(``csrc/fused_render_sm90.cu``; bf16 on the same slabs as K3, float32 on
-``slab_buffer_f32``, at the end of this module).
+(``csrc/fused_render_train_sm90.cu``), K4-bwd in bf16 on the same slabs
+(``csrc/fused_mlp_sm90.cu``), K1 in both dtypes (``csrc/fused_render_sm90.cu``;
+bf16 on the same slabs as K3, float32 on ``slab_buffer_f32``), and the
+float32 training kernels and K4 in float32 (``csrc/f32_train_sm90.cu``), at
+the end of this module.
 
 The kernels stream the MLP's weights through a ring of shared-memory stages
 with one 1-D bulk copy (``cp.async.bulk``) per stage, and ``wgmma`` reads
@@ -36,7 +38,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from sinnerf_tpu_torch.ops.fused_mlp import WEIGHT_OFFSETS, WEIGHT_SIZE, WIDTH, PackedWeights
+from sinnerf_tpu_torch.ops.fused_mlp import DIR_PAD, WEIGHT_OFFSETS, WEIGHT_SIZE, WIDTH, XYZ_PAD, PackedWeights
 
 SW = 64  # bf16 values in one swizzled row (128 bytes)
 TILE_RAYS = 128  # rays per CTA tile: two consumer warpgroups of 64
@@ -205,6 +207,34 @@ def launch_plan(n: int, s: int, sm_count: int) -> Dict[str, int]:
         fwd_slabs_per_cta=per_cta * s * len(FWD_SLABS),
         bwd_slabs_per_cta=per_cta * s * (len(FWD_SLABS) + len(BWD_SLABS)),
         fwd_smem=FWD_SMEM, bwd_smem=BWD_SMEM, scratch_bytes=ctas * BWD_SCRATCH,
+    )
+
+
+# ------------------------------------------- K4-bwd bf16 (csrc/fused_mlp_sm90.cu)
+# K3-bwd bf16's CTA at one sample per ray.  After the recompute's FWD_SLABS the
+# producer streams K3's backward slabs and three that K3 never reads, each the
+# MN-major B of a one-slab dgrad for K4's input gradients: wdx (ddpe = da_d
+# Wdx) before the direction layer's, w5x (da5 W5x) before w5h's, w1 (+ da1 W1)
+# last.  Indices into FWD_SLABS, in the producer's order (fused_mlp_sm90.cu's
+# k4_bwd_slab; the wrapper holds the two together when it loads the kernel).
+K4_BWD_BLOCKS = ("wdx",) + BWD_BLOCKS[:5] + ("w5x",) + BWD_BLOCKS[5:] + ("w1",)
+K4_BWD_SLABS: Tuple[int, ...] = tuple(i for b in K4_BWD_BLOCKS for i, s in enumerate(FWD_SLABS) if s.block == b)
+# global scratch per CTA: K3's (the kept tiles, then da_d per point in f32),
+# then the input gradients dxpe [128][64] and ddpe [128][32] in f32
+K4_BWD_SCRATCH = BWD_SCRATCH + TILE_RAYS * (XYZ_PAD + DIR_PAD) * 4
+
+
+def k4_bwd_launch_plan(n: int, sm_count: int) -> Dict[str, int]:
+    """What one launch of the bf16 K4-bwd runs for n points on a card of
+    ``sm_count`` SMs: tiles of 128 points, persistent CTAs (one per SM at
+    most, each walking tiles ctas apart), threads and shared memory of a CTA
+    (K3-bwd bf16's), the most tiles one CTA runs, the slabs it streams and
+    the launch's global scratch."""
+    plan = launch_plan(n, 1, sm_count)
+    return dict(
+        tiles=plan["tiles"], ctas=plan["ctas"], threads=THREADS, smem=BWD_SMEM, tiles_per_cta=plan["tiles_per_cta"],
+        slabs_per_cta=plan["tiles_per_cta"] * (len(FWD_SLABS) + len(K4_BWD_SLABS)),
+        scratch_bytes=plan["ctas"] * K4_BWD_SCRATCH,
     )
 
 
@@ -411,4 +441,23 @@ def f32_bwd_launch_plan(n: int, s: int, sm_count: int, k4: bool) -> Dict[str, in
         tiles=plan["tiles"], ctas=plan["ctas"], tiles_per_cta=plan["tiles_per_cta"], threads=F32_THREADS,
         smem=F32_BWD_SMEM, slabs_per_cta=plan["tiles_per_cta"] * s * per_tile,
         scratch_bytes=plan["ctas"] * F32_BWD_SCRATCH,
+    )
+
+
+# K4-fwd f32 (f32_train_sm90.cu): K4-bwd f32's recompute without keeping, on
+# the backward's shared memory (BwdCta).  The sigma-only pass stops after the
+# sigma head: it streams the slabs of w1 .. w8 only.
+K4_F32_FWD_SMEM = F32_BWD_SMEM
+K4_F32_SIGMA_SLABS = sum(1 for s in F32_SLABS if s.block not in ("wfin", "wdh", "wdx"))
+
+
+def k4_fwd_f32_launch_plan(n: int, sm_count: int, sigma_only: bool) -> Dict[str, int]:
+    """What one launch of the float32 K4-fwd runs for n points on a card of
+    ``sm_count`` SMs: tiles of 128, persistent CTAs, threads and shared
+    memory of a CTA, the most tiles one CTA runs and the slabs it streams."""
+    plan = launch_plan(n, 1, sm_count)
+    slabs = K4_F32_SIGMA_SLABS if sigma_only else len(F32_SLABS)
+    return dict(
+        tiles=plan["tiles"], ctas=plan["ctas"], threads=F32_THREADS, smem=K4_F32_FWD_SMEM,
+        tiles_per_cta=plan["tiles_per_cta"], slabs_per_cta=plan["tiles_per_cta"] * slabs,
     )
