@@ -7,18 +7,21 @@ Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
    kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
-   count the Hopper kernels' (K3, K1 and K4-bwd in bf16, K1, K3 and K4 in f32)
-   HGMMA, bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA and 128-bit
-   shared load instructions in ``cuobjdump -sass`` of their libraries, and
-   fail without wgmma (bf16) or FFMA (f32), or without bulk copies, or (the
-   f32 training kernels) without vector reductions in a backward or with a
-   spill;
+   count the Hopper kernels' (K3, K1 and K4 in bf16, K1, K3 and K4 in f32)
+   and K2's HGMMA, bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA,
+   128-bit shared load and 128-bit global load and store instructions in
+   ``cuobjdump -sass`` of their libraries, and fail without wgmma (bf16) or
+   FFMA (f32), or without bulk copies, or (the f32 training kernels) without
+   vector reductions in a backward or with a spill, or (K2) without 128-bit
+   global loads and stores;
 2. hold K1 (``fused_render_level``, the Hopper kernels) against its plain
    version, float32 and bfloat16, at 4096 rays x S = 64 and 192, at 1000
    rays x S = 12, and at every ragged shape of K1_RAGGED (1 to 5292 rays, S
    = 1 to 192), each with the white background on and off; at one ray the
    bfloat16 mean is held over K1_SINGLE_RAYS launches of one ray each;
-3. hold K2 (``fused_sample_pdf_merge``) against its plain version;
+3. hold K2 (``fused_sample_pdf_merge``, the many-lanes kernel) against its
+   plain version, also on adversarial rows (z in equal pairs, so that fine
+   depths tie with coarse ones; all-zero and one-hot weights; S = 3);
 4. on a synthetic 504x378 LLFF scene with a reference-format ``.ckpt``,
    hold each kernel against its plain version on the inputs and at the
    shapes the eval path gives it (one val image in tiles of 131,072 rays:
@@ -26,8 +29,11 @@ Phases, any failure exits non-zero without the final result line:
    rays x 64 -> 192), timing each launch and its plain version; at 131072
    rays x S = 64 and 192 the earlier K1 (``launch_render_block64``) held
    against the plain version too and timed beside the Hopper kernel in
-   K1_ROUNDS rounds that alternate them; then hold the kernel render of the
-   whole image against the plain render path and time it;
+   K1_ROUNDS rounds that alternate them; at each tile the first port of K2
+   (``launch_sample_pdf_merge_earlier``) held against the plain version and
+   timed beside the kernel on the path in K2_ROUNDS rounds; then hold the
+   kernel render of the whole image against the plain render path and time
+   it;
 5. the eval main path: ``sinnerf_tpu_torch.eval`` on the val and test
    splits at 64 + 128 samples in bfloat16 and float32, with every launch
    count set to 0 just before and read just after; check PSNR and PNGs;
@@ -41,7 +47,8 @@ Phases, any failure exits non-zero without the final result line:
 7. the same at the training path's own shapes and inputs: the 16,384 rays of
    a Step-1 batch x S = 64 and 192 as ``train_step`` chains them (K3-fwd,
    K2 with drawn ``u``, K3-fwd, then both backwards), timing each launch and
-   its plain version; then K3_ROUNDS rounds that alternate the Hopper
+   its plain version, K2 also beside its first port in K2_ROUNDS rounds;
+   then K3_ROUNDS rounds that alternate the Hopper
    kernels with the earlier ones on the same inputs: the forward with the
    earlier forward (``launch_train_fwd_block64``: wmma in bfloat16, FMA in
    float32; first held against the plain forward), the
@@ -68,7 +75,8 @@ Phases, any failure exits non-zero without the final result line:
    of ``fused_mlp.cu``, each held against the plain version first: float32
    K4-bwd (``launch_mlp_bwd_block64``) and K4-fwd (``launch_mlp_fwd_block64``)
    with the sigma-only K4-fwd, bfloat16 K4-bwd (``launch_mlp_bwd_wmma``)
-   with itself without its dW flush (``launch_mlp_bwd_ablated``); the first
+   with itself without its dW flush (``launch_mlp_bwd_ablated``) and K4-fwd
+   (``launch_mlp_fwd_wmma``) with the sigma-only K4-fwd; the first
    ``train_step``'s gradients against the plain path's; 3 timed steps with
    the counts set to 0 just before and read just after (per step K1 2, K2 1,
    K4-fwd 2, K4-bwd 2, K3 0), the loss finite and falling;
@@ -84,7 +92,8 @@ Phases, any failure exits non-zero without the final result line:
    the eval CLI renders one of the checkpoints;
 12. X1, the forward-kernel variants of K4-fwd
    (``sinnerf_tpu_torch.scripts.exp_kernel_variants``): every variant's
-   kernel against its plain version and against production K4-fwd at 4096
+   kernel against its plain version and against production K4-fwd (the
+   Hopper kernel, ``k4_fwd_sm90``) at 4096
    and 333 points; then the experiment's entry point (``main``) at 8,388,608
    points with every count set to 0 just before and read just after (each
    variant launched, finite, within K4-fwd's limit of ``pe``, the depth
@@ -225,6 +234,13 @@ K4_ROUNDS = {"bfloat16": (4, 1), "float32": (4, 1)}
 # the Hopper K1 kernels against the earlier ones at 131072 rays x S = 64 and
 # 192: (rounds, launches of each per round) per dtype
 K1_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
+# K2 beside its first port at each of its path's shapes: (rounds, launches
+# of each per round).  K2 is timed behind a spin kernel of K2_LEAD_CYCLES
+# clock cycles (about 11 ms), so that the host has queued a round's launches
+# before the first one runs: at 16,384 rays the kernel is shorter than its
+# wrapper's host time
+K2_ROUNDS = (6, 20)
+K2_LEAD_CYCLES = 20_000_000
 # ragged K1 shapes: ray counts about one tile of 128 and none, and sample
 # counts down to one; at one ray the mean error is that of one ray's few
 # elements, where one bf16 rounding taken apart from the plain version
@@ -232,8 +248,8 @@ K1_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
 # launches (as tests/test_torch_k3_sm90.py holds K3-fwd's)
 K1_RAGGED = ((1, 127, 128, 129, 1000, 5292), (1, 9, 12, 64, 192))
 K1_SINGLE_RAYS = 64
-# the Hopper kernels whose SASS phase 1 reads: (source, a tag of the mangled
-# name, what the SASS must hold)
+# the Hopper kernels and K2, whose SASS phase 1 reads: (source, a tag of the
+# mangled name, what the SASS must hold)
 SASS_KERNELS = {
     "train_fwd_sm90": ("fused_render_train_sm90.cu", "train_fwd_sm90ILb1E", ("HGMMA", "BULK")),
     "train_bwd_sm90": ("fused_render_train_sm90.cu", "train_bwd_sm90ILi0E", ("HGMMA", "BULK")),
@@ -245,6 +261,9 @@ SASS_KERNELS = {
     "k4_f32_fwd": ("f32_train_sm90.cu", "k4_fwd_f32_sm90ILb0E", ("FFMA", "BULK", "NO_SPILLS")),
     "k4_f32_fwd_sigma": ("f32_train_sm90.cu", "k4_fwd_f32_sm90ILb1E", ("FFMA", "BULK", "NO_SPILLS")),
     "k4_bwd_sm90": ("fused_mlp_sm90.cu", "k4_bwd_sm90ILi0E", ("HGMMA", "BULK", "RED_V4")),
+    "k4_fwd_sm90": ("fused_mlp_sm90.cu", "k4_fwd_sm90ILb0E", ("HGMMA", "BULK")),
+    "k4_fwd_sm90_sigma": ("fused_mlp_sm90.cu", "k4_fwd_sm90ILb1E", ("HGMMA", "BULK")),
+    "k2_lanes": ("fused_sample_pdf.cu", "sample_pdf_lanes_kernelILi3E", ("LDG_128", "STG_128")),
 }
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
@@ -272,13 +291,14 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def timed(fn, reps: int):
+def timed(fn, reps: int, lead_cycles: int = 0):
     """The port's timing rule (``sinnerf_tpu_torch.utils.timing.timed``): one
-    warm-up call, then the mean of ``reps`` calls in ms by CUDA events.
-    Returns (the warm-up call's result, ms)."""
+    warm-up call, then the mean of ``reps`` calls in ms by CUDA events (queued
+    behind a spin kernel of ``lead_cycles`` when > 0).  Returns (the warm-up
+    call's result, ms)."""
     from sinnerf_tpu_torch.utils.timing import timed as cuda_timed
 
-    return cuda_timed(fn, reps)
+    return cuda_timed(fn, reps, lead_cycles)
 
 
 def make_params(seed: int, sigma_shift: float = 0.3):
@@ -383,8 +403,10 @@ def k1_bound(n: int, s: int, cd: str):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k2_bound(n: int, s: int, k: int) -> float:
-    return (2 * n * s * 4 + n * (s + k) * 4) / PEAK_BYTES * 1e3
+def k2_bound(n: int, s: int, k: int, det: bool) -> float:
+    """Bytes over the peak rate: z and w read, the (s + k) row written, and
+    the n * k u-values read when the launch is stochastic."""
+    return (2 * n * s * 4 + (0 if det else n * k * 4) + n * (s + k) * 4) / PEAK_BYTES * 1e3
 
 
 def phase_k1_checks(device, rng):
@@ -449,17 +471,77 @@ def phase_k2_checks(device, rng):
     from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge, sample_pdf_merge_plain
 
     worst = 0.0
-    for n, s, k, det in ((4096, 64, 64, True), (4096, 64, 64, False), (4096, 64, 128, True),
-                         (4096, 64, 128, False), (4096, 64, 1, True), (4096, 64, 1, False),
-                         (1000, 64, 128, True), (1000, 64, 128, False)):
-        _, z = make_rays(rng, n, s, device)
-        w = torch.tensor(rng.uniform(size=(n, s)) ** 4, dtype=torch.float32, device=device)
-        u = None if det else torch.tensor(rng.uniform(size=(n, k)), dtype=torch.float32, device=device)
+    cases = [(n, s, k, det, "", rng) for n, s, k, det in (
+        (4096, 64, 64, True), (4096, 64, 64, False), (4096, 64, 128, True), (4096, 64, 128, False),
+        (4096, 64, 1, True), (4096, 64, 1, False), (1000, 64, 128, True), (1000, 64, 128, False))]
+    # adversarial rows: z in equal pairs (the edge between a pair is its value: the first fine depth,
+    # at u = 0, ties with z), all-zero and one-hot weights (the pdf's guard bins), three samples.  They
+    # draw from a generator of their own, so that the phases after this one draw what they drew before
+    adv = np.random.default_rng(90)
+    cases += [(1000, 64, 128, det, kind, adv) for kind in ("pairs", "zero_w", "one_hot") for det in (True, False)]
+    cases += [(1000, 3, 40, det, "", adv) for det in (True, False)]
+    for n, s, k, det, kind, gen in cases:
+        _, z = make_rays(gen, n, s, device)
+        w = torch.tensor(gen.uniform(size=(n, s)) ** 4, dtype=torch.float32, device=device)
+        u = None if det else torch.tensor(gen.uniform(size=(n, k)), dtype=torch.float32, device=device)
+        if kind == "pairs":
+            z = z[:, ::2].repeat_interleave(2, dim=1).contiguous()
+            if u is not None:
+                u[:, ::3] = 0.0
+        elif kind in ("zero_w", "one_hot"):
+            w.zero_()
+            if kind == "one_hot":
+                w[:, 17] = 1.0
         got = fused_sample_pdf_merge(z, w, k, u, det)
         torch.cuda.synchronize()
         ref = sample_pdf_merge_plain(z, w, k, u, det)
-        worst = max(worst, k2_error(got, ref, f"K2 n={n:5d} S={s} K={k:3d} det={int(det)}"))
+        worst = max(worst, k2_error(got, ref, f"K2 n={n:5d} S={s:2d} K={k:3d} det={int(det)} {kind}"))
     return worst
+
+
+def k2_timings(z, w, u, det: bool, ref, what: str):
+    """K2 on one launch's inputs: the kernel on the path timed (behind the
+    spin kernel), and its first port (``launch_sample_pdf_merge_earlier``),
+    first held against ``ref``, the plain version's rows, timed beside it in
+    K2_ROUNDS rounds that alternate them, with the kernel cut after its rows
+    and after its CDF (``launch_sample_pdf_merge_parts``).  Returns the
+    kernel's ms, the rounds' mean ms of each, each ratio's mean and range
+    (the first port's and the cuts' to the kernel), and the first port's
+    error."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_sample_pdf as fsp
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    n, s = z.shape
+    _, ms = timed(lambda: fsp.fused_sample_pdf_merge(z, w, N_IMPORTANCE, u, det), K2_ROUNDS[1], K2_LEAD_CYCLES)
+    earlier = fsp.launch_sample_pdf_merge_earlier(z, w, N_IMPORTANCE, u, det)
+    torch.cuda.synchronize()
+    earlier_err = k2_error(earlier, ref, f"{what} first port (one thread per ray)")
+    del earlier
+    fns = {"new": lambda: fsp.fused_sample_pdf_merge(z, w, N_IMPORTANCE, u, det),
+           "earlier": lambda: fsp.launch_sample_pdf_merge_earlier(z, w, N_IMPORTANCE, u, det)}
+    for part in fsp.PARTS:
+        fns[f"to_{part}"] = lambda part=part: fsp.launch_sample_pdf_merge_parts(part, z, w, N_IMPORTANCE, u, det)
+    count = fsp.fused_sample_pdf_merge.launches
+    rounds, reps = K2_ROUNDS
+    per_round = interleaved_ms(fns, rounds, reps, K2_LEAD_CYCLES)
+    # these launches compare kernels: they do not count as the path's
+    fsp.fused_sample_pdf_merge.launches = count
+
+    def ratio(a, b):
+        r = [x / y for x, y in zip(per_round[a], per_round[b])]
+        return sum(r) / rounds, min(r), max(r)
+
+    out = dict(ms=ms, new_ms=sum(per_round["new"]) / rounds, earlier_ms=sum(per_round["earlier"]) / rounds,
+               ratio=ratio("new", "earlier"), earlier_err=earlier_err,
+               parts_ms={p: sum(per_round[f"to_{p}"]) / rounds for p in fsp.PARTS},
+               parts_vs_new={p: ratio(f"to_{p}", "new") for p in fsp.PARTS})
+    print(f"  {rounds} rounds: K2 {out['new_ms']:.4f} ms, first port {out['earlier_ms']:.4f} ms (ratio "
+          f"{out['ratio'][0]:.4f}, {out['ratio'][1]:.4f}-{out['ratio'][2]:.4f}); cut after "
+          + ", ".join(f"{p} {out['parts_ms'][p]:.4f} ms ({out['parts_vs_new'][p][0]:.4f})" for p in fsp.PARTS)
+          + f"; bound {k2_bound(n, s, N_IMPORTANCE, det):.4f} ms")
+    return out
 
 
 def make_scene(workdir: str):
@@ -528,13 +610,16 @@ def phase_path(device, root: str, ckpt: str):
             n = r.shape[0]
             z = stratified_z_vals(r[:, 6:7], r[:, 7:8], N_SAMPLES, False, 0.0)
             _, _, w_c = k1("coarse", r, z)
-            z_all, ms = timed(lambda: fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, None, True), 10)
+            z_all = fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, None, True)
+            torch.cuda.synchronize()
             ref, plain_ms = timed(lambda: in_chunks(
                 lambda zz, ww: sample_pdf_merge_plain(zz, ww, N_IMPORTANCE, None, True), n, z, w_c), 3)
-            out["k2"].append(dict(shape=f"{n}x{N_SAMPLES}+{N_IMPORTANCE}", ms=ms, plain_ms=plain_ms,
-                                  bound_ms=k2_bound(n, N_SAMPLES, N_IMPORTANCE),
-                                  err=k2_error(z_all, ref, f"path K2 {cd:8s} n={n:6d} ({ms:.3f} ms, "
-                                                           f"plain {plain_ms:.3f} ms)")))
+            what = f"path K2 {cd:8s} n={n:6d}"
+            err = k2_error(z_all, ref, what)
+            t = k2_timings(z, w_c, None, True, ref, what)
+            print(f"  {t['ms']:.4f} ms, plain {plain_ms:.3f} ms")
+            out["k2"].append(dict(shape=f"{n}x{N_SAMPLES}+{N_IMPORTANCE}", plain_ms=plain_ms,
+                                  bound_ms=k2_bound(n, N_SAMPLES, N_IMPORTANCE, True), err=err, **t))
             k1("fine", r, z_all)
         rounds = {}
         for level, r, z, ref in first_tile:
@@ -923,13 +1008,16 @@ def phase_train_path(device, rng, batch, draws):
             launches.append(row)
             if level == "coarse":
                 w_c = res[2]
-                z_all, k2_ms = timed(lambda: fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, draws.pdf_u, False), 10)
+                z_all = fused_sample_pdf_merge(z, w_c, N_IMPORTANCE, draws.pdf_u, False)
+                torch.cuda.synchronize()
                 ref, plain_ms = timed(lambda: in_chunks(
                     lambda zz, ww, uu: sample_pdf_merge_plain(zz, ww, N_IMPORTANCE, uu, False), n, z, w_c, draws.pdf_u), 3)
-                out["k2"].append(dict(shape=f"{n}x{N_SAMPLES}+{N_IMPORTANCE}", ms=k2_ms, plain_ms=plain_ms,
-                                      bound_ms=k2_bound(n, N_SAMPLES, N_IMPORTANCE),
-                                      err=k2_error(z_all, ref, f"path K2 {cd:8s} n={n} drawn u ({k2_ms:.3f} ms, "
-                                                               f"plain {plain_ms:.3f} ms)")))
+                what = f"path K2 {cd:8s} n={n} drawn u"
+                err = k2_error(z_all, ref, what)
+                t = k2_timings(z, w_c, draws.pdf_u, False, ref, what)
+                print(f"  {t['ms']:.4f} ms, plain {plain_ms:.3f} ms")
+                out["k2"].append(dict(shape=f"{n}x{N_SAMPLES}+{N_IMPORTANCE}u", plain_ms=plain_ms,
+                                      bound_ms=k2_bound(n, N_SAMPLES, N_IMPORTANCE, False), err=err, **t))
                 z = z_all
         out["k3"][cd] = dict(launches=launches, **worst[cd])
         torch.cuda.empty_cache()
@@ -1126,9 +1214,9 @@ def k4_check(model, xyz, dirs, g, cd: str, sigma_only: bool, what: str, reps: in
 
 def k4_rounds(model, xyz, dirs, g, cd: str, refs):
     """The Hopper K4 kernels against the earlier ones of ``fused_mlp.cu`` on
-    one launch's inputs, in K4_ROUNDS rounds that alternate them: float32
-    K4-bwd and K4-fwd with the sigma-only K4-fwd, bfloat16 K4-bwd with
-    itself without its dW flush.  The earlier kernels and the sigma-only
+    one launch's inputs, in K4_ROUNDS rounds that alternate them: K4-bwd and
+    K4-fwd with the sigma-only K4-fwd in both dtypes, and bfloat16 K4-bwd
+    without its dW flush.  The earlier kernels and the sigma-only
     pass are first held against the plain versions' results ``refs``
     (``k4_check``).  Returns per name the mean ms, per ratio its mean and
     range, and the earlier kernels' errors."""
@@ -1147,13 +1235,19 @@ def k4_rounds(model, xyz, dirs, g, cd: str, refs):
         pairs = (("bwd", "bwd_earlier"), ("fwd", "fwd_earlier"), ("fwd_sigma", "fwd"))
     else:
         fns = {"bwd": lambda: fm.launch_mlp_bwd(*args), "bwd_earlier": lambda: fm.launch_mlp_bwd_wmma(*args),
-               "bwd_no_flush": lambda: fm.launch_mlp_bwd_ablated(*args)}
-        pairs = (("bwd", "bwd_earlier"), ("bwd_no_flush", "bwd"))
+               "bwd_no_flush": lambda: fm.launch_mlp_bwd_ablated(*args),
+               "fwd": lambda: fm.launch_mlp_fwd(packed, xyz, dirs),
+               "fwd_earlier": lambda: fm.launch_mlp_fwd_wmma(packed, xyz, dirs),
+               "fwd_sigma": lambda: fm.launch_mlp_fwd(packed, xyz, None, True, True)}
+        pairs = (("bwd", "bwd_earlier"), ("bwd_no_flush", "bwd"), ("fwd", "fwd_earlier"), ("fwd_sigma", "fwd"))
     counts = fm.launch_mlp_fwd.launches, fm.launch_mlp_bwd.launches
     outs = {name: fn() for name, fn in fns.items()}  # warm-up
     torch.cuda.synchronize()
     errs = {"bwd_earlier": k4_bwd_error(outs["bwd_earlier"], refs["bwd"])[0]}
     hold_grads(f"  earlier K4-bwd {cd}", errs["bwd_earlier"], K4_BWD_TOL)
+    if not torch.equal(outs["fwd_sigma"][:, 0].view(torch.int32), outs["fwd"][:, 3].view(torch.int32)):
+        raise Failed(f"sigma-only K4-fwd {cd} differs from the full pass's sigma")
+    print(f"  sigma-only K4-fwd {cd} equals the full pass's sigma bit for bit")
     for name, ref in (("fwd_earlier", refs["fwd"]), ("fwd_sigma", refs["fwd"][:, 3:])):
         if name in outs:
             diff = (outs[name] - ref).abs()
@@ -1582,12 +1676,13 @@ def phase_x2(device):
 
 
 def sass_counts():
-    """Per Hopper kernel of SASS_KERNELS, from its built library: the count
-    of the SASS instructions that show the design (``cuobjdump -sass``):
-    HGMMA (wgmma), UBLKCP and UTMALDG (bulk and tensor copies into shared
-    memory), vector reductions (RED ... x4 or .128), FFMA and LDS.128, and
-    all of them; and what ``-Xptxas -v`` reported (registers, stack,
-    spills).  Fails if a kernel lacks what SASS_KERNELS says it must hold."""
+    """Per kernel of SASS_KERNELS, from its built library: the count of the
+    SASS instructions that show the design (``cuobjdump -sass``): HGMMA
+    (wgmma), UBLKCP and UTMALDG (bulk and tensor copies into shared memory),
+    vector reductions (RED ... x4 or .128), FFMA, LDS.128, 128-bit global
+    loads and stores, and all of them; and what ``-Xptxas -v`` reported
+    (registers, stack, spills).  Fails if a kernel lacks what SASS_KERNELS
+    says it must hold."""
     import re
 
     from sinnerf_tpu_torch.ops import _build
@@ -1610,7 +1705,8 @@ def sass_counts():
                  UTMALDG=n(lambda k: k.startswith("UTMALDG")),
                  RED_V4=n(lambda k: re.match(r"REDG?\.\S*(x4|\.128)", k) is not None),
                  FFMA=n(lambda k: k.startswith("FFMA")), LDS_128=n(lambda k: k.startswith("LDS.128")),
-                 total=sum(ops.values()))
+                 LDG_128=n(lambda k: k.startswith("LDG") and ".128" in k),
+                 STG_128=n(lambda k: k.startswith("STG") and ".128" in k), total=sum(ops.values()))
         counts[name], usage[name] = c, ptxas.get(mangled[0], {})
         print(f"SASS {name}: {c}; ptxas {usage[name]}")
         have = dict(c, BULK=c["UBLKCP"] + c["UTMALDG"],
@@ -1755,9 +1851,9 @@ def main() -> int:
             # the short tails' forward errors are held to the same limit
             err = tuple(map(max, k4_err[cd][d], p[d], *([k4_err[f"{cd}_short"][d]] if d == "fwd" else [])))
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
-            # (source, body, SASS key) per kernel: every K4 kernel but bf16's forward runs on Hopper
+            # (source, body, SASS key) per kernel: every K4 kernel runs on Hopper
             source, body, sass_key = {
-                ("fwd", "bfloat16"): ("fused_mlp.cu", "nerf_mlp.cuh", None),
+                ("fwd", "bfloat16"): ("fused_mlp_sm90.cu", "mlp_wgmma.cuh", "k4_fwd_sm90"),
                 ("fwd", "float32"): ("f32_train_sm90.cu", "mlp_f32_sm90.cuh", "k4_f32_fwd"),
                 ("bwd", "bfloat16"): ("fused_mlp_sm90.cu", "mlp_backward_wgmma.cuh + mlp_wgmma.cuh", "k4_bwd_sm90"),
                 ("bwd", "float32"): ("f32_train_sm90.cu", "mlp_backward_f32_sm90.cuh + mlp_f32_sm90.cuh", "k4_f32_bwd"),
@@ -1779,19 +1875,20 @@ def main() -> int:
                              short_tail_err=k4_err[f"{cd}_short"]["bwd"], short_tail_tolerance=K4_BWD_TOL_SHORT,
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])
             x = p["launches"]
-            if sass_key is not None:  # the earlier kernel (fused_mlp.cu) timed beside it in alternating rounds
-                entry.update(earlier_source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
-                             earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
-                             rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
-                             vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
-                             rounds=K4_ROUNDS[cd][0],
-                             earlier_err=tuple(map(max, *(r["earlier_err"][f"{d}_earlier"] for r in x))),
-                             sass=sass[sass_key], ptxas=ptxas[sass_key])
-            if (d, cd) == ("fwd", "float32"):  # the sigma-only pass, on the same points
+            # the earlier kernel (fused_mlp.cu) timed beside it in alternating rounds
+            entry.update(earlier_source="sinnerf_tpu_torch/csrc/fused_mlp.cu",
+                         earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
+                         rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
+                         vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
+                         rounds=K4_ROUNDS[cd][0],
+                         earlier_err=tuple(map(max, *(r["earlier_err"][f"{d}_earlier"] for r in x))),
+                         sass=sass[sass_key], ptxas=ptxas[sass_key])
+            if d == "fwd":  # the sigma-only pass, on the same points
+                sigma_key = f"{sass_key}_sigma"
                 entry.update(sigma_only_ms=mean_of([r["rounds_ms"] for r in x], "fwd_sigma"),
                              sigma_only_vs_full={r["shape"]: r["ratios"]["fwd_sigma/fwd"] for r in x},
                              sigma_only_err=tuple(map(max, *(r["earlier_err"]["fwd_sigma"] for r in x))),
-                             sigma_only_sass=sass["k4_f32_fwd_sigma"], sigma_only_ptxas=ptxas["k4_f32_fwd_sigma"])
+                             sigma_only_sass=sass[sigma_key], sigma_only_ptxas=ptxas[sigma_key])
             if (d, cd) == ("bwd", "bfloat16"):  # without its dW flush, in the same rounds
                 entry.update(ablation_ms={r["shape"]: {"flush": r["rounds_ms"]["bwd_no_flush"]} for r in x},
                              ablation_vs_bwd={r["shape"]: {"flush": r["ratios"]["bwd_no_flush/bwd"]} for r in x})
@@ -1799,13 +1896,21 @@ def main() -> int:
     k2 = path["k2"] + tpath["k2"]
     kernels.append(dict(
         name="fused_sample_pdf_merge", route="cuda",
-        source="sinnerf_tpu_torch/csrc/fused_sample_pdf.cu",
+        source="sinnerf_tpu_torch/csrc/fused_sample_pdf.cu", kernel="sample_pdf_lanes_kernel",
         replaces="sinnerf_tpu/ops/fused_sample_pdf_t.py:61",
         launches=sum(ev["launches"][cd][1] for cd in ev["launches"]) + sum(train[cd]["counts"][2] for cd in train),
         max_abs_err=max([k2_err] + [x["err"] for x in k2]), tolerance=f"{K2_TOL[1]} + {K2_TOL[0]}|z|",
         ms=mean_of(k2, "ms"), plain_ms=mean_of(k2, "plain_ms"), bound_ms=mean_of(k2, "bound_ms"),
         bound_by="bytes", library_ms=None,
         per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]] for x in k2[:2] + tpath["k2"][:1]},
+        # the first port (sample_pdf_merge_kernel, one thread per ray) timed beside it in alternating rounds
+        earlier_source="sinnerf_tpu_torch/csrc/fused_sample_pdf.cu", earlier_kernel="sample_pdf_merge_kernel",
+        earlier_ms=mean_of(k2, "earlier_ms"), rounds_ms=mean_of(k2, "new_ms"),
+        vs_earlier={x["shape"]: x["ratio"] for x in k2[:2] + tpath["k2"][:1]}, rounds=K2_ROUNDS[0],
+        earlier_err=max(x["earlier_err"] for x in k2), sass=sass["k2_lanes"], ptxas=ptxas["k2_lanes"],
+        # the kernel cut after its rows and after its CDF, in the same rounds
+        parts_ms={x["shape"]: x["parts_ms"] for x in k2[:2] + tpath["k2"][:1]},
+        parts_vs_whole={x["shape"]: x["parts_vs_new"] for x in k2[:2] + tpath["k2"][:1]},
     ))
     for name, r in ((n, x1_res[n]) for n in x1_err):
         kernels.append(dict(

@@ -1,25 +1,40 @@
-// K4-bwd bf16 on Hopper: the per-point MLP's backward on the wgmma body of
-// the bf16 training render's backward (mlp_backward_wgmma.cuh), K3-bwd bf16
-// at one sample per ray.
+// K4 in bf16 on Hopper: the per-point MLP's forward and backward on the
+// wgmma bodies of the bf16 training render (mlp_wgmma.cuh, and
+// mlp_backward_wgmma.cuh for the backward): K3-fwd and K3-bwd bf16 at one
+// sample per ray.
 //
-// Replaces, in bf16, fused_mlp.cu's mlp_bwd_kernel<bf16> (nvcuda::wmma on
-// 64-point blocks, the input gradients as scalar FMA loops, one scalar
-// atomic per dW element per 64 points), which stays built on no path for
-// chip_smoke.py's timing rounds.  The TPU kernel it stands for is
-// sinnerf_tpu/ops/fused_mlp_t.py::_bwd_kernel_t (:298, through _backward_t
-// :436, PE adjoint _pe_bwd :160).  The function, its inputs, outputs and cast
-// points are fused_mlp.cu's (see the note there).  Wrapper, plain version and
-// launch counter: ops/fused_mlp.py (launch_mlp_bwd); slab order, scratch and
-// launch plan: ops/sm90_layout.py (K4_BWD_SLABS, K4_BWD_SCRATCH,
-// k4_bwd_launch_plan).
+// Replaces, in bf16, fused_mlp.cu's mlp_fwd_kernel<bf16, ...> and
+// mlp_bwd_kernel<bf16> (nvcuda::wmma on 64-point blocks, every block reading
+// the whole weight set from global memory; the backward's input gradients as
+// scalar FMA loops, one scalar atomic per dW element per 64 points), which
+// stay built on no path for chip_smoke.py's timing rounds.  The TPU kernels
+// they stand for are sinnerf_tpu/ops/fused_mlp_t.py::_kernel_t (:232, through
+// _forward_t :255) and _bwd_kernel_t (:298, through _backward_t :436, PE
+// adjoint _pe_bwd :160).  The function, its inputs, outputs and cast points
+// are fused_mlp.cu's (see the note there).  Wrapper, plain versions and launch
+// counters: ops/fused_mlp.py (launch_mlp_fwd, launch_mlp_bwd); slab order,
+// scratch and launch plans: ops/sm90_layout.py (K4_SIGMA_SLABS,
+// K4_BWD_SLABS, K4_BWD_SCRATCH, k4_fwd_launch_plan, k4_bwd_launch_plan).
 //
-// Bound: operations, 3 x 593,408 multiply-adds per point (recompute, dgrad
-// with the input gradients, wgrad), 3.56 MFLOP, at the 989 TFLOP/s bf16
-// dense peak.
+// Bound: operations, 593,408 multiply-adds per point forward (1.19 MFLOP),
+// 3 x 593,408 backward (recompute, dgrad with the input gradients, wgrad:
+// 3.56 MFLOP), at the 989 TFLOP/s bf16 dense peak.
 //
-// A CTA is K3-bwd bf16's (two consumer warpgroups of 64 points, one producer
-// warpgroup; shared memory BwdSmem, 222,208 bytes); persistent CTAs walk
-// tiles of 128 consecutive points.  Per tile:
+// K4-fwd (k4_fwd_sm90) is K4-bwd's recompute without keeping, on the
+// forward's CTA (K3-fwd bf16's: two consumer warpgroups of 64 points, one
+// producer warpgroup; shared memory FwdSmem, 3 ring stages, 205,824 bytes):
+// persistent CTAs walk tiles of 128 consecutive points; per tile the points
+// (as K4-bwd loads them), the recurrence PE of each point's xyz and of its
+// own direction, mlp_pass with KeepNone, and [rgb_act(rgb_pre), sigma] of
+// the points < n, each of a row's four threads storing one of the four
+// values.  The producer streams the 39 slabs of FWD_SLABS per tile; the
+// sigma-only pass (SIGMA_ONLY) runs layers 1..8 and the sigma head in its
+// own loop (sigma_trunk: the rest of mlp_pass it does not run) over the
+// first 30 slabs, w1 .. w8, and writes sigma: bit for bit the full pass's.
+//
+// K4-bwd (k4_bwd_sm90): a CTA is K3-bwd bf16's (shared memory BwdSmem,
+// 222,208 bytes); persistent CTAs walk tiles of 128 consecutive points.  Per
+// tile:
 //   1. the points [xyz, dir] (zeros past n, and for null dirs: the
 //      sigma-only case), the recurrence PE of each point's xyz and of its own
 //      direction, then mlp_pass keeping h1..h8 and f in the CTA's scratch;
@@ -37,10 +52,11 @@
 // Points past n get zero cotangents and write nothing; the dW/db sums meet
 // by atomics in an order that changes from run to run.
 // Tested as the port's other kernels are: the CPU tests run the plain
-// version and pin the slab order, the scratch and the launch plan
-// (tests/test_torch_k4_sm90.py); on the card, python3 chip_smoke.py builds,
-// checks and times it.
+// versions and pin the slab orders, the shared memory, the scratch and the
+// launch plans (tests/test_torch_k4_sm90.py); on the card, python3
+// chip_smoke.py builds, checks and times them.
 #include "mlp_backward_wgmma.cuh"
+#include "render_level_sm90.cuh"
 
 using namespace nerf;
 using namespace nerf::k3;
@@ -266,6 +282,108 @@ k4_bwd_sm90(const float* __restrict__ xyz, const float* __restrict__ dirs, const
   }
 }
 
+// The sigma-only pass stops after the sigma head: it streams the slabs of
+// w1 .. w8, the first 30 of FWD_SLABS (ops/sm90_layout.py K4_SIGMA_SLABS).
+constexpr int N_SIGMA_SLABS = 30;
+
+// Layers 1..8 and the sigma head of mlp_pass, for the warpgroup's 64 points
+// (xpe written and fenced by the caller): sig of the thread's two rows, as
+// mlp_pass's layer 8 computes it.  Consumes N_SIGMA_SLABS slabs of the ring.
+__device__ __forceinline__ void sigma_trunk(Ring& ring, const Lane& ln, unsigned char* act, const unsigned char* xpe,
+                                            const bf16* __restrict__ wsig, const float* __restrict__ B,
+                                            float (&sig)[2]) {
+  const int rows = ln.g * WG_ROWS * ROW_BYTES;
+  float acc[128];
+  constexpr int BOFF[9] = {0, B1, B2, B3, B4, B5, B6, B7, B8};
+  for (int l = 1; l <= 8; ++l) {
+    if (l == 1) product<256>(acc, ring, ln, xpe + rows, 1, true);
+    else product<256>(acc, ring, ln, act + rows, 4, true);
+    if (l == 5) product<256>(acc, ring, ln, xpe + rows, 1, false);
+    trunk_epilogue(acc, ln, act, B + BOFF[l], ACT_RELU, l == 8 ? wsig : nullptr, B[BSIG], sig);
+    sm90::fence_proxy_async();
+    ln.wg_sync();
+  }
+}
+
+template <bool SIGMA_ONLY>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+k4_fwd_sm90(const float* __restrict__ xyz, const float* __restrict__ dirs, const unsigned char* __restrict__ slabs,
+            const float* __restrict__ B, float* __restrict__ out, int n, int new_act) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  using L = FwdSmem;
+  float* rays_s = reinterpret_cast<float*>(sm + L::RAYS_F);  // [RAYS][6]: xyz, dir
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + L::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_tiles = (n + RAYS - 1) / RAYS;
+
+  if (threadIdx.x >= CONSUMER_THREADS) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMER_THREADS) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        produce(slabs, sm + L::RING, full, empty, L::STAGES, it, SIGMA_ONLY ? N_SIGMA_SLABS : N_FWD_SLABS,
+                [](int j) { return j; });
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<240>();
+  const Lane ln;
+  Ring ring{sm + L::RING, full, empty, L::STAGES};
+  const bf16* heads = reinterpret_cast<const bf16*>(slabs + HEAD_OFF);
+  unsigned char* act = sm + L::ACT;
+  unsigned char* xpe = sm + L::XPE;
+  unsigned char* dpe = sm + L::DPE;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int p0 = tile * RAYS;
+    consumers_sync();  // the previous tile's readers of the points are done
+    for (int i = threadIdx.x; i < RAYS * 6; i += CONSUMER_THREADS) {  // [xyz, dir]; zeros past n and for null dirs
+      const int p = i / 6, ch = i % 6;
+      float v = 0.f;
+      if (p0 + p < n) {
+        if (ch < 3) v = xyz[(size_t)(p0 + p) * 3 + ch];
+        else if (dirs != nullptr) v = dirs[(size_t)(p0 + p) * 3 + ch - 3];
+      }
+      rays_s[i] = v;
+    }
+    consumers_sync();
+    if (!SIGMA_ONLY) dir_pe(ln, rays_s, dpe);
+    point_pe_sw(ln, rays_s, xpe);
+    sm90::fence_proxy_async();
+    ln.wg_sync();
+    if (SIGMA_ONLY) {
+      float sig[2];
+      sigma_trunk(ring, ln, act, xpe, heads + 3 * HALF, B, sig);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = p0 + ln.row(i);
+        if (p < n && ln.q == 0) out[p] = sig[i];
+      }
+    } else {
+      MlpOut o;
+      mlp_pass(ring, ln, act, xpe, dpe, heads, B, new_act != 0, KeepNone(), o);
+      // [rgb, sigma] of the row: every thread of the row holds all four, the
+      // row's thread q stores the q-th (four threads, 16 bytes in a row)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = p0 + ln.row(i);
+        if (p >= n) continue;
+        const float pre = ln.q == 0 ? o.rpre[i][0] : ln.q == 1 ? o.rpre[i][1] : o.rpre[i][2];  // no local array
+        out[(size_t)p * 4 + ln.q] = ln.q == 3 ? o.sig[i] : rgb_act(pre, new_act != 0);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launches
 template <int ABLATE>
 static int launch_k4_bwd(const void* xyz, const void* dirs, const void* slabs, const void* b, const void* g, void* scratch,
@@ -281,7 +399,31 @@ static int launch_k4_bwd(const void* xyz, const void* dirs, const void* slabs, c
   return (int)cudaGetLastError();
 }
 
+template <bool SIGMA_ONLY>
+static int launch_k4_fwd(const void* xyz, const void* dirs, const void* slabs, const void* b, void* out, int n,
+                         int blocks, int new_act, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute((const void*)k4_fwd_sm90<SIGMA_ONLY>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (n + RAYS - 1) / RAYS;
+  if (tiles == 0) return 0;
+  k4_fwd_sm90<SIGMA_ONLY><<<tiles < blocks ? tiles : blocks, CTA_THREADS, FwdSmem::BYTES, (cudaStream_t)stream>>>(
+      (const float*)xyz, (const float*)dirs, (const unsigned char*)slabs, (const float*)b, (float*)out, n, new_act);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
+
+// xyz (n, 3) f32; dirs (n, 3) f32, unread when sigma_only (may be null);
+// slabs: ops/sm90_layout.py::slab_buffer (bf16); b packed f32 biases.
+// Writes out (n, 4) [rgb, sigma] f32, or (n,) sigma when sigma_only.  At most
+// ``blocks`` CTAs are launched.  Returns the launch's cudaError_t.
+int k4_sm90_fwd(const void* xyz, const void* dirs, const void* slabs, const void* b, void* out, int n, int blocks,
+                int sigma_only, int new_act, void* stream) {
+  return sigma_only ? launch_k4_fwd<true>(xyz, nullptr, slabs, b, out, n, blocks, new_act, stream)
+                    : launch_k4_fwd<false>(xyz, dirs, slabs, b, out, n, blocks, new_act, stream);
+}
+
 
 // xyz (n, 3) f32; dirs (n, 3) f32 or null (zero directions, the sigma-only
 // case); slabs: ops/sm90_layout.py::slab_buffer (bf16); b packed f32
@@ -304,11 +446,14 @@ int k4_sm90_bwd_ablated(const void* xyz, const void* dirs, const void* slabs, co
   return launch_k4_bwd<ABL_FLUSH>(xyz, dirs, slabs, b, g, scratch, dw, db, dxyz, ddir, n, blocks, new_act, stream);
 }
 
-// Shared memory of one CTA, global scratch of one CTA, the slab buffer's size
-// in bf16 values, and the backward's j-th slab (an index into the slab
-// buffer's slabs; -1 past the last): the wrapper holds them against
-// ops/sm90_layout.py.
+// Shared memory of one CTA (the backward's, the forward's), global scratch
+// of one CTA of the backward, the slab buffer's size in bf16 values, the
+// backward's j-th slab (an index into the slab buffer's slabs; -1 past the
+// last) and the slabs one tile of the forward streams (its j-th is slab j):
+// the wrapper holds them against ops/sm90_layout.py.
 int k4_sm90_smem_bytes() { return BwdSmem::BYTES; }
+int k4_sm90_fwd_smem_bytes() { return FwdSmem::BYTES; }
+int k4_sm90_fwd_slabs(int sigma_only) { return sigma_only ? N_SIGMA_SLABS : N_FWD_SLABS; }
 long long k4_sm90_scratch_bytes() { return (long long)K4_BWD_SCRATCH; }
 int k4_sm90_slab_elems() { return SLAB_BUFFER_ELEMS; }
 int k4_sm90_bwd_slab(int j) { return j >= 0 && j < N_BWD_SLABS_K4 ? k4_bwd_slab(j) : -1; }

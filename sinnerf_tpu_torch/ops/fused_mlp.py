@@ -12,8 +12,10 @@ K4 is ``fused_nerf_mlp``, a ``torch.autograd.Function`` over the module's 24
 float32 parameters with gradients for them, the points and the directions.
 Which kernel each direction runs:
 
-- forward, bfloat16: ``csrc/fused_mlp.cu`` (``nerf_mlp.cuh``, wmma on
-  64-point blocks);
+- forward, bfloat16: the Hopper kernel ``k4_fwd_sm90`` of
+  ``csrc/fused_mlp_sm90.cu``, K4-bwd bf16's own recompute on
+  ``mlp_wgmma.cuh`` without keeping (wgmma over weights streamed through
+  shared memory by bulk copies; sigma-only stops at the sigma head);
 - forward, float32: the Hopper kernel ``k4_fwd_f32_sm90`` of
   ``csrc/f32_train_sm90.cu``, K4-bwd f32's own recompute on
   ``mlp_f32_sm90.cuh`` without keeping (FFMA over weights streamed through
@@ -26,9 +28,10 @@ Which kernel each direction runs:
 
 The Hopper kernels need an ``sm_90`` card.  The earlier kernels of
 ``csrc/fused_mlp.cu`` they replace stay built on no path, for
-``chip_smoke.py``'s timing rounds: ``launch_mlp_fwd_block64`` (forward f32),
-``launch_mlp_bwd_wmma`` (backward bf16) and ``launch_mlp_bwd_block64``
-(backward f32).  ``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
+``chip_smoke.py``'s timing rounds: ``launch_mlp_fwd_wmma`` (forward bf16),
+``launch_mlp_fwd_block64`` (forward f32), ``launch_mlp_bwd_wmma`` (backward
+bf16) and ``launch_mlp_bwd_block64`` (backward f32).
+``nerf_mlp_plain``/``nerf_mlp_forward_plain`` and
 ``nerf_mlp_backward_plain`` (with ``pe_backward``) are its plain versions,
 used on CPU tensors and by the tests.  The source notes give the bound
 (operations: 1.19 MFLOP per point forward, 3.56 backward).
@@ -360,9 +363,9 @@ def pack_grads(grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tens
 # K4: the per-point PE + MLP, forward and backward
 # --------------------------------------------------------------------------
 
-SOURCE = "fused_mlp.cu"  # K4-fwd bf16, and the earlier K4 kernels on no path
+SOURCE = "fused_mlp.cu"  # the earlier K4 kernels, on no path
 SOURCE_F32 = "f32_train_sm90.cu"  # the float32 kernels on Hopper: K4-fwd and K4-bwd here, K3 in fused_render_train
-SOURCE_SM90 = "fused_mlp_sm90.cu"  # K4-bwd bf16 on Hopper
+SOURCE_SM90 = "fused_mlp_sm90.cu"  # K4-fwd and K4-bwd bf16 on Hopper
 POINT_CHUNK = 1 << 18  # points per pass of a plain version: bounds its (P, 256) activations
 
 
@@ -546,9 +549,13 @@ def _lib_sm90() -> ctypes.CDLL:
         lib.k4_sm90_bwd.restype = i
         lib.k4_sm90_bwd_ablated.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.k4_sm90_bwd_ablated.restype = i
-        for name in ("k4_sm90_smem_bytes", "k4_sm90_slab_elems"):
+        lib.k4_sm90_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.k4_sm90_fwd.restype = i
+        for name in ("k4_sm90_smem_bytes", "k4_sm90_fwd_smem_bytes", "k4_sm90_slab_elems"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
+        lib.k4_sm90_fwd_slabs.argtypes = [i]
+        lib.k4_sm90_fwd_slabs.restype = i
         lib.k4_sm90_scratch_bytes.argtypes = []
         lib.k4_sm90_scratch_bytes.restype = ctypes.c_longlong
         lib.k4_sm90_bwd_slab.argtypes = [i]
@@ -556,8 +563,13 @@ def _lib_sm90() -> ctypes.CDLL:
         order = []
         while lib.k4_sm90_bwd_slab(len(order)) >= 0:
             order.append(lib.k4_sm90_bwd_slab(len(order)))
-        got = (lib.k4_sm90_smem_bytes(), lib.k4_sm90_scratch_bytes(), lib.k4_sm90_slab_elems(), tuple(order))
-        want = (L.BWD_SMEM, L.K4_BWD_SCRATCH, L.SLAB_BUFFER_SIZE, L.K4_BWD_SLABS)
+        # the forward streams slabs 0 .. count - 1 of the slab buffer: FWD_SLABS,
+        # or K4_SIGMA_SLABS when sigma_only
+        fwd = tuple(tuple(range(lib.k4_sm90_fwd_slabs(so))) for so in (0, 1))
+        got = (lib.k4_sm90_smem_bytes(), lib.k4_sm90_fwd_smem_bytes(), lib.k4_sm90_scratch_bytes(),
+               lib.k4_sm90_slab_elems(), tuple(order), fwd)
+        want = (L.BWD_SMEM, L.FWD_SMEM, L.K4_BWD_SCRATCH, L.SLAB_BUFFER_SIZE, L.K4_BWD_SLABS,
+                (tuple(range(len(L.FWD_SLABS))), L.K4_SIGMA_SLABS))
         if got != want:
             raise RuntimeError(f"csrc/fused_mlp_sm90.cu and ops/sm90_layout.py disagree: {got} != {want}")
         _sm90_signature_set = True
@@ -578,27 +590,28 @@ def _hopper_sms(dev) -> int:
 
 
 def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, sigma_only=False) -> torch.Tensor:
-    """K4-fwd on CUDA tensors: (P, 4) ``[rgb, sigma]`` or (P, 1) sigma.
-    float32 weights run the Hopper kernel of ``csrc/f32_train_sm90.cu`` (K4-bwd
-    f32's recompute on ``mlp_f32_sm90.cuh``; needs an ``sm_90`` card),
-    bfloat16 the wmma kernel of ``csrc/fused_mlp.cu``."""
-    if packed.w.dtype == torch.float32:
-        from sinnerf_tpu_torch.ops import sm90_layout as L
+    """K4-fwd on CUDA tensors: (P, 4) ``[rgb, sigma]`` or (P, 1) sigma.  Both
+    dtypes run Hopper kernels (they need an ``sm_90`` card): bfloat16
+    ``k4_fwd_sm90`` of ``csrc/fused_mlp_sm90.cu`` (``mlp_wgmma.cuh``), float32
+    ``k4_fwd_f32_sm90`` of ``csrc/f32_train_sm90.cu`` (``mlp_f32_sm90.cuh``)."""
+    from sinnerf_tpu_torch.ops import sm90_layout as L
 
-        n, dev = xyz.shape[0], xyz.device
-        sms = _hopper_sms(dev)
-        out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32, device=dev)
-        slabs = L.slab_buffer_f32(packed)
-        lib = _lib_f32()
-        with torch.cuda.device(dev):
-            rc = lib.k4_f32_fwd(
-                xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), slabs.data_ptr(), packed.b.data_ptr(),
-                out.data_ptr(), n, L.k4_fwd_f32_launch_plan(n, sms, sigma_only)["ctas"], int(sigma_only),
-                int(use_new_activation), torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(lib, rc, "fused_nerf_mlp (forward, f32 sm90)")
+    n, dev = xyz.shape[0], xyz.device
+    sms = _hopper_sms(dev)
+    out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32, device=dev)
+    if packed.w.dtype == torch.bfloat16:
+        slabs, lib, entry, what = L.slab_buffer(packed), _lib_sm90(), "k4_sm90_fwd", "bf16 sm90"
+        ctas = L.k4_fwd_launch_plan(n, sms, sigma_only)["ctas"]
     else:
-        out = _launch_fwd_block64(packed, xyz, dirs, use_new_activation, sigma_only)
+        slabs, lib, entry, what = L.slab_buffer_f32(packed), _lib_f32(), "k4_f32_fwd", "f32 sm90"
+        ctas = L.k4_fwd_f32_launch_plan(n, sms, sigma_only)["ctas"]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            xyz.data_ptr(), None if sigma_only else dirs.data_ptr(), slabs.data_ptr(), packed.b.data_ptr(),
+            out.data_ptr(), n, ctas, int(sigma_only), int(use_new_activation),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, f"fused_nerf_mlp (forward, {what})")
     launch_mlp_fwd.launches += 1
     return out
 
@@ -627,13 +640,27 @@ def launch_mlp_fwd_block64(packed: PackedWeights, xyz, dirs, use_new_activation=
     blocks) on CUDA tensors.  Off every path: ``chip_smoke.py`` times it
     beside the Hopper kernel and holds it against the plain version."""
     if packed.w.dtype != torch.float32:
-        raise ValueError("launch_mlp_fwd_block64 is the earlier float32 kernel; bfloat16 runs it on the path")
+        raise ValueError("launch_mlp_fwd_block64 is the earlier float32 kernel; bfloat16 has its own")
     out = _launch_fwd_block64(packed, xyz, dirs, use_new_activation, sigma_only)
     launch_mlp_fwd_block64.launches += 1
     return out
 
 
 launch_mlp_fwd_block64.launches = 0
+
+
+def launch_mlp_fwd_wmma(packed: PackedWeights, xyz, dirs, use_new_activation=True, sigma_only=False):
+    """The earlier bfloat16 K4-fwd (``csrc/fused_mlp.cu``, wmma on 64-point
+    blocks) on CUDA tensors.  Off every path: ``chip_smoke.py`` times it
+    beside the Hopper kernel and holds it against the plain version."""
+    if packed.w.dtype != torch.bfloat16:
+        raise ValueError("launch_mlp_fwd_wmma is the earlier bfloat16 kernel; float32 has its own")
+    out = _launch_fwd_block64(packed, xyz, dirs, use_new_activation, sigma_only)
+    launch_mlp_fwd_wmma.launches += 1
+    return out
+
+
+launch_mlp_fwd_wmma.launches = 0
 
 
 def _bwd_args(packed: PackedWeights, xyz, g, sigma_only):

@@ -2,10 +2,14 @@
 
 Counterpart of ``sinnerf_tpu/ops/fused_sample_pdf_t.py::
 fused_sample_pdf_merge`` (:132), whose TPU kernel is ``_kernel`` (:61).  The
-CUDA kernel is ``csrc/fused_sample_pdf.cu``; its source note gives the bound
-(bytes: about 1.8 KB per ray at S = 64, K = 128) and the design.
+CUDA kernels are in ``csrc/fused_sample_pdf.cu``, whose source note gives the
+bound (bytes: 1,280 B per ray at S = 64, K = 128, 1,792 B with ``u``) and the
+design: ``sample_pdf_lanes_kernel`` on the path (LANES lanes per ray,
+RAYS_PER_BLOCK rays per block, each output position by rank), and the first
+port (one thread per ray, a serial two-pointer merge), kept on no path for
+``chip_smoke.py``'s timing rounds (``launch_sample_pdf_merge_earlier``).
 ``sample_pdf_merge_plain`` is the plain PyTorch version.  It takes the CDF in
-the kernel's sequential order (a loop over columns), not with
+the kernels' sequential order (a loop over columns), not with
 ``torch.cumsum``: near ``denom ~ 1e-5`` an ulp of CDF error moves a fine
 sample by up to ~1% of a bin.
 
@@ -27,6 +31,22 @@ from sinnerf_tpu_torch.ops import _build
 
 SOURCE = "fused_sample_pdf.cu"
 EPS = 1e-5  # reference models/rendering.py:33
+# sample_pdf_lanes_kernel's split (csrc/fused_sample_pdf.cu; the wrapper holds
+# the two together when it loads the kernel): lanes per ray (half a warp) and
+# rays per block
+LANES = 16
+RAYS_PER_BLOCK = 16
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def lanes_smem_bytes(s: int, k: int) -> int:
+    """Shared memory of one block of ``sample_pdf_lanes_kernel``: per ray the
+    z row, the bin edges, the w row (then the CDF) with four floats more, the
+    fine depths and the output row, each rounded up to 16 bytes."""
+    return RAYS_PER_BLOCK * (2 * _round4(s) + _round4(s) + 4 + _round4(k) + _round4(s + k)) * 4
 
 
 def _check_inputs(z_vals, weights, n_importance, u, det) -> None:
@@ -93,14 +113,47 @@ _signature_set = False
 
 
 def _lib() -> ctypes.CDLL:
+    """``csrc/fused_sample_pdf.cu``, its signatures set and the lanes
+    kernel's split and shared memory held against this module's."""
     global _signature_set
     lib = _build.load(SOURCE)
     if not _signature_set:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_sample_pdf_merge.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.fused_sample_pdf_merge.restype = i
+        for name in ("sample_pdf_lanes", "fused_sample_pdf_merge"):
+            getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, p]
+            getattr(lib, name).restype = i
+        lib.sample_pdf_lanes_parts.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.sample_pdf_lanes_parts.restype = i
+        lib.sample_pdf_lanes_layout.argtypes = [i]
+        lib.sample_pdf_lanes_layout.restype = i
+        lib.sample_pdf_lanes_smem_bytes.argtypes = [i, i]
+        lib.sample_pdf_lanes_smem_bytes.restype = ctypes.c_longlong
+        got = (lib.sample_pdf_lanes_layout(0), lib.sample_pdf_lanes_layout(1),
+               lib.sample_pdf_lanes_smem_bytes(64, 128), lib.sample_pdf_lanes_smem_bytes(3, 1))
+        want = (LANES, RAYS_PER_BLOCK, lanes_smem_bytes(64, 128), lanes_smem_bytes(3, 1))
+        if got != want:
+            raise RuntimeError(f"csrc/fused_sample_pdf.cu and ops/fused_sample_pdf.py disagree: {got} != {want}")
         _signature_set = True
     return lib
+
+
+def _launch(entry: str, z_vals, weights, n_importance, u, det, *extra) -> torch.Tensor:
+    """One launch of ``entry`` (a kernel of ``csrc/fused_sample_pdf.cu``, its
+    ``extra`` int arguments before the stream) on CUDA tensors: (N, S + K)."""
+    z = z_vals.contiguous()
+    w = weights.contiguous()
+    uc = None if det else u.contiguous()
+    n, s = z.shape
+    out = torch.empty((n, s + n_importance), dtype=torch.float32, device=z.device)
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        rc = getattr(lib, entry)(
+            z.data_ptr(), w.data_ptr(), None if uc is None else uc.data_ptr(), out.data_ptr(),
+            n, s, n_importance, int(det), *extra, stream,
+        )
+    _build.check(lib, rc, entry)
+    return out
 
 
 @torch.no_grad()
@@ -120,21 +173,46 @@ def fused_sample_pdf_merge(
         return sample_pdf_merge_plain(z_vals, weights, n_importance, u, det)
     if z_vals.device.type != "cuda":
         raise ValueError(f"fused_sample_pdf_merge runs on cpu or cuda, not {z_vals.device}")
-    z = z_vals.contiguous()
-    w = weights.contiguous()
-    uc = None if det else u.contiguous()
-    n, s = z.shape
-    out = torch.empty((n, s + n_importance), dtype=torch.float32, device=z.device)
-    lib = _lib()
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.fused_sample_pdf_merge(
-            z.data_ptr(), w.data_ptr(), None if uc is None else uc.data_ptr(), out.data_ptr(),
-            n, s, n_importance, int(det), stream,
-        )
-    _build.check(lib, rc, "fused_sample_pdf_merge")
+    out = _launch("sample_pdf_lanes", z_vals, weights, n_importance, u, det)
     fused_sample_pdf_merge.launches += 1
     return out
 
 
 fused_sample_pdf_merge.launches = 0
+
+
+@torch.no_grad()
+def launch_sample_pdf_merge_earlier(
+    z_vals: torch.Tensor,
+    weights: torch.Tensor,
+    n_importance: int,
+    u: Optional[torch.Tensor] = None,
+    det: bool = True,
+) -> torch.Tensor:
+    """The first port of K2 (one thread per ray, ``sample_pdf_merge_kernel``)
+    on CUDA tensors, the same function.  Off every path: ``chip_smoke.py``
+    times it beside the kernel on the path and holds it against the plain
+    version."""
+    _check_inputs(z_vals, weights, n_importance, u, det)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"launch_sample_pdf_merge_earlier runs on cuda tensors, not {z_vals.device}")
+    out = _launch("fused_sample_pdf_merge", z_vals, weights, n_importance, u, det)
+    launch_sample_pdf_merge_earlier.launches += 1
+    return out
+
+
+launch_sample_pdf_merge_earlier.launches = 0
+
+
+PARTS = {"rows": 1, "cdf": 2}  # sample_pdf_lanes_parts' cuts
+
+
+def launch_sample_pdf_merge_parts(part: str, z_vals, weights, n_importance, u=None, det=True) -> torch.Tensor:
+    """The kernel on the path cut after its rows (``rows``: loads, bin edges,
+    the store of an unwritten output row) or after its CDF (``cdf``), for
+    timing only: the rows it returns are not the result.  Off every path and
+    counted by no launch count."""
+    _check_inputs(z_vals, weights, n_importance, u, det)
+    if part not in PARTS or z_vals.device.type != "cuda":
+        raise ValueError(f"launch_sample_pdf_merge_parts times the kernel's cuts {sorted(PARTS)} on cuda tensors")
+    return _launch("sample_pdf_lanes_parts", z_vals, weights, n_importance, u, det, PARTS[part])

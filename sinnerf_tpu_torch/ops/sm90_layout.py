@@ -1,5 +1,5 @@
 """Weight layouts and launch plans of the Hopper kernels: K3 in bf16
-(``csrc/fused_render_train_sm90.cu``), K4-bwd in bf16 on the same slabs
+(``csrc/fused_render_train_sm90.cu``), K4 in bf16 on the same slabs
 (``csrc/fused_mlp_sm90.cu``), K1 in both dtypes (``csrc/fused_render_sm90.cu``;
 bf16 on the same slabs as K3, float32 on ``slab_buffer_f32``), and the
 float32 training kernels and K4 in float32 (``csrc/f32_train_sm90.cu``), at
@@ -207,6 +207,26 @@ def launch_plan(n: int, s: int, sm_count: int) -> Dict[str, int]:
         fwd_slabs_per_cta=per_cta * s * len(FWD_SLABS),
         bwd_slabs_per_cta=per_cta * s * (len(FWD_SLABS) + len(BWD_SLABS)),
         fwd_smem=FWD_SMEM, bwd_smem=BWD_SMEM, scratch_bytes=ctas * BWD_SCRATCH,
+    )
+
+
+# ------------------------------------------- K4-fwd bf16 (csrc/fused_mlp_sm90.cu)
+# K4-bwd bf16's recompute without keeping, on K3-fwd bf16's CTA and shared
+# memory (FWD_SMEM): the producer streams FWD_SLABS per tile, the sigma-only
+# pass the slabs of w1 .. w8 (layers 1..8 and the sigma head), the first 30.
+K4_SIGMA_SLABS: Tuple[int, ...] = tuple(i for i, s in enumerate(FWD_SLABS) if s.block not in ("wfin", "wdh", "wdx"))
+
+
+def k4_fwd_launch_plan(n: int, sm_count: int, sigma_only: bool) -> Dict[str, int]:
+    """What one launch of the bf16 K4-fwd runs for n points on a card of
+    ``sm_count`` SMs: tiles of 128 points, persistent CTAs (one per SM at
+    most, each walking tiles ctas apart), threads and shared memory of a CTA
+    (K3-fwd bf16's), the most tiles one CTA runs and the slabs it streams."""
+    plan = launch_plan(n, 1, sm_count)
+    slabs = len(K4_SIGMA_SLABS) if sigma_only else len(FWD_SLABS)
+    return dict(
+        tiles=plan["tiles"], ctas=plan["ctas"], threads=THREADS, smem=FWD_SMEM,
+        tiles_per_cta=plan["tiles_per_cta"], slabs_per_cta=plan["tiles_per_cta"] * slabs,
     )
 
 

@@ -1,20 +1,22 @@
-"""K4 on Hopper in the two places it was redesigned last: the bfloat16
-backward (``csrc/fused_mlp_sm90.cu``, K3-bwd bf16's wgmma body at one sample
-per ray) and the float32 forward (``k4_fwd_f32_sm90`` of
-``csrc/f32_train_sm90.cu``, K4-bwd f32's recompute without keeping).
+"""K4 on Hopper in the three places it was redesigned last: the bfloat16
+backward and forward (``csrc/fused_mlp_sm90.cu``: K3-bwd bf16's wgmma body at
+one sample per ray, and its recompute without keeping, ``k4_fwd_sm90``) and
+the float32 forward (``k4_fwd_f32_sm90`` of ``csrc/f32_train_sm90.cu``,
+K4-bwd f32's recompute without keeping).
 
 On the CPU: the bf16 backward's slab order (the producer's, with the wdx,
 w5x and w1 slabs it streams for the input gradients read as the MN-major B
-of one-slab dgrads), both kernels' shared memory, the bf16 backward's
-scratch and the lane map of its input gradients, the launch plans at ragged
-counts and at the deterministic step's, and that CPU tensors take the plain
-versions and count no launch.
+of one-slab dgrads), the bf16 forward's sigma-only slabs, the kernels' shared
+memory, the bf16 backward's scratch and the lane map of its input gradients,
+the launch plans at ragged counts and at the deterministic step's, and that
+CPU tensors take the plain versions and count no launch.
 
 Tests marked ``cuda`` build and launch the kernels and skip without a card:
-both against their plain versions at 333 and 70,001 points with and without
-``sigma_only`` under ``chip_smoke.py``'s K4 limits, the earlier kernels kept
-for the timing rounds against theirs, and the refusal of other cards.  The
-file imports no JAX."""
+both dtypes against their plain versions at 333 and 70,001 points with and
+without ``sigma_only`` under ``chip_smoke.py``'s K4 limits, the sigma-only
+forward equal to the full one's sigma, the earlier kernels kept for the
+timing rounds against theirs, and the refusal of other cards.  The file
+imports no JAX."""
 
 import math
 import os
@@ -37,6 +39,7 @@ H100_SMS = 132
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 RAGGED_POINTS = (1, 127, 129, 333, 70_001)
 PATH_POINTS = (1_048_576, 3_145_728)  # K4 on the deterministic step: 16,384 rays x 64 and x 192
+FWD_BF16_POINTS = (1, 127, 128, 333, 20_001, 3_145_728)
 CARD_POINTS = (333, 70_001)
 
 
@@ -87,12 +90,29 @@ def test_input_gradient_slabs_read_as_mn_major_b(model, block):
     assert torch.equal(tile.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("kernel,smem", [("k4_bwd_bf16", L.BWD_SMEM), ("k4_fwd_f32", L.K4_F32_FWD_SMEM)])
+def test_k4_fwd_bf16_sigma_only_slabs():
+    """The bf16 forward's producer streams slabs 0 .. count - 1 of FWD_SLABS
+    (the count the kernel reports is held against these when it loads): all
+    39, or for the sigma-only pass the 30 of w1 .. w8, in the order layers
+    1..8 read them (w5h before w5x: one accumulator)."""
+    assert L.K4_SIGMA_SLABS == tuple(range(30))
+    blocks = [L.FWD_SLABS[i].block for i in L.K4_SIGMA_SLABS]
+    assert blocks == (["w1"] + ["w2"] * 4 + ["w3"] * 4 + ["w4"] * 4 + ["w5h"] * 4 + ["w5x"]
+                      + ["w6"] * 4 + ["w7"] * 4 + ["w8"] * 4)
+    assert {s.block for s in L.FWD_SLABS[30:]} == {"wfin", "wdh", "wdx"}
+    assert all(s.rows == 256 for s in L.FWD_SLABS[:30])
+
+
+@pytest.mark.parametrize("kernel,smem", [("k4_bwd_bf16", L.BWD_SMEM), ("k4_fwd_f32", L.K4_F32_FWD_SMEM),
+                                         ("k4_fwd_bf16", L.k4_fwd_launch_plan(1, H100_SMS, False)["smem"])])
 def test_shared_memory_arithmetic(kernel, smem):
     """The bf16 backward takes K3-bwd bf16's shared memory and no tile more
-    (the input gradients go to scratch); the f32 forward K4-bwd f32's."""
+    (the input gradients go to scratch); the f32 forward K4-bwd f32's; the
+    bf16 forward K3-fwd bf16's (an activation tile, the xyz and direction PE,
+    three ring stages: one CTA per SM)."""
     want = {"k4_bwd_bf16": 2 * 65_536 + 16_384 + 2 * 32_768 + 8_192 + 1_024,
-            "k4_fwd_f32": 131_072 + 32_768 + 3 * 16_384 + 7_232 + 2_560}[kernel]
+            "k4_fwd_f32": 131_072 + 32_768 + 3 * 16_384 + 7_232 + 2_560,
+            "k4_fwd_bf16": 65_536 + 2 * 16_384 + 3 * 32_768 + 8_192 + 1_024}[kernel]
     assert smem == want <= SMEM_LIMIT
 
 
@@ -150,12 +170,27 @@ def test_k4_launch_plans(n):
     assert fwd[False]["slabs_per_cta"] == per_cta.max() * 154 and fwd[True]["slabs_per_cta"] == per_cta.max() * 120
 
 
+@pytest.mark.parametrize("n", FWD_BF16_POINTS)
+def test_k4_fwd_bf16_launch_plan(n):
+    """The bf16 forward's tiles of 128 points on persistent CTAs: every point
+    once, K3-fwd bf16's CTA (205,824 bytes, one per SM), 39 slabs per tile
+    or 30 for the sigma-only pass."""
+    tiles = math.ceil(n / 128)
+    per_cta = np.bincount(np.arange(tiles) % min(tiles, H100_SMS))
+    for sigma_only, slabs in ((False, 39), (True, 30)):
+        plan = L.k4_fwd_launch_plan(n, H100_SMS, sigma_only)
+        assert plan["tiles"] == tiles and plan["ctas"] == min(tiles, H100_SMS) and plan["threads"] == 384
+        assert plan["tiles_per_cta"] == per_cta.max() and per_cta.sum() == tiles
+        assert plan["smem"] == 205_824 and 2 * plan["smem"] > SMEM_LIMIT
+        assert plan["slabs_per_cta"] == per_cta.max() * slabs
+
+
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("sigma_only", [False, True])
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch(model, compute_dtype, sigma_only):
     rng = np.random.default_rng(5)
     counters = (fm.launch_mlp_fwd, fm.launch_mlp_bwd, fm.launch_mlp_fwd_block64, fm.launch_mlp_bwd_wmma,
-                fm.launch_mlp_bwd_block64)
+                fm.launch_mlp_bwd_block64, fm.launch_mlp_fwd_wmma)
     before = [c.launches for c in counters]
     xyz = torch.tensor(rng.normal(size=(40, 3)), dtype=torch.float32, requires_grad=True)
     dirs = None if sigma_only else torch.tensor(rng.normal(size=(40, 3)), dtype=torch.float32, requires_grad=True)
@@ -181,6 +216,14 @@ def test_earlier_launchers_refuse_the_other_dtype(model):
             launch(f32, x, x, torch.zeros(4, 4))
 
 
+def test_earlier_bf16_forward_refuses_float32(model):
+    """The earlier wmma forward stays for the timing rounds in bfloat16, the
+    dtype it was replaced in."""
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError):
+        fm.launch_mlp_fwd_wmma(pack_weights(model, torch.float32), x, x)
+
+
 @pytest.mark.parametrize("module", ["ops/fused_mlp.py", "ops/sm90_layout.py"])
 def test_the_k4_modules_import_no_jax(module):
     src = open(os.path.join(os.path.dirname(os.path.dirname(L.__file__)), module)).read()
@@ -204,8 +247,8 @@ def cuda_device():
 @pytest.mark.parametrize("n", CARD_POINTS)
 @pytest.mark.parametrize("sigma_only", [False, True])
 def test_k4_sm90_kernels_match_plain(cuda_device, n, sigma_only):
-    """K4-fwd and K4-bwd in both dtypes, the new kernels among them (bf16
-    backward, f32 forward), against their plain versions: every dW/db leaf,
+    """K4-fwd and K4-bwd in both dtypes, all on Hopper kernels (the bf16
+    forward newest), against their plain versions: every dW/db leaf,
     dxyz and ddir under chip_smoke.py's K4 limits (``k4_bwd_tol``: the short
     tail's at 333 points); one forward and two backward launches each."""
     rng = np.random.default_rng(500 + n)
@@ -222,21 +265,24 @@ def test_k4_sm90_kernels_match_plain(cuda_device, n, sigma_only):
 
 @pytest.mark.cuda
 def test_k4_sigma_only_forward_is_the_full_passs_sigma(cuda_device):
-    """The sigma-only f32 pass runs the full pass's trunk: the same sigma."""
+    """The sigma-only pass runs the full pass's trunk, in both dtypes: the
+    same sigma, bit for bit."""
     rng = np.random.default_rng(6)
-    packed = pack_weights(chip_smoke.make_model(4, cuda_device), torch.float32)
+    model = chip_smoke.make_model(4, cuda_device)
     xyz = torch.tensor(rng.normal(scale=2.0, size=(5_000, 3)), dtype=torch.float32, device=cuda_device)
     dirs = torch.tensor(rng.normal(size=(5_000, 3)), dtype=torch.float32, device=cuda_device)
-    full = fm.launch_mlp_fwd(packed, xyz, dirs)
-    sigma = fm.launch_mlp_fwd(packed, xyz, None, True, True)
-    assert torch.equal(sigma[:, 0].view(torch.int32), full[:, 3].view(torch.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = pack_weights(model, dtype)
+        full = fm.launch_mlp_fwd(packed, xyz, dirs)
+        sigma = fm.launch_mlp_fwd(packed, xyz, None, True, True)
+        assert torch.equal(sigma[:, 0].view(torch.int32), full[:, 3].view(torch.int32)), dtype
 
 
 @pytest.mark.cuda
 def test_earlier_k4_launchers_match_plain(cuda_device):
-    """The earlier kernels kept for the timing rounds (f32 forward, bf16
-    backward) and the bf16 backward without its flush, which leaves dxyz
-    and ddir whole and the trunk's dW at zero."""
+    """The earlier kernels kept for the timing rounds (the forward in both
+    dtypes, the bf16 backward) and the bf16 backward without its flush,
+    which leaves dxyz and ddir whole and the trunk's dW at zero."""
     rng = np.random.default_rng(7)
     model = chip_smoke.make_model(4, cuda_device)
     n = 20_001
@@ -246,6 +292,10 @@ def test_earlier_k4_launchers_match_plain(cuda_device):
     f32, bf16 = pack_weights(model, torch.float32), pack_weights(model, torch.bfloat16)
     diff = (fm.launch_mlp_fwd_block64(f32, xyz, dirs) - fm.nerf_mlp_forward_plain(f32, xyz, dirs)).abs()
     chip_smoke.hold("earlier K4-fwd f32", (diff.max().item(), diff.mean().item()), chip_smoke.K4_FWD_TOL["float32"])
+    before = fm.launch_mlp_fwd_wmma.launches
+    diff = (fm.launch_mlp_fwd_wmma(bf16, xyz, dirs) - fm.nerf_mlp_forward_plain(bf16, xyz, dirs)).abs()
+    assert fm.launch_mlp_fwd_wmma.launches == before + 1
+    chip_smoke.hold("earlier K4-fwd bf16", (diff.max().item(), diff.mean().item()), chip_smoke.K4_FWD_TOL["bfloat16"])
     want = fm.nerf_mlp_backward_plain(bf16, xyz, dirs, g)
     chip_smoke.hold_grads("earlier K4-bwd bf16", chip_smoke.k4_bwd_error(fm.launch_mlp_bwd_wmma(bf16, xyz, dirs, g), want)[0],
                           chip_smoke.K4_BWD_TOL)
@@ -262,7 +312,9 @@ def test_k4_sm90_kernels_refuse_other_cards(cuda_device, monkeypatch):
     model = chip_smoke.make_model(4, cuda_device)
     xyz = torch.tensor(rng.normal(size=(10, 3)), dtype=torch.float32, device=cuda_device)
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a, **k: (8, 0))
-    with pytest.raises(RuntimeError):
-        fm.launch_mlp_fwd(pack_weights(model, torch.float32), xyz, xyz)
+    for dtype in (torch.float32, torch.bfloat16):
+        for sigma_only in (False, True):
+            with pytest.raises(RuntimeError):
+                fm.launch_mlp_fwd(pack_weights(model, dtype), xyz, xyz, True, sigma_only)
     with pytest.raises(RuntimeError):
         fm.launch_mlp_bwd(pack_weights(model, torch.bfloat16), xyz, xyz, torch.zeros(10, 4, device=cuda_device))
