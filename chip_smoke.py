@@ -113,8 +113,27 @@ Phases, any failure exits non-zero without the final result line:
    version (timed there);
 14. ``torch.profiler`` over PROFILED_STEPS bfloat16 stochastic
    ``train_step``s: the device's busy and idle share and its time by kernel;
-15. print one ``kernels`` JSON line, then, last,
-   ``{"ok": true, "device": {...}}``.
+15. the Step-2 training path: ``train_step`` with the full ViT-S/16 loss
+   and the PatchGAN (ndf 64, hinge; STEP2_FIELDS) on the same batch, bf16
+   and f32: STEP2_STEPS steps on the kernels and on the plain path with the
+   same render and Step-2 draws (from generators of their own): every step's
+   losses, and the first step's NeRF and discriminator gradients, to
+   STEP_GRAD_TOL; then STEP2_STEPS timed steps with the counts set to 0 just before and
+   read just after (per step K3-fwd 2, K3-bwd 2, K2 1), and in STEP2_ROUNDS
+   alternating rounds phase 8's step, the Step-1 recipe's (the ViT on, the
+   GAN off) and the Step-2 step;
+16. ``torch.profiler`` over PROFILED_STEPS bf16 Step-2 steps with the ViT's
+   and the discriminator's work marked (``StepParts``): the device's busy
+   and idle share, and its time in the K3 launches, K2, the ViT (forward and
+   backward), the discriminator's calls and the rest;
+17. SinNeRF's two-step recipe through the train CLI on the 504x378 scene
+   (bf16, 2 epochs of 5 steps each): Step 1 with ``--vit_weight 10
+   --allow_random_pretrained``, Step 2 with ``--dis_weight 0.01 --vit_weight
+   0 --pt_model <step1>/last.ckpt --nerf_only``, then Step 2 resumed for a
+   third epoch: launch counts, ms per step, val PSNR, what the checkpoints
+   hold;
+18. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
+   ``step2``), then, last, ``{"ok": true, "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -267,6 +286,16 @@ SASS_KERNELS = {
 }
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
+# the Step-2 phases: the recipe's ViT and GAN weights (hinge) on the Step-1
+# batch, whose 64x64 patches take the discriminator's 64 branch; their draws
+# come from generators of their own, so that the phases before them draw as
+# they did
+STEP2_FIELDS = dict(vit_weight=10.0, dis_weight=0.01, dloss="hinge")
+STEP2_SEED = 2024
+STEP2_STEPS = 3
+STEP2_ROUNDS = 6  # rounds that alternate the Step-1, Step-1 recipe and Step-2 steps
+# what the names of the bf16 K3 kernels hold, for the profiler's split
+K3_KERNEL_TAGS = ("train_fwd_sm90", "train_bwd_sm90")
 MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
 CLI_EPOCHS = 2
 # a training run's best val PSNR must clear a black render's by this much
@@ -1077,6 +1106,370 @@ def phase_profile(device, batch, draws):
     return out
 
 
+def step2_config(cd: str, mlp_impl: str = "pallas", **fields):
+    """``train_config`` with the Step-2 extras of STEP2_FIELDS (``fields``
+    overriding)."""
+    import dataclasses
+
+    return dataclasses.replace(train_config(cd, mlp_impl), **{**STEP2_FIELDS, **fields})
+
+
+def make_step2_draws(gen, b: int, device):
+    """One step's Step-2 draws from the CPU generator ``gen``: the ViT
+    refresh coins (on the host, as the step takes them), then each
+    discriminator call's coin and DiffAugment draws (on the card)."""
+    import torch
+
+    from sinnerf_tpu_torch.models.diffaug import DiffAugDraws, fill_draws
+    from sinnerf_tpu_torch.models.discriminator import DCallDraws
+    from sinnerf_tpu_torch.train.step import POLICY, Step2Draws, refresh_coins
+
+    x = torch.zeros(b, 3, TRAIN_PATCH, TRAIN_PATCH)
+
+    def call():
+        coin = torch.rand((), generator=gen) < 0.5
+        aug = fill_draws(x, POLICY, generator=gen)
+        return DCallDraws(coin.to(device), DiffAugDraws(*(None if t is None else t.to(device) for t in aug)))
+
+    return Step2Draws(refresh=refresh_coins(b, gen), d_fake_g=call(), d_real=call(), d_fake=call())
+
+
+def new_step2_state(device, lr: float = 2e-4):
+    """``new_train_state`` with the Step-2 extras: the full ViT-S/16 and the
+    discriminator (ndf 64, the 64 branch), random from STEP2_SEED, and
+    Adam at 0.2x for the discriminator, as the trainer builds them."""
+    import argparse
+
+    import torch
+
+    from sinnerf_tpu_torch.models.discriminator import Discriminator
+    from sinnerf_tpu_torch.models.vit import EMBED_DIM, load_vit
+    from sinnerf_tpu_torch.train.optimizers import get_optimizer
+
+    state = new_train_state(device, lr=lr)
+    gen = torch.Generator().manual_seed(STEP2_SEED)
+    state.discriminator = Discriminator(imsize=TRAIN_PATCH, generator=gen).to(device)
+    hp = argparse.Namespace(optimizer="adam", lr=lr, momentum=0.9, weight_decay=0.0)
+    state.opt_d = get_optimizer(hp, state.discriminator.parameters(), rate=0.2)
+    state.vit = load_vit(None, gen).to(device)
+    state.ref_feature = torch.zeros((1, EMBED_DIM), device=device)
+    state.ref_feature_valid = torch.zeros((1,), dtype=torch.bool)
+    return state
+
+
+STEP2_LOSSES = ("train/loss", "train/loss_vit", "train/loss_d", "train/loss_g_adv")
+
+
+def phase_step2(device, batch, draws):
+    """The Step-2 training path: ``train_step`` with the ViT loss and the
+    PatchGAN at full width, bf16 and f32.  STEP2_STEPS steps on the kernels
+    and on the plain path with the same render and Step-2 draws (the losses
+    of every step, the NeRFs' and the discriminator's gradients of the
+    first, to STEP_GRAD_TOL); then, from fresh weights, one step and
+    STEP2_STEPS timed steps with every launch count set to 0 just before and
+    read just after (per step K3-fwd 2, K3-bwd 2, K2 1); then in
+    STEP2_ROUNDS alternating rounds one step each of phase 8's Step-1 step,
+    the Step-1 recipe's (the ViT on, the GAN off) and this one."""
+    import torch
+
+    from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
+    from sinnerf_tpu_torch.train.step import train_step
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    gen = torch.Generator().manual_seed(STEP2_SEED + 1)
+    step_draws = [make_step2_draws(gen, 1, device) for _ in range(1 + STEP2_STEPS)]
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        # STEP2_STEPS steps on the kernels and on the plain path, the same
+        # render and Step-2 draws: the losses of every step, the gradients
+        # of the first (later ones start from weights that differ)
+        tol = STEP_GRAD_TOL[cd]
+        states = {impl: new_step2_state(device) for impl in ("pallas", "xla")}
+        loss_err, err_g, err_d = 0.0, None, None
+        for i in range(STEP2_STEPS):
+            seen = {}
+            for impl in states:
+                states[impl], aux = train_step(states[impl], batch, step2_config(cd, impl), 0.0, draws,
+                                               step2_draws=step_draws[i])
+                seen[impl] = dict(losses={t: aux["metrics"][t].item() for t in STEP2_LOSSES},
+                                  g=[p.grad for m in states[impl].models.values() for p in m.parameters()],
+                                  d=[p.grad for p in states[impl].discriminator.parameters()])
+            k, x = seen["pallas"], seen["xla"]
+            if i == 0:
+                err_g, err_d = grad_errors(k["g"], x["g"]), grad_errors(k["d"], x["d"])
+            step_err = max(abs(k["losses"][t] - x["losses"][t]) / max(abs(x["losses"][t]), 1e-30)
+                           for t in STEP2_LOSSES)
+            loss_err = max(loss_err, step_err)
+            print(f"Step-2 train_step {cd} step {i + 1}: " + ", ".join(
+                f"{t[6:]} {k['losses'][t]:.6f} (plain {x['losses'][t]:.6f})" for t in STEP2_LOSSES))
+            if not all(math.isfinite(v) and v != 0.0 for v in k["losses"].values()):
+                raise Failed(f"Step-2 train_step {cd}: a loss is zero or not finite: {k['losses']}")
+        print(f"Step-2 train_step {cd:8s} losses over {STEP2_STEPS} steps, kernel path vs plain path: worst "
+              f"relative difference {loss_err:.3e} (tol {tol[0]:.0e})")
+        if not loss_err <= tol[0]:
+            raise Failed(f"Step-2 train_step {cd}: the kernel path's losses leave the plain path's")
+        hold_grads(f"Step-2 train_step {cd:8s} first step's NeRF gradients, kernel path vs plain path", err_g, tol)
+        hold_grads(f"Step-2 train_step {cd:8s} first step's discriminator gradients, kernel path vs plain path",
+                   err_d, tol)
+        del states, seen, k, x
+        torch.cuda.empty_cache()
+
+        # the path's run: STEP2_STEPS steps from fresh weights, counted and timed
+        state, _ = train_step(new_step2_state(device), batch, step2_config(cd), 0.0, draws, step2_draws=step_draws[0])
+        torch.cuda.synchronize()
+        counters = (launch_train_fwd, launch_train_bwd, fused_sample_pdf_merge)
+        for c in counters:
+            c.launches = 0
+        losses = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(STEP2_STEPS):
+            state, aux = train_step(state, batch, step2_config(cd), 0.0, draws, step2_draws=step_draws[1 + i])
+            losses.append(aux["metrics"]["train/loss"])
+        end.record()
+        end.synchronize()
+        counts = tuple(c.launches for c in counters)
+        step_ms = start.elapsed_time(end) / STEP2_STEPS
+        losses = [float(v) for v in losses]
+        u_moved = state.discriminator.u()[0].norm().item()
+        if counts != (2 * STEP2_STEPS, 2 * STEP2_STEPS, STEP2_STEPS):
+            raise Failed(f"Step-2 train_step {cd}: launch counts {counts}")
+        if not all(math.isfinite(v) for v in losses) or not math.isfinite(u_moved):
+            raise Failed(f"Step-2 train_step {cd}: losses {losses}, |u| {u_moved}")
+
+        # beside it, in rounds that alternate them: phase 8's step (no
+        # extras), the Step-1 recipe's (the ViT on, the GAN off) and this one
+        states = {"step1": new_train_state(device), "step1_vit": new_step2_state(device), "step2": state}
+        states["step1_vit"].discriminator = states["step1_vit"].opt_d = None
+        cfgs = {"step1": train_config(cd), "step1_vit": step2_config(cd, dis_weight=0.0), "step2": step2_config(cd)}
+
+        def stepper(name):
+            def run():
+                states[name], _ = train_step(states[name], batch, cfgs[name], 0.0, draws, step2_draws=step_draws[1])
+            return run
+
+        fns = {name: stepper(name) for name in states}
+        for fn in fns.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        saved = tuple(c.launches for c in counters)
+        per_round = interleaved_ms(fns, STEP2_ROUNDS, 1)
+        for c, n in zip(counters, saved):  # these steps compare the variants: not the path's launches
+            c.launches = n
+        rounds_ms = {k: (sum(v) / len(v), min(v), max(v)) for k, v in per_round.items()}
+        del states, state, fns
+        torch.cuda.empty_cache()
+        print(f"Step-2 train_step {cd}: {step_ms:.2f} ms per step; launches over {STEP2_STEPS} steps: K3-fwd "
+              f"{counts[0]}, K3-bwd {counts[1]}, K2 {counts[2]}; loss {' -> '.join(f'{v:.6f}' for v in losses)}; "
+              f"in {STEP2_ROUNDS} alternating rounds, ms per step (mean, min-max): " + ", ".join(
+                  f"{k} {m:.2f} ({lo:.2f}-{hi:.2f})" for k, (m, lo, hi) in rounds_ms.items()))
+        out[cd] = dict(step_ms=step_ms, rounds_ms=rounds_ms, counts=counts, losses=losses, loss_err=loss_err,
+                       grad_err=err_g, d_grad_err=err_d)
+    return out
+
+
+class StepParts:
+    """Marks where the ViT's and the discriminator's work starts and ends in
+    a step, forward and backward, by launching a one-cycle spin kernel at
+    each mark and keeping the marks' order on the host: the device runs one
+    stream, so in a profiler trace the kernels between a part's marks are
+    that part's.  Forward marks wrap ``vit_cls`` and the discriminator's
+    ``forward``; backward marks sit on their outputs (the gradient arrives)
+    and inputs (it leaves), and on the discriminator's first weight (its
+    gradient is complete, which ends the backward of the calls whose input
+    takes none)."""
+
+    def __init__(self):
+        self.tags = []  # (part, "open" | "close" | "close_all"), in launch order
+
+    def mark(self, part: str, what: str) -> None:
+        import torch
+
+        self.tags.append((part, what))
+        torch.cuda._sleep(1)
+
+    def passthrough(self, x, part: str, what: str):
+        import torch
+
+        parts = self
+
+        class Mark(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, t):
+                return t.view_as(t)
+
+            @staticmethod
+            def backward(ctx, g):
+                parts.mark(part, what)
+                return g
+
+        return Mark.apply(x) if x.requires_grad else x
+
+    def install(self, step_module, discriminator):
+        """Patch ``step_module.vit_cls`` and ``discriminator.forward``;
+        returns a function that removes the patches."""
+        real_vit, real_d = step_module.vit_cls, discriminator.forward
+
+        def vit_cls(model, x):
+            self.mark("vit", "open")
+            x = self.passthrough(x, "vit", "close")
+            out = real_vit(model, x)
+            self.mark("vit", "close")
+            return self.passthrough(out, "vit", "open")
+
+        def d_forward(x, *args, **kwargs):
+            self.mark("d", "open")
+            x = self.passthrough(x, "d", "close")
+            out, u = real_d(x, *args, **kwargs)
+            self.mark("d", "close")
+            return self.passthrough(out, "d", "open"), u
+
+        hook = discriminator.convs()[0].weight_orig.register_hook(lambda g: self.mark("d", "close_all"))
+        step_module.vit_cls, discriminator.forward = vit_cls, d_forward
+
+        def remove():
+            step_module.vit_cls = real_vit
+            del discriminator.forward
+            hook.remove()
+
+        return remove
+
+    def attribute(self, kernels):
+        """Device ms per part over ``kernels`` [(name, start, end)] in device
+        order: each kernel goes to the part whose mark opened last among the
+        open ones, else to "rest".  None when the trace's spin kernels do not
+        match the marks one for one."""
+        spins = [kv for kv in kernels if "spin_kernel" in kv[0]]
+        if len(spins) != len(self.tags):
+            return None
+        ms = {"vit": 0.0, "d": 0.0, "rest": 0.0}
+        open_stack = []
+        marks = iter(self.tags)
+        for name, t0, t1 in kernels:
+            if "spin_kernel" in name:
+                part, what = next(marks)
+                if what == "open":
+                    open_stack.append(part)
+                elif what == "close" and part in open_stack:
+                    open_stack.reverse()
+                    open_stack.remove(part)
+                    open_stack.reverse()
+                elif what == "close_all":
+                    open_stack = [p for p in open_stack if p != part]
+                continue
+            ms[open_stack[-1] if open_stack else "rest"] += (t1 - t0) / 1e3
+        return ms
+
+
+def phase_step2_profile(device, batch, draws):
+    """``torch.profiler`` over PROFILED_STEPS bf16 Step-2 steps (after one
+    untraced step) with the ViT's and the discriminator's work marked
+    (``StepParts``): the device's busy and idle share of the host-clock
+    window, and its time by part: the K3 launches, K2, the ViT forward and
+    backward, the discriminator's calls forward and backward, the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sinnerf_tpu_torch.train import step as step_module
+
+    cfg = step2_config("bfloat16")
+    gen = torch.Generator().manual_seed(STEP2_SEED + 2)
+    step_draws = [make_step2_draws(gen, 1, device) for _ in range(1 + PROFILED_STEPS)]
+    state, _ = step_module.train_step(new_step2_state(device), batch, cfg, 0.0, draws, step2_draws=step_draws[0])
+    torch.cuda.synchronize()
+    parts = StepParts()
+    remove = parts.install(step_module, state.discriminator)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(PROFILED_STEPS):
+                state, _ = step_module.train_step(state, batch, cfg, 0.0, draws, step2_draws=step_draws[1 + i])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        remove()
+    kernels = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA), key=lambda kv: kv[1])
+    busy = sum((t1 - t0) / 1e3 for name, t0, t1 in kernels if "spin_kernel" not in name)
+    n = PROFILED_STEPS
+    k3 = sum((t1 - t0) / 1e3 for name, t0, t1 in kernels if any(t in name for t in K3_KERNEL_TAGS))
+    k2 = sum((t1 - t0) / 1e3 for name, t0, t1 in kernels if "sample_pdf" in name)
+    by_part = parts.attribute(kernels)
+    out = dict(wall_ms_per_step=wall_ms / n, busy_ms_per_step=busy / n, k3_ms_per_step=k3 / n,
+               k2_ms_per_step=k2 / n, idle_share=1 - busy / wall_ms if busy else None,
+               marks=len(parts.tags))
+    if by_part is not None:
+        out.update({f"{p}_ms_per_step": v / n for p, v in by_part.items()})
+    if not busy:
+        print("Step-2 profiler: the trace holds no device time (device idle share: not measured)")
+        return out
+    split = (f"ViT fwd+bwd {out['vit_ms_per_step']:.2f} ms, discriminator calls fwd+bwd {out['d_ms_per_step']:.2f} ms"
+             if by_part is not None else "ViT and discriminator: not measured (the marks did not match the trace)")
+    print(f"Step-2 profiler, {n} bf16 steps: {out['wall_ms_per_step']:.2f} ms per step (host clock, traced), device "
+          f"busy {out['busy_ms_per_step']:.2f} ms, idle {100 * out['idle_share']:.1f}%; per step: K3 "
+          f"{out['k3_ms_per_step']:.2f} ms ({100 * k3 / busy:.1f}% of busy), K2 {out['k2_ms_per_step']:.3f} ms, {split} "
+          f"({len(parts.tags) // n} marks per step)")
+    return out
+
+
+def phase_step2_cli(device):
+    """SinNeRF's two-step LLFF recipe through the train CLI on the 504x378
+    scene, bf16, each step cut to CLI_EPOCHS epochs of 5 steps: Step 1 with
+    the random-weight ViT (``--vit_weight 10 --allow_random_pretrained``),
+    Step 2 with the PatchGAN warm-started from Step 1's ``last.ckpt``
+    (``--dis_weight 0.01 --vit_weight 0 --nerf_only``), then Step 2 resumed
+    for one more epoch.  Per run the launch counts, ms per step and val PSNR
+    (the two steps' best must clear a black render's by EMPTY_MARGIN_DB)."""
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        root, _ = make_scene(workdir)
+        ckpts = os.path.join(workdir, "train_ckpts")
+        step1_last = os.path.join(ckpts, "smoke_step1", "last.ckpt")
+        step2 = ["--dis_weight", "0.01", "--vit_weight", "0", "--pt_model", step1_last, "--nerf_only"]
+        runs = (
+            ("step1", cli_flags(root, workdir, "bfloat16", "smoke_step1") + ["--vit_weight", "10",
+                                                                               "--allow_random_pretrained"]),
+            ("step2", cli_flags(root, workdir, "bfloat16", "smoke_step2") + step2),
+            ("step2_resumed", cli_flags(root, workdir, "bfloat16", "smoke_step2") + step2 + [
+                "--num_epochs", str(CLI_EPOCHS + 1), "--ckpt_path", os.path.join(ckpts, "smoke_step2", "last.ckpt")]),
+        )
+        empty = None
+        for name, flags in runs:
+            trainer, counts, wall = run_cli(flags)
+            if empty is None:
+                empty = empty_render_psnr(trainer.val_dataset)
+            steps = sum(e[1] for e in trainer.epoch_log)
+            step_ms = 1e3 * sum(e[2] for e in trainer.epoch_log) / steps
+            blob = torch.load(os.path.join(ckpts, trainer.hparams.exp_name, "last.ckpt"), map_location="cpu",
+                              weights_only=False)
+            d_keys = sum(k.startswith("D.") for k in blob["state_dict"])
+            print(f"train CLI {name}: {steps} steps, {step_ms:.1f} ms per step (host clock over each epoch), "
+                  f"{wall:.1f} s in all; val PSNR per epoch {trainer.val_log} (black render {empty:.4f}); launches "
+                  f"{counts}; last.ckpt: {d_keys} discriminator tensors, {len(blob['optimizer_states'])} optimizer "
+                  f"states, ViT cache {'ref_feature' in blob}")
+            want_epochs = [CLI_EPOCHS] if name == "step2_resumed" else list(range(CLI_EPOCHS))
+            if [e[0] for e in trainer.epoch_log] != want_epochs or not math.isfinite(trainer.best_psnr):
+                raise Failed(f"train CLI {name}: epochs {trainer.epoch_log}, PSNR {trainer.best_psnr}")
+            if name != "step2_resumed" and trainer.best_psnr < empty + EMPTY_MARGIN_DB:
+                raise Failed(f"train CLI {name}: best val PSNR {trainer.best_psnr}, a black render scores {empty}")
+            if counts["K3-fwd"] != 2 * steps or counts["K3-bwd"] != 2 * steps or counts["K2"] < steps:
+                raise Failed(f"train CLI {name}: launch counts {counts}")
+            gan = name != "step1"
+            if (d_keys > 0) != gan or len(blob["optimizer_states"]) != 1 + gan or ("ref_feature" in blob) == gan:
+                raise Failed(f"train CLI {name}: checkpoint holds {d_keys} D tensors, "
+                             f"{len(blob['optimizer_states'])} optimizer states")
+            out[name] = dict(counts=counts, steps=steps, step_ms=step_ms, wall_s=wall, psnr=trainer.best_psnr,
+                             val_log=trainer.val_log)
+            del trainer
+            torch.cuda.empty_cache()
+    out["empty_psnr"] = empty
+    return out
+
+
 def phase_train(device, batch, draws):
     """The training main path: ``train_step`` at full width."""
     import torch
@@ -1408,12 +1801,12 @@ def empty_render_psnr(val_dataset) -> float:
     return float(torch.stack([psnr(torch.zeros_like(gt), gt) for gt in gts]).mean())
 
 
-def phase_train_cli(device, workdir: str, root: str):
-    """The train CLI's ``main`` in both configurations, a resume on the
-    kernel and the plain path, and the eval CLI on one of its checkpoints."""
+def run_cli(flags):
+    """``python -m sinnerf_tpu_torch.train``'s ``main`` on ``flags`` with every
+    kernel's launch count set to 0 just before and read just after: (the
+    trainer, the counts, seconds in all)."""
     import torch
 
-    from sinnerf_tpu_torch import eval as port_eval
     from sinnerf_tpu_torch.opt import get_opts
     from sinnerf_tpu_torch.ops.fused_mlp import launch_mlp_bwd, launch_mlp_fwd
     from sinnerf_tpu_torch.ops.fused_render import fused_render_level
@@ -1424,14 +1817,20 @@ def phase_train_cli(device, workdir: str, root: str):
     names = ("K1", "K2", "K3-fwd", "K3-bwd", "K4-fwd", "K4-bwd")
     counters = (fused_render_level, fused_sample_pdf_merge, launch_train_fwd, launch_train_bwd, launch_mlp_fwd,
                 launch_mlp_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main(get_opts(flags))
+    torch.cuda.synchronize()
+    return trainer, {k: c.launches for k, c in zip(names, counters)}, time.perf_counter() - t0
 
-    def run(flags):
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        trainer = train_main(get_opts(flags))
-        torch.cuda.synchronize()
-        return trainer, {k: c.launches for k, c in zip(names, counters)}, time.perf_counter() - t0
+
+def phase_train_cli(device, workdir: str, root: str):
+    """The train CLI's ``main`` in both configurations, a resume on the
+    kernel and the plain path, and the eval CLI on one of its checkpoints."""
+    import torch
+
+    from sinnerf_tpu_torch import eval as port_eval
 
     out = {}
     empty = None
@@ -1446,7 +1845,7 @@ def phase_train_cli(device, workdir: str, root: str):
     runs = (("stochastic", "bfloat16", []), ("deterministic", "bfloat16", det), ("deterministic", "float32", det))
     for mode, cd, extra in runs:
         exp = f"smoke_{mode}_{cd}"
-        trainer, counts, wall = run(cli_flags(root, workdir, cd, exp) + extra)
+        trainer, counts, wall = run_cli(cli_flags(root, workdir, cd, exp) + extra)
         if empty is None:
             empty = empty_render_psnr(trainer.val_dataset)
         steps = sum(e[1] for e in trainer.epoch_log)
@@ -1480,7 +1879,7 @@ def phase_train_cli(device, workdir: str, root: str):
     resume = det + ["--num_epochs", str(CLI_EPOCHS + 1), "--ckpt_path", last]
     resumed = {}
     for impl, name in (("xla", exp + "_plain"), ("pallas", exp)):
-        trainer, counts, wall = run(cli_flags(root, workdir, "float32", name) + resume + ["--mlp_impl", impl])
+        trainer, counts, wall = run_cli(cli_flags(root, workdir, "float32", name) + resume + ["--mlp_impl", impl])
         epochs = [e[0] for e in trainer.epoch_log]
         print(f"train CLI resumed from {os.path.basename(last)} on mlp_impl={impl}: epochs {epochs}, step "
               f"{trainer.state.step}, val PSNR {trainer.best_psnr:.4f} (black render {empty:.4f}), {wall:.1f} s, "
@@ -1768,6 +2167,9 @@ def main() -> int:
         x2_err, x2_earlier_fwd_err = phase_x2_checks(device)
         x2_res, x2_counts = phase_x2(device)
         profile = phase_profile(device, batch, draws)
+        step2 = phase_step2(device, batch, draws)
+        step2_profile = phase_step2_profile(device, batch, draws)
+        step2_cli = phase_step2_cli(device)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1815,6 +2217,9 @@ def main() -> int:
                 bound_by=p["launches"][0]["bounds"][d][1], library_ms=None,
                 per_launch={x["shape"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for x, r in zip(p["launches"], rows)},
                 step_ms=t["step_ms"], steps=TRAIN_STEPS,
+                # the Step-2 path (phase 15): its launches over STEP2_STEPS steps and its step
+                step2_launches=step2[cd]["counts"][i], step2_step_ms=step2[cd]["step_ms"],
+                step2_cli_launches=step2_cli["step2"]["counts"][f"K3-{d}"],
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -1899,6 +2304,7 @@ def main() -> int:
         source="sinnerf_tpu_torch/csrc/fused_sample_pdf.cu", kernel="sample_pdf_lanes_kernel",
         replaces="sinnerf_tpu/ops/fused_sample_pdf_t.py:61",
         launches=sum(ev["launches"][cd][1] for cd in ev["launches"]) + sum(train[cd]["counts"][2] for cd in train),
+        step2_launches=sum(step2[cd]["counts"][2] for cd in step2),
         max_abs_err=max([k2_err] + [x["err"] for x in k2]), tolerance=f"{K2_TOL[1]} + {K2_TOL[0]}|z|",
         ms=mean_of(k2, "ms"), plain_ms=mean_of(k2, "plain_ms"), bound_ms=mean_of(k2, "bound_ms"),
         bound_by="bytes", library_ms=None,
@@ -1945,7 +2351,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
           f"(K1: one eval image; K3 and K4: one train step; K2: both; X1 and X2: one launch of the experiment's "
           f"size); no single PyTorch call computes any kernel's function")
-    print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli}))
+    print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli,
+                      "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

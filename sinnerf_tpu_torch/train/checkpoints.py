@@ -1,14 +1,16 @@
 """Reference-format checkpoints: ``.ckpt`` files holding ``{'state_dict':
-{nerf_coarse.*, nerf_fine.*}}``.
+{nerf_coarse.*, nerf_fine.*, D.*}}``.
 
-Counterpart of ``sinnerf_tpu/train/checkpoints.py``: the ``nerf_only`` path
-of ``load_torch_nerf_checkpoint`` (:186-230) with ``prefixes_to_ignore``,
-the NeRF part of ``export_torch_checkpoint`` (:250), and
-``TopKCheckpointManager`` (:132, reference ``train.py:34-35``: top-2 on
-val/psnr plus ``last``).  A training checkpoint is a reference-format file
-that also carries what a resume needs: the optimizer's state (Adam's
-moments and step), the epoch, the step, the top-k ranking and the flags.
-The JAX package's orbax checkpoint directories are not read by the port.
+Counterpart of ``sinnerf_tpu/train/checkpoints.py``: ``load_torch_nerf_checkpoint``
+(:186-230) with ``prefixes_to_ignore`` and, for the whole-system load, the
+discriminator under the reference's ``D.main.<slot>.weight_orig / weight_u /
+weight_v`` keys (``load_torch_discriminator``), ``export_torch_checkpoint``
+(:250), and ``TopKCheckpointManager`` (:132, reference ``train.py:34-35``:
+top-2 on val/psnr plus ``last``).  A training checkpoint is a
+reference-format file that also carries what a resume needs: the optimizer
+states ``[opt_g, opt_d]``, the ViT cache and its flags, the epoch, the step,
+the top-k ranking and the flags.  The JAX package's orbax checkpoint
+directories are not read by the port.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Dict, Iterable
 import numpy as np
 import torch
 
+from sinnerf_tpu_torch.models.discriminator import Discriminator, import_torch_discriminator_state
 from sinnerf_tpu_torch.models.nerf import TORCH_KEY_MAP
 
 LEVELS = (("coarse", "nerf_coarse."), ("fine", "nerf_fine."))
@@ -67,6 +70,23 @@ def load_torch_nerf_checkpoint(path: str, prefixes_to_ignore: Iterable[str] = ()
         if out:
             return out
     raise KeyError(f"no NeRF weights found in {path}")
+
+
+def load_torch_discriminator(path: str, model: Discriminator, prefixes_to_ignore: Iterable[str] = ()) -> bool:
+    """Load the discriminator of a reference checkpoint (keys ``D.*``, also
+    under a ``model.`` or ``module.`` wrapper) into ``model``; False, and
+    ``model`` untouched, when the checkpoint has none (JAX
+    ``load_torch_nerf_checkpoint(nerf_only=False)`` :231-244)."""
+    blob = read_checkpoint(path)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    prefixes = tuple(prefixes_to_ignore or ())
+    if prefixes:
+        state = {k: v for k, v in state.items() if not k.startswith(prefixes)}
+    for prefix in ("D.", "model.D.", "module.D."):
+        if any(k.startswith(prefix + "main.") for k in state):
+            import_torch_discriminator_state(model, state, prefix=prefix)
+            return True
+    return False
 
 
 def nerf_state_dict(states: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:

@@ -11,8 +11,13 @@ through ``render_chunked`` and a checkpoint (top-2 on val/psnr plus
 ``last``).  Scalars go to TensorBoard under the JAX package's tags when a
 TensorBoard writer imports; without one the writer is None.
 
-The Step-2 extras (``--vit_weight``, ``--dis_weight``) and ``--num_gpus > 1``
-come in later slices and raise.
+The Step-2 extras are built as the JAX trainer builds them (:129-194): the
+discriminator at ``imsize=--patch_size`` when ``--dis_weight > 0``, with its
+own optimizer at a constant 0.2x the learning rate; the frozen ViT when
+``--vit_weight > 0`` and the VGG trunk for ``--patch_loss l2_vgg``, from
+``--vit_weights`` / ``--vgg_weights``, or random from the seed under
+``--allow_random_pretrained`` (refused otherwise).  ``--num_gpus > 1``
+comes in a later slice and raises.
 """
 
 from __future__ import annotations
@@ -26,21 +31,26 @@ import numpy as np
 import torch
 
 from sinnerf_tpu_torch.data import dataset_dict
+from sinnerf_tpu_torch.models.discriminator import Discriminator, export_torch_discriminator_state, output_side
 from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
+from sinnerf_tpu_torch.models.vgg import load_vgg
+from sinnerf_tpu_torch.models.vit import EMBED_DIM, load_vit
 from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked
 from sinnerf_tpu_torch.train.checkpoints import (
     TopKCheckpointManager,
+    load_torch_discriminator,
     load_torch_nerf_checkpoint,
     nerf_state_dict,
     read_checkpoint,
 )
 from sinnerf_tpu_torch.train.optimizers import get_optimizer, lr_for_epoch, set_lr
-from sinnerf_tpu_torch.train.step import TrainConfig, TrainState, train_step
+from sinnerf_tpu_torch.train.step import Step2Draws, TrainConfig, TrainState, refresh_coins, train_step
 from sinnerf_tpu_torch.utils.device import resolve_device
 from sinnerf_tpu_torch.utils.metrics import psnr as psnr_metric
 from sinnerf_tpu_torch.utils.visualization import visualize_depth
 
 LATER = "is ported in a later slice"
+D_LR_RATE = 0.2  # the discriminator's constant share of --lr (sinnerf.py:208)
 
 
 def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
@@ -59,11 +69,25 @@ def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
 def _check_supported(hparams: Any) -> None:
     if hparams.num_gpus > 1:
         raise NotImplementedError(f"--num_gpus > 1: multi-GPU training {LATER}; pass --num_gpus 1")
-    if hparams.vit_weight > 0:
-        raise NotImplementedError(f"--vit_weight > 0: the DINO-ViT semantic loss {LATER} (Step-2 extras)")
+    if hparams.loss_type in ("l2_vgg", "l2_ssim"):
+        # the random-ray loss feeds flat (N, 3) bundles, on which the
+        # reference's VGG and SSIM losses crash (losses.py:105, 129)
+        raise ValueError(f"--loss_type {hparams.loss_type} is unsupported (as in the reference, where it "
+                         f"crashes on ray bundles); use --patch_loss {hparams.loss_type} for the patch term")
+    allow_random = hparams.allow_random_pretrained
+    if hparams.vit_weight > 0 and not hparams.vit_weights and not allow_random:
+        raise ValueError("--vit_weight > 0 requires --vit_weights <path to DINO ViT-S/16 torch weights>: without "
+                         "them the semantic loss compares against a RANDOM ViT and is pure noise. Pass "
+                         "--allow_random_pretrained to override (tests only).")
+    if hparams.patch_loss == "l2_vgg" and not hparams.vgg_weights and not allow_random:
+        raise ValueError("--patch_loss l2_vgg requires --vgg_weights <path to torchvision VGG16 weights>: without "
+                         "them the perceptual loss uses a RANDOM VGG. Pass --allow_random_pretrained to override "
+                         "(tests only).")
     if hparams.dis_weight > 0:
-        raise NotImplementedError(f"--dis_weight > 0: the PatchGAN discriminator {LATER} (Step-2 extras); "
-                                  "pass --dis_weight 0")
+        side = min(hparams.patch_size_x, hparams.patch_size_y)  # the LLFF patch; D's branch is --patch_size's
+        if output_side(hparams.patch_size, side) < 1:
+            raise ValueError(f"--dis_weight > 0: a {side}-pixel patch is too small for the discriminator's "
+                             f"imsize={hparams.patch_size} branch")
 
 
 def _make_writer(log_dir: str):
@@ -99,6 +123,7 @@ class SinNeRFTrainer:
             dataset_name=hparams.dataset_name,
             loss_type=hparams.loss_type,
             patch_loss=hparams.patch_loss,
+            dloss=hparams.dloss,
             depth_weight=hparams.depth_weight,
             vit_weight=hparams.vit_weight,
             dis_weight=hparams.dis_weight,
@@ -112,22 +137,40 @@ class SinNeRFTrainer:
         # ---- models: reference-width NeRFs drawn from the seed -------------
         rng = np.random.default_rng(seed)
         models = {level: nerf_from_state(state_dict_from_jax(random_params(rng))) for level in ("coarse", "fine")}
+        init = torch.Generator().manual_seed(seed + 3)  # D, ViT and VGG when random
+        disc = Discriminator(imsize=hparams.patch_size, generator=init) if hparams.dis_weight > 0 else None
         if hparams.pt_model:  # warm start (train.py:22-33)
-            # the port has no discriminator yet, so --nerf_only changes nothing
             warm = load_torch_nerf_checkpoint(hparams.pt_model, hparams.prefixes_to_ignore or ())
-            for level, state in warm.items():
-                models[level].load_state_dict(state)
+            for level, sd in warm.items():
+                models[level].load_state_dict(sd)
+            if disc is not None and not hparams.nerf_only:
+                # the reference's whole-system load (train.py:31-33) takes D
+                # too when the checkpoint has one; --nerf_only keeps it fresh
+                load_torch_discriminator(hparams.pt_model, disc, hparams.prefixes_to_ignore or ())
         models = {k: m.to(self.device) for k, m in models.items()}
         params = [p for m in models.values() for p in m.parameters()]
         self.state = TrainState(models=models, opt_g=get_optimizer(hparams, params))
+        st = self.state
+        if disc is not None:
+            st.discriminator = disc.to(self.device)
+            st.opt_d = get_optimizer(hparams, disc.parameters(), rate=D_LR_RATE)
+        if hparams.vit_weight > 0:
+            st.vit = load_vit(hparams.vit_weights, init).to(self.device)
+            # one cached CLS feature per item, valid after its first refresh
+            st.ref_feature = torch.zeros((self.global_batch_size, EMBED_DIM), device=self.device)
+            st.ref_feature_valid = torch.zeros((self.global_batch_size,), dtype=torch.bool)
+        if hparams.patch_loss == "l2_vgg":
+            st.vgg = load_vgg(hparams.vgg_weights, init).to(self.device)
 
         self.start_epoch = 0
         best = None
         if hparams.ckpt_path:  # full resume (train.py:46)
             best = self._resume(hparams.ckpt_path)
-        # draws: the sampler's on the host, the render's on the device
+        # draws: the sampler's and the ViT refresh coins on the host, the
+        # render's and the discriminator's on the device
         self.sample_generator = torch.Generator().manual_seed(seed + 7919 * self.start_epoch)
         self.render_generator = torch.Generator(device=self.device).manual_seed(seed + 1 + 7919 * self.start_epoch)
+        self.host_generator = torch.Generator().manual_seed(seed + 2 + 7919 * self.start_epoch)
 
         self.ckpt_manager = TopKCheckpointManager(os.path.join(hparams.ckpt_dir, hparams.exp_name), top_k=2, best=best)
         self.writer = _make_writer(os.path.join(hparams.log_dir, hparams.exp_name))
@@ -136,29 +179,45 @@ class SinNeRFTrainer:
 
     # ------------------------------------------------------------------ io
     def _resume(self, path: str):
-        """Models, optimizer state (Adam's moments and step), step count and
-        top-k ranking of a training checkpoint; training continues at the
-        epoch after the saved one (the save runs after its epoch)."""
+        """Models, optimizer states (``[opt_g, opt_d]``), the
+        discriminator and its ``u``, the ViT cache and its flags, step count
+        and top-k ranking of a training checkpoint; training continues at
+        the epoch after the saved one (the save runs after its epoch)."""
         blob = read_checkpoint(path)
-        for level, state in load_torch_nerf_checkpoint(path).items():
-            self.state.models[level].load_state_dict(state)
-        if blob.get("optimizer_states"):
-            self.state.opt_g.load_state_dict(blob["optimizer_states"][0])
-        self.state.step = int(blob.get("global_step", 0))
+        st = self.state
+        for level, sd in load_torch_nerf_checkpoint(path).items():
+            st.models[level].load_state_dict(sd)
+        opt_states = blob.get("optimizer_states") or []
+        for opt, saved in zip((st.opt_g, st.opt_d), opt_states):
+            if opt is not None and saved:
+                opt.load_state_dict(saved)
+        if st.discriminator is not None:
+            load_torch_discriminator(path, st.discriminator)
+        if st.vit is not None and blob.get("ref_feature") is not None:
+            st.ref_feature = blob["ref_feature"].to(self.device)
+            st.ref_feature_valid = blob["ref_feature_valid"].cpu()
+        st.step = int(blob.get("global_step", 0))
         saved_epoch = blob.get("epoch")
         self.start_epoch = 0 if saved_epoch is None else int(saved_epoch) + 1
         return blob.get("ckpt_best")
 
     def _save(self, epoch: int, val_psnr: float) -> None:
+        st = self.state
+        state_dict = nerf_state_dict({k: m.state_dict() for k, m in st.models.items()})
+        if st.discriminator is not None:
+            state_dict.update(export_torch_discriminator_state(st.discriminator, prefix="D."))
         blob = {
-            "state_dict": nerf_state_dict({k: m.state_dict() for k, m in self.state.models.items()}),
-            "optimizer_states": [self.state.opt_g.state_dict()],
+            "state_dict": state_dict,
+            "optimizer_states": [opt.state_dict() for opt in (st.opt_g, st.opt_d) if opt is not None],
             "epoch": epoch,
-            "global_step": self.state.step,
+            "global_step": st.step,
             "val_psnr": val_psnr,
             "hparams": {k: v for k, v in vars(self.hparams).items()
                         if isinstance(v, (int, float, str, bool, list, tuple))},
         }
+        if st.ref_feature is not None:
+            blob["ref_feature"] = st.ref_feature.detach().cpu().clone()
+            blob["ref_feature_valid"] = st.ref_feature_valid.cpu().clone()
         self.ckpt_manager.save(blob, epoch, val_psnr)
 
     # --------------------------------------------------------------- train
@@ -201,10 +260,18 @@ class SinNeRFTrainer:
         """One epoch at the epoch's learning rate; scalars every 10 steps."""
         lr = lr_for_epoch(self.hparams, epoch)
         set_lr(self.state.opt_g, lr)
+        if self.state.opt_d is not None:
+            # the schedule binds to G's optimizer only (sinnerf.py:202-210):
+            # D trains at a constant 0.2x the base lr, re-asserted every epoch
+            set_lr(self.state.opt_d, self.hparams.lr, rate=D_LR_RATE)
         t0 = time.perf_counter()
         for i in range(spe):
             batch = self.train_dataset.sample(epoch * spe + i, self.global_batch_size, self.sample_generator)
-            self.state, out = train_step(self.state, batch, self.cfg, float(epoch), generator=self.render_generator)
+            step2_draws = Step2Draws()
+            if self.state.vit is not None:
+                step2_draws = Step2Draws(refresh=refresh_coins(self.global_batch_size, self.host_generator))
+            self.state, out = train_step(self.state, batch, self.cfg, float(epoch), generator=self.render_generator,
+                                         step2_draws=step2_draws)
             if self.state.step % 10 == 0 and self.writer:
                 self._log_scalars(out["metrics"], self.state.step, lr)
                 self._log_images(out["images"], self.state.step)

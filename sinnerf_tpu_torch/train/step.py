@@ -1,28 +1,40 @@
-"""One training step of the Step-1 recipe: render, losses, backward, update.
+"""One training step: render, losses, one backward, the G and D updates.
 
 Counterpart of ``sinnerf_tpu/train/step.py`` (reference
 ``SinNeRF.training_step``, ``models/sinnerf.py:271-554``).  The four ray
 bundles of a batch (random rays, reference-view patch, pseudo-view patch,
-projected rays) are concatenated and rendered in one pass; the depth,
-photometric, smoothness and pseudo-view depth losses are summed with the
-reference's weights (``sinnerf.py:492-509``):
+projected rays) are concatenated and rendered in one pass; the losses are
+summed with the reference's weights (``sinnerf.py:492-509``):
 
-    total = loss_g.tot + depth_weight * loss_depth
+    total = loss_g.tot + dis_weight * (loss_g_adv + loss_d)
+          + depth_weight * loss_depth
           + proj_weight * depth_weight * loss_side_depth
-          + depth_smooth_weight * loss_depth_smooth
+          + vit_weight * loss_vit + depth_smooth_weight * loss_depth_smooth
 
-Masked depth losses are per item and then averaged over the batch axis, as
-in the JAX package.  The ViT semantic loss, the PatchGAN terms and the
-``l2_vgg`` patch loss are the Step-2 extras of a later slice; asking for
-them raises.  Metric tags and the ``images`` entries are the JAX package's.
+Masked depth losses and the ViT's cached reference feature are per item, as
+in the JAX package.  The Step-2 extras: the DINO-ViT CLS loss on the
+pseudo-view patch against a per-item cached feature of the real patch,
+refreshed with probability 0.05 per item (``sinnerf.py:272-275, 332-338``);
+the PatchGAN's generator and discriminator terms (``sinnerf.py:445-487``),
+which read D in the JAX call order, threading its spectral-norm ``u``
+through the calls: the fake patch on frozen weights, for ``relavistic`` the
+augmented real patch on frozen weights, the real patch, the detached fake
+patch; and the ``l2_vgg`` patch loss.  One ``backward`` gives the G and D
+gradients, then each optimizer steps once.  Metric tags and the ``images``
+entries are the JAX package's.
 
-Every random draw of the render can be passed in (``RenderDraws``); a draw
-not passed comes from the ``torch.Generator`` given.
+Every random draw can be passed in: the render's (``RenderDraws``) and the
+Step-2 losses' (``Step2Draws``); a draw not passed comes from the
+``torch.Generator`` given, but the ViT refresh coins, which are host tensors
+(``refresh_coins``; torch's default host generator when not passed), so that
+the step decides whether to run the ViT on the real patch without reading
+the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -32,23 +44,31 @@ from sinnerf_tpu_torch.losses.depth import (
     smooth_l1_masked,
     smooth_l1_masked_per_item,
 )
-from sinnerf_tpu_torch.losses.photometric import L2_VGG_LOSS, loss_dict
+from sinnerf_tpu_torch.losses.gan import d_loss as gan_d_loss
+from sinnerf_tpu_torch.losses.gan import g_loss as gan_g_loss
+from sinnerf_tpu_torch.losses.photometric import L2_SSIM_LOSS, L2_VGG_LOSS, loss_dict
+from sinnerf_tpu_torch.models.diffaug import DiffAugDraws, coin, diff_augment
+from sinnerf_tpu_torch.models.discriminator import DCallDraws, Discriminator
 from sinnerf_tpu_torch.models.nerf import NeRF
+from sinnerf_tpu_torch.models.vgg import VGG16Features
+from sinnerf_tpu_torch.models.vit import EMBED_DIM, ViT, vit_cls
 from sinnerf_tpu_torch.render.renderer import RenderSettings, render_rays
 from sinnerf_tpu_torch.utils.metrics import psnr
+
+POLICY = "color,cutout"  # DiffAugment inside the discriminator (sinnerf.py:445-487)
+VIT_REFRESH_PROB = 0.05  # per item and step, the cached ViT feature's refresh (sinnerf.py:273)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Per-run configuration; fields map 1:1 onto the ``opt.py`` flags, as
-    the JAX ``TrainConfig`` does.  The fields that only the Step-2 extras
-    read (``dloss``, ``imsize``, ``policy``, ``vit_refresh_prob``) come with
-    them."""
+    the JAX ``TrainConfig`` does."""
 
     render: RenderSettings
     dataset_name: str = "blender_ray_patch_1image_rot3d"
     loss_type: str = "mse"
     patch_loss: str = "mse"
+    dloss: str = "hinge"  # opt.py:98
     depth_weight: float = 0.05
     vit_weight: float = 0.0
     dis_weight: float = 0.0
@@ -71,6 +91,12 @@ class TrainState:
     models: Dict[str, NeRF]  # {'coarse', 'fine'}, updated in place
     opt_g: torch.optim.Optimizer
     step: int = 0
+    discriminator: Optional[Discriminator] = None  # updated in place, its u included
+    opt_d: Optional[torch.optim.Optimizer] = None
+    vit: Optional[ViT] = None  # frozen
+    vgg: Optional[VGG16Features] = None  # frozen (the l2_vgg patch loss)
+    ref_feature: Optional[torch.Tensor] = None  # (B, 384) cached CLS features, on the models' device
+    ref_feature_valid: Optional[torch.Tensor] = None  # (B,) bool on the host: False refreshes that item
 
 
 class RenderDraws(NamedTuple):
@@ -83,14 +109,36 @@ class RenderDraws(NamedTuple):
     noise_fine: Optional[torch.Tensor] = None    # (N, n_samples + n_importance) normals
 
 
-def _check_supported(cfg: TrainConfig) -> None:
-    later = "is ported with the Step-2 extras (ViT, PatchGAN, VGG) in a later slice"
-    if cfg.vit_weight > 0:
-        raise NotImplementedError(f"vit_weight > 0: the DINO-ViT semantic loss {later}")
-    if cfg.dis_weight > 0:
-        raise NotImplementedError(f"dis_weight > 0: the PatchGAN discriminator {later}")
-    if L2_VGG_LOSS in (cfg.patch_loss, cfg.loss_type):
-        raise NotImplementedError(f"l2_vgg: the VGG16 perceptual loss {later}")
+class Step2Draws(NamedTuple):
+    """The Step-2 losses' random draws: the ViT refresh coins and, per
+    discriminator call in the JAX call order, its coin and DiffAugment
+    draws (``DCallDraws``)."""
+
+    refresh: Optional[torch.Tensor] = None    # (B,) bool on the host: refresh the item's cached feature
+    d_fake_g: DCallDraws = DCallDraws()       # G term: frozen D on the fake patch
+    real_g_coin: Optional[torch.Tensor] = None  # relavistic: () bool, augment the real patch before D
+    real_g_aug: DiffAugDraws = DiffAugDraws()   # relavistic: that augmentation's draws
+    d_real_g: DCallDraws = DCallDraws()       # relavistic: frozen D on the (augmented) real patch
+    d_real: DCallDraws = DCallDraws()         # D term: D on the real patch
+    d_fake: DCallDraws = DCallDraws()         # D term: D on the detached fake patch
+
+
+def refresh_coins(b: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(b,) bool host tensor: each item's coin of p = VIT_REFRESH_PROB to
+    refresh its cached ViT feature this step; ``generator`` is a host one."""
+    return torch.rand((b,), generator=generator) < VIT_REFRESH_PROB
+
+
+def _check_supported(cfg: TrainConfig, discriminator, vit, vgg) -> None:
+    if cfg.loss_type in (L2_VGG_LOSS, L2_SSIM_LOSS):
+        raise ValueError(f"loss_type {cfg.loss_type!r} is unsupported on ray bundles (as in the reference, "
+                         "where it crashes); use it as patch_loss")
+    if cfg.vit_weight > 0 and vit is None:
+        raise ValueError("vit_weight > 0 needs the frozen ViT (TrainState.vit)")
+    if cfg.dis_weight > 0 and discriminator is None:
+        raise ValueError("dis_weight > 0 needs the discriminator (TrainState.discriminator)")
+    if cfg.patch_loss == L2_VGG_LOSS and vgg is None:
+        raise ValueError("patch_loss 'l2_vgg' needs the frozen VGG16 trunk (TrainState.vgg)")
     if not cfg.load_depth:
         raise NotImplementedError("reference requires --load_depth (sinnerf.py:502)")
 
@@ -111,14 +159,29 @@ def compute_losses(
     epoch: float = 0.0,
     draws: RenderDraws = RenderDraws(),
     generator: Optional[torch.Generator] = None,
+    *,
+    discriminator: Optional[Discriminator] = None,
+    vit: Optional[ViT] = None,
+    vgg: Optional[VGG16Features] = None,
+    ref_feature: Optional[torch.Tensor] = None,
+    ref_feature_valid: Optional[torch.Tensor] = None,
+    step2_draws: Step2Draws = Step2Draws(),
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """(total scalar loss, aux with ``metrics`` and ``images``) of one batch
-    with the sampler's schema."""
-    _check_supported(cfg)
+    """(total scalar loss, aux) of one batch with the sampler's schema.  aux
+    holds ``metrics`` and ``images`` and, for the next step, ``d_u`` (the
+    discriminator's power-iteration vectors after this step's calls; its
+    buffers are not touched), ``ref_feature`` and ``ref_feature_valid``
+    (``ref_feature`` None: zeros, every item invalid)."""
+    _check_supported(cfg, discriminator, vit, vgg)
     b = batch["rays"].shape[0]
     psx, psy = batch["real_patch"].shape[-2:]
     loss_fn = loss_dict[cfg.loss_type]
     patch_loss_fn = loss_dict[cfg.patch_loss]
+    # the VGG trunk binds to the image-patch loss only: the depth patches
+    # (one channel) take the same loss without it (JAX step.py:136-147)
+    depth_patch_loss_fn = patch_loss_fn
+    if cfg.patch_loss == L2_VGG_LOSS:
+        patch_loss_fn = functools.partial(patch_loss_fn, vgg_features=vgg)
 
     # ---- one render over all 4 bundles ------------------------------------
     bundles = [_flat(batch[k], 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")]
@@ -154,6 +217,31 @@ def compute_losses(
     for k, v in patch_loss_fn(full_imgs, rgbs_full_img).items():
         loss_g[k] = loss_g[k] + v if k in loss_g else v
 
+    # ---- ViT semantic loss on the pseudo view (sinnerf.py:332-338) --------
+    zero = torch.zeros((), dtype=loss_depth.dtype, device=loss_depth.device)
+    if ref_feature is None:
+        ref_feature = torch.zeros((b, EMBED_DIM), dtype=real_patch.dtype, device=real_patch.device)
+    if ref_feature_valid is None:
+        ref_feature_valid = torch.zeros((b,), dtype=torch.bool)
+    loss_vit = zero
+    if cfg.vit_weight > 0:
+        # per item: refresh on a coin of p = VIT_REFRESH_PROB, or while the
+        # cache is invalid (the first step); the coins are host tensors, so
+        # whether to run the ViT on the real patch reads nothing back
+        refresh = step2_draws.refresh if step2_draws.refresh is not None else refresh_coins(b)
+        refresh = refresh.cpu() | ~ref_feature_valid.cpu()
+        if bool(refresh.any()):
+            with torch.no_grad():
+                fresh = vit_cls(vit, real_patch)
+            # a non-blocking copy of the host coins: a blocking one would
+            # wait for the render queued before it
+            mask = refresh.to(real_patch.device, non_blocking=True)
+            ref_feature = torch.where(mask[:, None], fresh, ref_feature)
+        ref_feature_valid = ref_feature_valid.cpu() | refresh
+        # one batched ViT call for both rendered patches
+        sem = vit_cls(vit, torch.cat([side_imgs["rgb_coarse"], side_imgs["rgb_fine"]], dim=0))
+        loss_vit = torch.mean((sem[:b] - ref_feature) ** 2) + torch.mean((sem[b:] - ref_feature) ** 2)
+
     # ---- patch depth supervision (sinnerf.py:354-387) ---------------------
     depth_gt_img = batch["depth_gt"].reshape(b, psx, psy)
     full_depth_fine = results_full["depth_fine"].reshape(b, psx, psy)
@@ -163,7 +251,7 @@ def compute_losses(
         for d in (full_depth_fine, full_depth_coarse):
             loss_depth = loss_depth + smooth_l1_masked_per_item(d.reshape(b, -1), depth_gt_img.reshape(b, -1))
     else:
-        dpatch = patch_loss_fn(
+        dpatch = depth_patch_loss_fn(
             {"rgb_fine": full_depth_fine[:, None], "rgb_coarse": full_depth_coarse[:, None]},
             depth_gt_img[:, None],
         )
@@ -197,22 +285,59 @@ def compute_losses(
         side_depth_coarse, warp_depth, mask=depth_mask
     ) + smooth_l1_masked_per_item(side_depth_fine, warp_depth, mask=depth_mask)
 
+    # ---- adversarial losses (sinnerf.py:445-487) --------------------------
+    loss_d_g = loss_d_d = zero
+    d_u = None
+    if cfg.dis_weight > 0:
+        fake_img = side_imgs["rgb_fine"]
+        sd = step2_draws
+
+        def d_call(x, u, frozen, d_draws):
+            return discriminator(x, u, frozen=frozen, draws=d_draws, generator=generator, policy=POLICY)
+
+        # G term: frozen D, its u advanced by this call first
+        pred_fake_g, u = d_call(fake_img, None, True, sd.d_fake_g)
+        g_pred_real = None
+        if cfg.dloss == "relavistic":
+            # the reference's G branch runs its own D(DiffAugment(real))
+            # (sinnerf.py:454): an outer augmentation with its own coin,
+            # then D's internal one
+            apply = sd.real_g_coin if sd.real_g_coin is not None else coin(real_patch, generator)
+            x_real_g = torch.where(apply, diff_augment(real_patch, POLICY, sd.real_g_aug, generator), real_patch)
+            g_pred_real, u = d_call(x_real_g, u, True, sd.d_real_g)
+        # D terms: live D, detached renders
+        if cfg.dloss == "wgan_gp":
+            # R1 through the very pred_real forward, second order
+            # (create_graph), as the JAX step differentiates it
+            x_real = real_patch.detach().requires_grad_(True)
+            pred_real, u = d_call(x_real, u, False, sd.d_real)
+            (grads_x,) = torch.autograd.grad(pred_real.sum(), x_real, create_graph=True)
+        else:
+            pred_real, u = d_call(real_patch, u, False, sd.d_real)
+        pred_fake_d, d_u = d_call(fake_img.detach(), u, False, sd.d_fake)
+        g_real = g_pred_real if g_pred_real is not None else pred_real
+        loss_d_g = gan_g_loss(pred_fake_g, cfg.dloss, pred_real=g_real.detach())
+        loss_d_d = gan_d_loss(pred_real, pred_fake_d, cfg.dloss)
+        if cfg.dloss == "wgan_gp":
+            loss_d_d = loss_d_d + 10.0 * torch.mean(torch.sum(grads_x.reshape(b, -1) ** 2, dim=1))
+
     # ---- total (sinnerf.py:492-509) ---------------------------------------
     dw = max(cfg.depth_weight - epoch / (500.0 / cfg.depth_weight), 1.0) if cfg.depth_anneal else cfg.depth_weight
     total = (
         loss_g["tot"]
+        + cfg.dis_weight * (loss_d_g + loss_d_d)
         + dw * loss_depth
         + cfg.proj_weight * cfg.depth_weight * loss_side_depth
+        + cfg.vit_weight * loss_vit
         + cfg.depth_smooth_weight * loss_depth_smooth
     )
 
-    zero = torch.zeros((), dtype=total.dtype, device=total.device)
     metrics = {
         "train/loss": total,
         "train/loss_g": loss_g["tot"],
-        "train/loss_vit": zero,
-        "train/loss_d": zero,
-        "train/loss_g_adv": zero,
+        "train/loss_vit": loss_vit,
+        "train/loss_d": loss_d_d,
+        "train/loss_g_adv": loss_d_g,
         "train/loss_depth": loss_depth,
         "train/loss_depth_smooth": loss_depth_smooth,
         "train/loss_side_depth": loss_side_depth,
@@ -241,6 +366,9 @@ def compute_losses(
     aux = {
         "metrics": {k: v.detach() for k, v in metrics.items()},
         "images": {k: v.detach() for k, v in images.items()},
+        "d_u": d_u,
+        "ref_feature": ref_feature.detach(),
+        "ref_feature_valid": ref_feature_valid,
     }
     return total, aux
 
@@ -252,13 +380,28 @@ def train_step(
     epoch: float = 0.0,
     draws: RenderDraws = RenderDraws(),
     generator: Optional[torch.Generator] = None,
+    step2_draws: Step2Draws = Step2Draws(),
 ) -> Tuple[TrainState, Dict[str, Any]]:
-    """One optimization step: renders once, backpropagates the total loss and
-    updates the models in place.  Returns the state and ``{'metrics',
-    'images'}``; the parameters' ``.grad`` hold this step's gradients."""
+    """One optimization step: renders once, backpropagates the total loss
+    once and steps ``opt_g`` and, with the GAN on, ``opt_d``, in place; the
+    discriminator's ``u`` and the ViT cache advance.  Returns the state and
+    ``{'metrics', 'images'}``; the parameters' ``.grad`` hold this step's
+    gradients."""
+    gan = cfg.dis_weight > 0
     state.opt_g.zero_grad(set_to_none=True)
-    total, aux = compute_losses(state.models, batch, cfg, epoch, draws, generator)
+    if gan:
+        state.opt_d.zero_grad(set_to_none=True)
+    total, aux = compute_losses(
+        state.models, batch, cfg, epoch, draws, generator, discriminator=state.discriminator, vit=state.vit,
+        vgg=state.vgg, ref_feature=state.ref_feature, ref_feature_valid=state.ref_feature_valid,
+        step2_draws=step2_draws,
+    )
     total.backward()
     state.opt_g.step()
+    if gan:
+        state.opt_d.step()
+        state.discriminator.set_u(aux["d_u"])
+    if cfg.vit_weight > 0:
+        state.ref_feature, state.ref_feature_valid = aux["ref_feature"], aux["ref_feature_valid"]
     state.step += 1
-    return state, aux
+    return state, {"metrics": aux["metrics"], "images": aux["images"]}

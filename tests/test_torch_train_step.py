@@ -520,7 +520,7 @@ def test_state_dict_round_trip_of_a_gradient_tree(level_params):
 
 
 # --------------------------------------------------------------------------
-# what this slice does not hold yet
+# what the step refuses
 # --------------------------------------------------------------------------
 
 
@@ -528,21 +528,35 @@ def test_state_dict_round_trip_of_a_gradient_tree(level_params):
                                     dict(loss_type="l2_vgg"), dict(load_depth=False)],
                          ids=["vit", "gan", "patch_l2_vgg", "rays_l2_vgg", "no_depth"])
 def test_step2_extras_raise(level_params, batch, fields):
+    """The Step-2 extras raise without the module they read (the trainer
+    builds them: ``vit``, ``discriminator``, ``vgg``; tests/test_torch_step2.py
+    holds them to the JAX package); the VGG loss on ray bundles and a run
+    without depth are refused, as in the reference and the JAX trainer."""
     cfg = port_step.TrainConfig(render=_settings(port_renderer, "xla"), **fields)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError if "load_depth" in fields else ValueError):
         port_step.compute_losses(_models(level_params), {k: _t(v) for k, v in batch.items()}, cfg)
 
 
 @pytest.mark.parametrize("name", ["radam", "ranger"])
 def test_later_optimizers_raise(name):
+    """radam and ranger are built (tests/test_torch_optimizers.py holds them
+    to optax) and raise on an invalid learning rate; an unknown name raises."""
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError):
-        port_optimizers.get_optimizer(argparse.Namespace(optimizer=name, lr=1e-3), model.parameters())
+    opt = port_optimizers.get_optimizer(argparse.Namespace(optimizer=name, lr=1e-3), model.parameters())
+    assert isinstance(opt, port_optimizers.Ranger if name == "ranger" else port_optimizers.RAdam)
+    with pytest.raises(ValueError):
+        port_optimizers.get_optimizer(argparse.Namespace(optimizer=name, lr=-1e-3), model.parameters())
     with pytest.raises(ValueError):
         port_optimizers.get_optimizer(argparse.Namespace(optimizer="lion", lr=1e-3), model.parameters())
 
 
 def test_l2_vgg_loss_raises(images):
+    """The VGG loss takes images: on ray bundles it raises, as the
+    reference's does (losses.py:129); tests/test_torch_gan_vit.py holds it on
+    images to the JAX package."""
+    from sinnerf_tpu_torch.models.vgg import VGG16Features
+
     a, b = images
-    with pytest.raises(NotImplementedError):
-        port_photo.loss_dict["l2_vgg"]({"rgb_coarse": _t(a)}, _t(b))
+    flat = {"rgb_coarse": _t(a).reshape(-1, 3), "rgb_fine": _t(a).reshape(-1, 3)}
+    with pytest.raises(ValueError):
+        port_photo.loss_dict["l2_vgg"](flat, _t(b).reshape(-1, 3), VGG16Features(torch.Generator().manual_seed(0)))
