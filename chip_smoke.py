@@ -132,8 +132,41 @@ Phases, any failure exits non-zero without the final result line:
    0 --pt_model <step1>/last.ckpt --nerf_only``, then Step 2 resumed for a
    third epoch: launch counts, ms per step, val PSNR, what the checkpoints
    hold;
-18. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
-   ``step2``), then, last, ``{"ok": true, "device": {...}}``.
+18. the Blender and DTU training sets: write the rich lego stand-in at
+   400x400 (under ``lego``: ref 20 and the true mytest val slice) and the
+   rich DTU scan4 at 640x512; build ``BlenderRot3D``, ``BlenderProj`` and
+   ``DTUProj`` on the card with the recipes' flags, sample SLICE_ITEMS items
+   of each from a generator of their own (schema, ranges, ms per item); the
+   rot3d items again from the same seed on the card (equal) and on a scene
+   built on the CPU (the same random rays and real patch: the card's reads
+   in the fresh warp change no draw);
+19. the slice's kernel shapes against the plain versions, bf16 and f32, with
+   the white background: K3-fwd and K3-bwd at 16,384, 20,480 and 16,032
+   rays x S = 64 and, after K2 (64 -> 128, drawn ``u``), S = 128; K1 and K2
+   (deterministic) at the eval tiles of a 400x400 and a 640x512 image
+   (131,072, 28,928 and 65,536 rays) x S = 64 and 128;
+20. the train CLI on each training set, bf16, counted: lego Step 1 with the
+   README's flags (``--patch_size 64 --sW 6 --sH 6 --N_importance 64
+   --depth_weight 8 --proj_weight 1 --depth_smooth_weight 0.5 --dis_weight
+   0 --vit_weight 10``, one epoch of 125 steps) and lego Step 2 from it
+   (``--dis_weight 0.01 --pt_model <ck> --nerf_only``, one epoch), their
+   best val PSNR above a black render's by EMPTY_MARGIN_DB;
+   ``BlenderProj`` (2 epochs of 60 steps, without the random-weight ViT)
+   and DTU scan4 (``--patch_size_x 56 --patch_size_y 70 --sW 8 --sH 8``, one
+   epoch of 8 steps), their best val PSNR above an empty field's (the
+   larger of a black and a white render's) by EMPTY_MARGIN_DB; ms per
+   step, launches;
+21. the eval CLI on each run's best checkpoint (bf16; Blender's own
+   defaults otherwise: the mytest slice at ``--angle 64``), counted; the
+   weights-only tool on lego Step 2's checkpoint, and the eval CLI on the
+   stripped file: the same mean PSNR;
+22. ``sinnerf_tpu_torch.scripts.demo_convergence`` at its defaults on the
+   kernels in bf16, counted: val PSNR up by more than 3 dB and above an
+   empty field's by EMPTY_MARGIN_DB (rot3d's on-card run that must learn),
+   steps/s;
+23. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
+   ``step2``, the slice's under ``slice``), then, last, ``{"ok": true,
+   "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -298,10 +331,26 @@ STEP2_ROUNDS = 6  # rounds that alternate the Step-1, Step-1 recipe and Step-2 s
 K3_KERNEL_TAGS = ("train_fwd_sm90", "train_bwd_sm90")
 MAC_PER_POINT_K4_BWD = 3 * MAC_PER_POINT  # recompute, dgrad with the input gradient, wgrad
 CLI_EPOCHS = 2
-# a training run's best val PSNR must clear a black render's by this much
+# a training run's best val PSNR must clear what an empty field scores by
+# this much: a black render's, and on Blender's white background the larger
+# of a black and a white render's
 EMPTY_MARGIN_DB = 1.0
 # the resumed float32 epoch: kernel path vs plain path val PSNR (dB)
 RESUME_PSNR_TOL = 1e-2
+# the Blender and DTU slice (phases 18-22): the README's lego recipe at
+# 400x400 and DTU scan4 at 640x512, 64 + 64 samples, the recipes' patches;
+# draws from generators of their own, seeded by SLICE_SEED
+SLICE_SEED = 4242
+LEGO_WH, DTU_WH = (400, 400), (640, 512)
+SLICE_N_IMPORTANCE = 64
+LEGO_DATA = dict(patch_size=64, sW=6, sH=6, num_rays=4096, angle=20)
+DTU_DATA = dict(patch_size_x=56, patch_size_y=70, sW=8, sH=8, num_rays=4096)
+SLICE_ITEMS = 3  # items sampled per training set, after one more
+# rays per training step: rot3d 4096 + 4096 + 2 x 64^2, proj 8192 + 4096 + 2
+# x 64^2, DTU 4096 + 4096 + 2 x 56 x 70; the eval tiles of a 400x400 and a
+# 640x512 image (131,072 + 28,928 and 2 x 131,072 + 65,536)
+SLICE_TRAIN_RAYS = (16384, 20480, 16032)
+SLICE_EVAL_TILES = (131072, 28928, 65536)
 
 
 def k4_bwd_tol(n: int, cd: str):
@@ -726,8 +775,7 @@ def phase_eval(device, workdir: str, root: str, ckpt: str, splits):
     try:
         for cd, cd_splits in splits:
             n_images = 0
-            fused_render_level.launches = 0
-            fused_sample_pdf_merge.launches = 0
+            zero_counts((fused_render_level, fused_sample_pdf_merge))
             for split in cd_splits:
                 args = port_eval.get_opts([
                     "--root_dir", root, "--dataset_name", "llff", "--split", split,
@@ -747,7 +795,7 @@ def phase_eval(device, workdir: str, root: str, ckpt: str, splits):
                     out["psnr"][cd] = psnr
                 if n_split == 0:
                     raise Failed(f"eval {cd} {split} wrote no PNG")
-            k1, k2 = fused_render_level.launches, fused_sample_pdf_merge.launches
+            k1, k2 = read_counts((fused_render_level, fused_sample_pdf_merge), cd)
             out["launches"][cd] = (k1, k2, n_images)
             print(f"launches {cd}: K1 {k1}, K2 {k2} over {n_images} images of {tiles} tiles")
             if k1 != 2 * tiles * n_images or k2 != tiles * n_images:
@@ -1219,8 +1267,7 @@ def phase_step2(device, batch, draws):
         state, _ = train_step(new_step2_state(device), batch, step2_config(cd), 0.0, draws, step2_draws=step_draws[0])
         torch.cuda.synchronize()
         counters = (launch_train_fwd, launch_train_bwd, fused_sample_pdf_merge)
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         losses = []
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1229,7 +1276,7 @@ def phase_step2(device, batch, draws):
             losses.append(aux["metrics"]["train/loss"])
         end.record()
         end.synchronize()
-        counts = tuple(c.launches for c in counters)
+        counts = read_counts(counters, cd)
         step_ms = start.elapsed_time(end) / STEP2_STEPS
         losses = [float(v) for v in losses]
         u_moved = state.discriminator.u()[0].norm().item()
@@ -1440,6 +1487,7 @@ def phase_step2_cli(device):
         empty = None
         for name, flags in runs:
             trainer, counts, wall = run_cli(flags)
+            hold_dtype(counts, "bfloat16", f"train CLI {name}")
             if empty is None:
                 empty = empty_render_psnr(trainer.val_dataset)
             steps = sum(e[1] for e in trainer.epoch_log)
@@ -1496,8 +1544,7 @@ def phase_train(device, batch, draws):
         torch.cuda.empty_cache()
 
         counters = (launch_train_fwd, launch_train_bwd, fused_sample_pdf_merge)
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(TRAIN_STEPS):
@@ -1505,7 +1552,7 @@ def phase_train(device, batch, draws):
             losses.append(aux["metrics"]["train/loss"])
         end.record()
         end.synchronize()
-        counts = tuple(c.launches for c in counters)
+        counts = read_counts(counters, cd)
         step_ms = start.elapsed_time(end) / TRAIN_STEPS
         losses = [float(x) for x in losses]
         print(f"train_step {cd}: {step_ms:.2f} ms per step; launches over {TRAIN_STEPS} steps: K3-fwd {counts[0]}, "
@@ -1746,8 +1793,7 @@ def phase_det_train(device, rng, batch):
 
         counters = (fused_render_level, fused_sample_pdf_merge, launch_mlp_fwd, launch_mlp_bwd, launch_train_fwd,
                     launch_train_bwd)
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(TRAIN_STEPS):
@@ -1755,7 +1801,7 @@ def phase_det_train(device, rng, batch):
             losses.append(aux["metrics"]["train/loss"])
         end.record()
         end.synchronize()
-        counts = tuple(c.launches for c in counters)
+        counts = read_counts(counters[:4], cd) + tuple(c.launches for c in counters[4:])
         step_ms = start.elapsed_time(end) / TRAIN_STEPS
         losses = [float(x) for x in losses]
         print(f"det train_step {cd}: {step_ms:.2f} ms per step; launches over {TRAIN_STEPS} steps: K1 {counts[0]}, "
@@ -1789,6 +1835,18 @@ def cli_flags(root: str, workdir: str, cd: str, exp: str):
     ]
 
 
+def white_render_psnr(val_dataset) -> float:
+    """The val PSNR of an all-white render: what an empty field scores on a
+    scene with a white background (Blender), where a black render's is the
+    gate."""
+    import torch
+
+    from sinnerf_tpu_torch.utils.metrics import psnr
+
+    gts = [torch.from_numpy(val_dataset.val_item(i)["rgbs"]) for i in range(val_dataset.val_len())]
+    return float(torch.stack([psnr(torch.ones_like(gt), gt) for gt in gts]).mean())
+
+
 def empty_render_psnr(val_dataset) -> float:
     """The val PSNR of a black render (the trainer's mean over the val
     images): what a field whose sigma ReLU is closed at every sample scores
@@ -1801,28 +1859,60 @@ def empty_render_psnr(val_dataset) -> float:
     return float(torch.stack([psnr(torch.zeros_like(gt), gt) for gt in gts]).mean())
 
 
-def run_cli(flags):
-    """``python -m sinnerf_tpu_torch.train``'s ``main`` on ``flags`` with every
-    kernel's launch count set to 0 just before and read just after: (the
-    trainer, the counts, seconds in all)."""
+def zero_counts(counters):
+    """Set each wrapper's launch count to 0, and its counts per dtype."""
+    for c in counters:
+        c.launches = 0
+        for cd in getattr(c, "launches_by_dtype", {}):
+            c.launches_by_dtype[cd] = 0
+
+
+def read_counts(counters, cd: str):
+    """Each wrapper's launches of its ``cd`` kernel, as the wrapper counted
+    them per dtype (K2 has one dtype: all its launches)."""
+    return tuple(c.launches_by_dtype[cd] if hasattr(c, "launches_by_dtype") else c.launches for c in counters)
+
+
+def counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, the counts, seconds in all).  The counts
+    hold each kernel's launches ("K1") and, as the wrapper counted them,
+    those of each dtype ("K1[bfloat16]"; K2 has one dtype)."""
     import torch
 
-    from sinnerf_tpu_torch.opt import get_opts
     from sinnerf_tpu_torch.ops.fused_mlp import launch_mlp_bwd, launch_mlp_fwd
     from sinnerf_tpu_torch.ops.fused_render import fused_render_level
     from sinnerf_tpu_torch.ops.fused_render_train import launch_train_bwd, launch_train_fwd
     from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
-    from sinnerf_tpu_torch.train.__main__ import main as train_main
 
     names = ("K1", "K2", "K3-fwd", "K3-bwd", "K4-fwd", "K4-bwd")
     counters = (fused_render_level, fused_sample_pdf_merge, launch_train_fwd, launch_train_bwd, launch_mlp_fwd,
                 launch_mlp_bwd)
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
-    trainer = train_main(get_opts(flags))
+    result = fn()
     torch.cuda.synchronize()
-    return trainer, {k: c.launches for k, c in zip(names, counters)}, time.perf_counter() - t0
+    counts = {k: c.launches for k, c in zip(names, counters)}
+    counts.update({f"{k}[{cd}]": n for k, c in zip(names, counters)
+                   for cd, n in getattr(c, "launches_by_dtype", {}).items()})
+    return result, counts, time.perf_counter() - t0
+
+
+def hold_dtype(counts, cd: str, what: str):
+    """Fails unless each kernel that ``counted`` saw launch ran its ``cd``
+    kernel alone."""
+    names = [k for k in counts if f"{k}[{cd}]" in counts]
+    if any(counts[f"{k}[{cd}]"] != counts[k] for k in names):
+        raise Failed(f"{what}: a run in {cd} launched kernels of another dtype: {counts}")
+
+
+def run_cli(flags):
+    """``python -m sinnerf_tpu_torch.train``'s ``main`` on ``flags``, counted:
+    (the trainer, the counts, seconds in all)."""
+    from sinnerf_tpu_torch.opt import get_opts
+    from sinnerf_tpu_torch.train.__main__ import main as train_main
+
+    return counted(lambda: train_main(get_opts(flags)))
 
 
 def phase_train_cli(device, workdir: str, root: str):
@@ -1846,6 +1936,7 @@ def phase_train_cli(device, workdir: str, root: str):
     for mode, cd, extra in runs:
         exp = f"smoke_{mode}_{cd}"
         trainer, counts, wall = run_cli(cli_flags(root, workdir, cd, exp) + extra)
+        hold_dtype(counts, cd, f"train CLI {mode} {cd}")
         if empty is None:
             empty = empty_render_psnr(trainer.val_dataset)
         steps = sum(e[1] for e in trainer.epoch_log)
@@ -1880,6 +1971,7 @@ def phase_train_cli(device, workdir: str, root: str):
     resumed = {}
     for impl, name in (("xla", exp + "_plain"), ("pallas", exp)):
         trainer, counts, wall = run_cli(cli_flags(root, workdir, "float32", name) + resume + ["--mlp_impl", impl])
+        hold_dtype(counts, "float32", f"train CLI resumed on mlp_impl={impl}")
         epochs = [e[0] for e in trainer.epoch_log]
         print(f"train CLI resumed from {os.path.basename(last)} on mlp_impl={impl}: epochs {epochs}, step "
               f"{trainer.state.step}, val PSNR {trainer.best_psnr:.4f} (black render {empty:.4f}), {wall:.1f} s, "
@@ -2074,6 +2166,345 @@ def phase_x2(device):
     return res, counts
 
 
+# --------------------------------------------------------------------------
+# phases 18-22: the Blender and DTU slice (the README's lego and DTU scan4
+# recipes), after every earlier phase, each drawing from generators of its
+# own
+# --------------------------------------------------------------------------
+
+
+def slice_items(ds, gen, steps):
+    """``steps`` items of ``ds`` drawn from ``gen``, and the ms per item
+    (host clock around each draw, synchronised)."""
+    import torch
+
+    items, ms = [], []
+    for step in steps:
+        t0 = time.perf_counter()
+        items.append(ds.sample(step, 1, gen))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return items, ms
+
+
+def check_item(item, cfg, near_far, what: str) -> None:
+    """The batch schema of ``sampler.sample_item`` and its ranges."""
+    n_rays, n_proj, patch = cfg.num_rays, cfg.n_proj or cfg.num_rays, cfg.psx * cfg.psy
+    shapes = {
+        "rays": (1, n_rays, 8), "rgbs": (1, n_rays, 3), "depth": (1, n_rays, 1), "rays_proj": (1, n_proj, 8),
+        "depth_proj": (1, n_proj, 1), "real_patch": (1, 3, cfg.psx, cfg.psy), "rays_full": (1, patch, 8),
+        "warp_patch": (1, 3, cfg.psx, cfg.psy), "warp_patch_depth": (1, cfg.psx, cfg.psy),
+        "depth_ray": (1, patch, 8), "depth_gt": (1, patch, 1), "depth_ray_rgb": (1, patch, 3),
+    }
+    got = {k: tuple(v.shape) for k, v in item.items()}
+    if got != shapes:
+        raise Failed(f"{what}: batch shapes {got}, want {shapes}")
+    bad = [k for k, v in item.items() if not bool(v.isfinite().all())]
+    rgb_keys = ("rgbs", "real_patch", "warp_patch", "depth_ray_rgb")
+    bad += [k for k in rgb_keys if not bool(((item[k] >= 0) & (item[k] <= 1)).all())]
+    bad += [k for k in ("rays", "rays_proj", "rays_full", "depth_ray")
+            if not bool((item[k][..., 6:8] == item[k].new_tensor(near_far)).all())]
+    if not bool((item["depth_proj"] > 0).all()):
+        bad.append("depth_proj")
+    if float(item["real_patch"].amax()) <= 0:
+        bad.append("real_patch")
+    if cfg.reject_warp_patch and float(item["warp_patch_depth"].sum()) <= 0:
+        bad.append("warp_patch_depth")
+    if bad:
+        raise Failed(f"{what}: out of range or non-finite: {bad}")
+
+
+def phase_slice_datasets(device, workdir: str):
+    """Write the rich lego stand-in at 400x400 (under a directory named
+    ``lego``: ref 20, the true mytest val slice) and the rich DTU scan4 at
+    640x512; build ``BlenderRot3D``, ``BlenderProj`` and ``DTUProj`` on the
+    card with the recipes' flags; sample SLICE_ITEMS items of each (schema,
+    ranges, ms per item).  Rot3d's fresh warp reads the card three times per
+    item: the same seed gives the same item twice on the card, and the
+    draws that need no warp (the random rays and the real patch) equal those
+    of the same seed on a scene built on the CPU."""
+    import torch
+
+    from sinnerf_tpu_torch.data import dataset_dict
+    from sinnerf_tpu_torch.data.synthetic import make_blender_scene_rich, make_dtu_scene_rich
+
+    out = {}
+    t0 = time.perf_counter()
+    lego = make_blender_scene_rich(os.path.join(workdir, "lego"), LEGO_WH)
+    t1 = time.perf_counter()
+    dtu = make_dtu_scene_rich(os.path.join(workdir, "dtu_scan4"), DTU_WH)
+    t2 = time.perf_counter()
+    print(f"scenes: lego {LEGO_WH[0]}x{LEGO_WH[1]} written in {t1 - t0:.1f} s, DTU scan4 {DTU_WH[0]}x{DTU_WH[1]} "
+          f"in {t2 - t1:.1f} s")
+    out["write_s"] = {"lego": t1 - t0, "dtu": t2 - t1}
+    builds = {
+        "blender_ray_patch_1image_rot3d": (lego, dict(img_wh=LEGO_WH, **LEGO_DATA)),
+        "blender_ray_patch_1image_proj": (lego, dict(img_wh=LEGO_WH, **LEGO_DATA)),
+        "dtu_proj": (dtu, dict(img_wh=DTU_WH, **DTU_DATA)),
+    }
+    for name, (root, kw) in builds.items():
+        t0 = time.perf_counter()
+        ds = dataset_dict[name](root, split="train", device=device, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        near_far = ds.scene["near_far"].tolist()
+        items, ms = slice_items(ds, torch.Generator().manual_seed(SLICE_SEED), range(SLICE_ITEMS + 1))
+        for i, item in enumerate(items):
+            check_item(item, ds.cfg, near_far, f"{name} item {i}")
+        rays = ds.cfg.num_rays + (ds.cfg.n_proj or ds.cfg.num_rays) + 2 * ds.cfg.psx * ds.cfg.psy
+        row = dict(build_s=build_s, item_ms=sum(ms[1:]) / SLICE_ITEMS, first_item_ms=ms[0], len=len(ds),
+                   rays_per_step=rays, valid_warped=int(ds.scene["proj_depth"].shape[0]))
+        if ds.cfg.fresh_warp:
+            again, _ = slice_items(ds, torch.Generator().manual_seed(SLICE_SEED), range(SLICE_ITEMS + 1))
+            for a, b in zip(items, again):
+                if any(not torch.equal(a[k], b[k]) for k in a):
+                    raise Failed(f"{name}: the same seed drew another item on the card")
+            host = dataset_dict[name](root, split="train", device=torch.device("cpu"), **kw)
+            cpu_items, _ = slice_items(host, torch.Generator().manual_seed(SLICE_SEED), range(SLICE_ITEMS + 1))
+            for a, b in zip(items, cpu_items):
+                if any(not torch.equal(a[k].cpu(), b[k]) for k in ("rays", "rgbs", "depth", "real_patch")):
+                    raise Failed(f"{name}: the card's reads changed a draw (its random rays or real patch differ "
+                                 f"from the CPU's on the same seed)")
+            row["same_draws"] = True
+            del host, cpu_items
+        print(f"dataset {name}: built on the card in {build_s:.2f} s, {len(ds)} items per epoch, "
+              f"{row['valid_warped']} valid warped pixels, {rays} rays per step; sampler {row['item_ms']:.2f} ms per "
+              f"item (first {ms[0]:.2f} ms)" + ("; the same draws twice and as on the CPU" if ds.cfg.fresh_warp else ""))
+        out[name] = row
+        del ds, items
+        torch.cuda.empty_cache()
+    return out, lego, dtu
+
+
+def phase_slice_kernels(device):
+    """The shapes the slice gives the kernels, each against its plain
+    version in both dtypes with the white background: K3-fwd and K3-bwd at
+    the training batches of rot3d (16,384 rays), proj (20,480) and DTU
+    (16,032) at S = 64 and, after K2 (64 -> 128 with drawn ``u``), S = 128;
+    K1 and K2 (deterministic) at the eval tiles of a 400x400 Blender image
+    (131,072 + 28,928 rays) and a 640x512 DTU image (131,072 + 131,072 +
+    65,536; 65,536 is new) at S = 64 and 128."""
+    import torch
+
+    from sinnerf_tpu_torch.ops.fused_render import fused_render_level, render_level_plain
+    from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge, sample_pdf_merge_plain
+
+    rng = np.random.default_rng(SLICE_SEED)
+    models = {"coarse": make_model(30, device), "fine": make_model(31, device)}
+    s, k = N_SAMPLES, SLICE_N_IMPORTANCE
+    out = {"k3": {}, "k2": [], "k1": {}}
+    for n in SLICE_TRAIN_RAYS:
+        rays, z = make_rays(rng, n, s, device)
+        target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
+        noise = [torch.tensor(rng.normal(size=(n, m)), dtype=torch.float32, device=device) for m in (s, s + k)]
+        u = torch.tensor(rng.uniform(size=(n, k)), dtype=torch.float32, device=device)
+        for cd in ("bfloat16", "float32"):
+            zz = z
+            for level, nz in zip(("coarse", "fine"), noise):
+                m = zz.shape[1]
+                what = f"slice K3 {cd:8s} {level:6s} n={n} S={m:3d}"
+                res, _, err_f, err_b, spread, ms = k3_check(models[level], rays, zz, nz, target, cd, True, what, reps=2)
+                merge_worst(out["k3"], cd, err_f, err_b, spread)
+                bounds = {d: k3_bound(n, m, cd, d == "bwd")[0] for d in ("fwd", "bwd")}
+                print(f"  fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f}, bound {bounds['fwd']:.3f}); "
+                      f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f}, bound {bounds['bwd']:.3f})")
+                out["k3"][cd].setdefault("launches", []).append(dict(shape=f"{n}x{m}", ms=ms, bounds=bounds))
+                if level == "coarse":
+                    z_all = fused_sample_pdf_merge(zz, res[2], k, u, False)
+                    torch.cuda.synchronize()
+                    ref = sample_pdf_merge_plain(zz, res[2], k, u, False)
+                    err = k2_error(z_all, ref, f"slice K2 {cd:8s} n={n} {s}+{k} drawn u")
+                    _, k2_ms = timed(lambda: fused_sample_pdf_merge(zz, res[2], k, u, False), 20, K2_LEAD_CYCLES)
+                    out["k2"].append(dict(shape=f"{n}x{s}+{k}u", ms=k2_ms, err=err, bound_ms=k2_bound(n, s, k, False)))
+                    zz = z_all
+        torch.cuda.empty_cache()
+    for n in SLICE_EVAL_TILES:
+        rays, z = make_rays(rng, n, s, device)
+        for cd in ("bfloat16", "float32"):
+            w = out["k1"].setdefault(cd, dict(err=(0.0, 0.0), launches=[]))
+            zz = z
+            for level in ("coarse", "fine"):
+                m = zz.shape[1]
+                got, ms = timed(lambda: fused_render_level(models[level], rays, zz, True, True, cd), 2)
+                ref, plain_ms = timed(lambda: in_chunks(
+                    lambda rr, z2: render_level_plain(models[level], rr, z2, True, True, cd), n, rays, zz), 1)
+                err = k1_error(got, ref)
+                bound_ms = k1_bound(n, m, cd)[0]
+                hold(f"slice K1 {cd:8s} {level:6s} n={n:6d} S={m:3d} white_back=1 ({ms:.3f} ms, plain "
+                     f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms)", err, K1_TOL[cd])
+                w["err"] = tuple(max(a, b) for a, b in zip(w["err"], err))
+                w["launches"].append(dict(shape=f"{n}x{m}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
+                if level == "coarse":
+                    z_all = fused_sample_pdf_merge(zz, got[2], k, None, True)
+                    torch.cuda.synchronize()
+                    ref2 = in_chunks(lambda z2, w2: sample_pdf_merge_plain(z2, w2, k, None, True), n, zz, got[2])
+                    err = k2_error(z_all, ref2, f"slice K2 {cd:8s} n={n} {s}+{k} det")
+                    out["k2"].append(dict(shape=f"{n}x{s}+{k}", err=err, bound_ms=k2_bound(n, s, k, True)))
+                    zz = z_all
+            del got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice_flags(dataset: str, root: str, workdir: str, exp: str):
+    """The train CLI's flags of the slice's recipes: Step 1 of the README's
+    lego recipe (ViT on, random under --allow_random_pretrained), at 400x400
+    for Blender and with DTU's 56x70 patches at 640x512; one epoch each."""
+    common = [
+        "--root_dir", root, "--dataset_name", dataset, "--N_importance", str(SLICE_N_IMPORTANCE),
+        "--num_epochs", "1", "--batch_size", "1", "--num_gpus", "1", "--optimizer", "adam", "--lr", "2e-4",
+        "--lr_scheduler", "steplr", "--decay_step", "500", "1000", "--decay_gamma", "0.5", "--with_ref",
+        "--proj_weight", "1", "--depth_smooth_weight", "0.5", "--dis_weight", "0", "--load_depth",
+        "--depth_type", "nerf", "--model", "sinnerf", "--depth_weight", "8", "--vit_weight", "10",
+        "--allow_random_pretrained", "--check_val_every_n_epoch", "1", "--compute_dtype", "bfloat16",
+        "--device", "cuda", "--ckpt_dir", os.path.join(workdir, "slice_ckpts"),
+        "--log_dir", os.path.join(workdir, "slice_logs"), "--exp_name", exp,
+    ]
+    if dataset == "dtu_proj":
+        return common + ["--img_wh", *map(str, DTU_WH), "--patch_size_x", str(DTU_DATA["patch_size_x"]),
+                         "--patch_size_y", str(DTU_DATA["patch_size_y"]), "--sW", "8", "--sH", "8"]
+    return common + ["--img_wh", *map(str, LEGO_WH), "--patch_size", "64", "--sW", "6", "--sH", "6"]
+
+
+def phase_slice_cli(device, workdir: str, lego: str, dtu: str):
+    """The train CLI on each training set, bf16: lego Step 1 (one epoch of
+    the 125-pose rot3d grid), lego Step 2 from its ``last.ckpt``
+    (``--dis_weight 0.01 --pt_model <ck> --nerf_only``, one epoch),
+    ``BlenderProj`` (2 epochs of its 60 poses, validated after the last)
+    and DTU scan4 (one epoch of its 8 source views).  Per run the launch
+    counts (set to 0 just before, read just after), ms per step, and the
+    best val PSNR against an empty field's, which renders the background:
+    black on DTU, white on Blender (a white render outscores a black one by
+    ~5 dB on the lego stand-in).
+
+    Lego Step 1 and 2 keep the README's ``--vit_weight 10``, whose weights
+    are random here (``--allow_random_pretrained``: no DINO weights on the
+    card).  Those features' loss holds the lego field near an empty one
+    (chip runs B and C of this phase; PERF.md), so these two runs must clear
+    only a black render (a lit, finite render), and rot3d's run that must
+    learn is the demo's (phase 22).  ``BlenderProj`` trains without the ViT
+    and DTU with it; both must clear an empty field by EMPTY_MARGIN_DB."""
+    import torch
+
+    ckpts = os.path.join(workdir, "slice_ckpts")
+    runs = (
+        ("lego_step1", False, slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego_step1")),
+        ("lego_step2", False, slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego_step2")
+         + ["--dis_weight", "0.01", "--pt_model", os.path.join(ckpts, "lego_step1", "last.ckpt"), "--nerf_only"]),
+        ("lego_proj", True, slice_flags("blender_ray_patch_1image_proj", lego, workdir, "lego_proj")
+         + ["--vit_weight", "0", "--num_epochs", "2", "--check_val_every_n_epoch", "2"]),
+        ("dtu_scan4", True, slice_flags("dtu_proj", dtu, workdir, "dtu_scan4")),
+    )
+    out = {}
+    for name, learns, flags in runs:
+        trainer, counts, wall = run_cli(flags)
+        hold_dtype(counts, "bfloat16", f"train CLI {name}")
+        empty, white = empty_render_psnr(trainer.val_dataset), white_render_psnr(trainer.val_dataset)
+        steps = sum(e[1] for e in trainer.epoch_log)
+        step_ms = 1e3 * sum(e[2] for e in trainer.epoch_log) / steps
+        files = sorted(os.listdir(os.path.join(ckpts, name)))
+        print(f"train CLI {name}: {steps} steps, {step_ms:.1f} ms per step (host clock over the epochs), {wall:.1f} s "
+              f"in all; val PSNR {trainer.val_log} over {trainer.val_dataset.val_len()} images (black render "
+              f"{empty:.4f}, white render {white:.4f}); launches {counts}; checkpoints {files}")
+        epochs = len(trainer.epoch_log)
+        if steps != epochs * len(trainer.train_dataset) or not math.isfinite(trainer.best_psnr):
+            raise Failed(f"train CLI {name}: {steps} steps over {epochs} epochs, PSNR {trainer.best_psnr}")
+        floor = max(empty, white) if learns else empty
+        if trainer.best_psnr < floor + EMPTY_MARGIN_DB:
+            raise Failed(f"train CLI {name}: best val PSNR {trainer.best_psnr} is not {EMPTY_MARGIN_DB} dB above "
+                         f"{floor} (black render {empty}, white render {white})")
+        want = {"K3-fwd": 2 * steps, "K3-bwd": 2 * steps, "K4-fwd": 0, "K4-bwd": 0}
+        if any(counts[k] != v for k, v in want.items()) or counts["K1"] == 0 or counts["K2"] < steps:
+            raise Failed(f"train CLI {name}: launch counts {counts}, want {want} and K1 > 0, K2 >= {steps}")
+        best = [f for f in files if f.startswith("epoch_")]
+        if "last.ckpt" not in files or len(best) != 1:
+            raise Failed(f"train CLI {name}: checkpoints {files}")
+        out[name] = dict(counts=counts, steps=steps, epochs=epochs, step_ms=step_ms, wall_s=wall,
+                         psnr=trainer.best_psnr, val_log=trainer.val_log, empty_psnr=empty, white_psnr=white,
+                         gate_psnr=floor + EMPTY_MARGIN_DB, val_images=trainer.val_dataset.val_len(),
+                         best_ckpt=os.path.join(ckpts, name, best[0]))
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_eval(device, workdir: str, lego: str, dtu: str, cli):
+    """The eval CLI on each run's best checkpoint, bf16, with its own
+    defaults otherwise (Blender: the ``test`` split, the mytest slice at
+    ``--angle 64``; DTU: the reference view and its sources): ms per image,
+    PSNR, launches (K1 2 per tile, K2 1).  Then the weights-only tool on lego
+    Step 2's checkpoint, and the eval CLI on the stripped file, which must
+    give the same mean PSNR."""
+    from sinnerf_tpu_torch import eval as port_eval
+    from sinnerf_tpu_torch.render.renderer import pick_val_tile
+    from sinnerf_tpu_torch.utils.save_weights_only import save_weights_only
+
+    out = {}
+    evals = [(name, cli[name]["best_ckpt"]) for name in cli]
+    stripped = save_weights_only(cli["lego_step2"]["best_ckpt"], os.path.join(workdir, "lego_step2_weights.ckpt"))
+    evals.append(("lego_step2_weights_only", stripped))
+    for name, ckpt in evals:
+        is_dtu = name.startswith("dtu")
+        wh, root = (DTU_WH, dtu) if is_dtu else (LEGO_WH, lego)
+        flags = ["--root_dir", root, "--img_wh", *map(str, wh), "--N_importance", str(SLICE_N_IMPORTANCE),
+                 "--ckpt_path", ckpt, "--compute_dtype", "bfloat16", "--scene_name", name, "--timestamp", "t"]
+        if is_dtu:
+            flags += ["--dataset_name", "dtu_proj"]
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            psnr, counts, wall = counted(lambda: port_eval.main(port_eval.get_opts(flags)))
+        finally:
+            os.chdir(cwd)
+        hold_dtype(counts, "bfloat16", f"eval CLI {name}")
+        ds = "dtu_proj" if is_dtu else "blender_ray_patch_1image_rot3d"
+        images = len(glob.glob(os.path.join(workdir, "results", ds, name, "t", "*.png")))
+        tiles = math.ceil(wh[0] * wh[1] / pick_val_tile(wh[0] * wh[1], 32 * 1024 * 4))
+        print(f"eval CLI {name}: {images} images in {wall:.1f} s ({1e3 * wall / max(images, 1):.1f} ms per image "
+              f"incl. PNG writes), mean PSNR {psnr}, launches {counts}")
+        if psnr is None or not math.isfinite(psnr) or images == 0:
+            raise Failed(f"eval CLI {name}: PSNR {psnr}, {images} images")
+        if counts["K1"] != 2 * tiles * images or counts["K2"] != tiles * images:
+            raise Failed(f"eval CLI {name}: launches {counts}, want K1 {2 * tiles * images}, K2 {tiles * images}")
+        out[name] = dict(psnr=psnr, images=images, wall_s=wall, image_ms=1e3 * wall / images, counts=counts)
+    gap = abs(out["lego_step2_weights_only"]["psnr"] - out["lego_step2"]["psnr"])
+    print(f"weights-only file vs the training checkpoint: mean PSNR differs by {gap:.2e} dB")
+    if gap > 0:
+        raise Failed(f"the weights-only checkpoint renders another PSNR ({gap} dB off)")
+    return out
+
+
+def phase_demo(device, workdir: str):
+    """``sinnerf_tpu_torch.scripts.demo_convergence`` at its defaults (300
+    steps at 128x128, 64 + 64 samples, 1024 rays, 32x32 patches), on the
+    kernels in bf16, counted: the val PSNR must rise by more than 3 dB and
+    clear an empty field's (a black and a white render's of the demo's val
+    images, the same scene written here) by EMPTY_MARGIN_DB."""
+    from sinnerf_tpu_torch.data import dataset_dict
+    from sinnerf_tpu_torch.data.synthetic import make_blender_scene
+    from sinnerf_tpu_torch.scripts import demo_convergence
+
+    img = demo_convergence.get_args([]).img
+    val = dataset_dict["blender_ray_patch_1image_rot3d"](
+        make_blender_scene(os.path.join(workdir, "demo_scene"), (img, img)), split="val", img_wh=(img, img),
+        ref_idx=0)
+    empty, white = empty_render_psnr(val), white_render_psnr(val)
+    try:
+        res, counts, wall = counted(lambda: demo_convergence.main([]))
+    except AssertionError as e:
+        raise Failed(f"demo_convergence: {e}")
+    hold_dtype(counts, "bfloat16", "demo_convergence")
+    print(f"demo_convergence: val PSNR {res['psnr_before']:.2f} -> {res['psnr_after']:.2f} dB (black render "
+          f"{empty:.4f}, white render {white:.4f}), {res['steps_per_s']:.2f} steps/s, {wall:.1f} s in all, "
+          f"launches {counts}")
+    if counts["K3-fwd"] != 2 * res["steps"] or counts["K3-bwd"] != 2 * res["steps"]:
+        raise Failed(f"demo_convergence: launch counts {counts}")
+    if res["psnr_after"] < max(empty, white) + EMPTY_MARGIN_DB:
+        raise Failed(f"demo_convergence: val PSNR {res['psnr_after']} after training, an empty field scores "
+                     f"{max(empty, white)}")
+    return dict(res, counts=counts, wall_s=wall, empty_psnr=empty, white_psnr=white)
+
+
 def sass_counts():
     """Per kernel of SASS_KERNELS, from its built library: the count of the
     SASS instructions that show the design (``cuobjdump -sass``): HGMMA
@@ -2114,6 +2545,18 @@ def sass_counts():
             raise Failed(f"{name}: its SASS lacks one of {needs} (NO_SPILLS: no spill stores or loads): "
                          f"{c}, ptxas {usage[name]}")
     return counts, usage
+
+
+def slice_launches(name: str, cd: str, cli, ev, demo):
+    """A kernel's launches on the Blender and DTU slice for the ``kernels``
+    line, as its wrapper counted those of dtype ``cd`` (K2: all of them): in
+    each train CLI run, each eval CLI run and the demo."""
+    key = f"{name}[{cd}]" if f"{name}[{cd}]" in demo["counts"] else name
+    return dict(
+        slice_cli_launches={run: r["counts"][key] for run, r in cli.items()},
+        slice_eval_launches={run: r["counts"][key] for run, r in ev.items()},
+        slice_demo_launches=demo["counts"][key],
+    )
 
 
 def mean_of(rows, key: str) -> float:
@@ -2170,6 +2613,15 @@ def main() -> int:
         step2 = phase_step2(device, batch, draws)
         step2_profile = phase_step2_profile(device, batch, draws)
         step2_cli = phase_step2_cli(device)
+        t_slice = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            slice_data, lego, dtu = phase_slice_datasets(device, workdir)
+            slice_k = phase_slice_kernels(device)
+            slice_cli = phase_slice_cli(device, workdir, lego, dtu)
+            slice_ev = phase_slice_eval(device, workdir, lego, dtu, slice_cli)
+            demo = phase_demo(device, workdir)
+        slice_s = time.perf_counter() - t_slice
+        print(f"phases 18-22 (the Blender and DTU slice): {slice_s:.1f} s")
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2197,11 +2649,17 @@ def main() -> int:
             vs_earlier={k: v["ratio"] for k, v in rounds.items()}, rounds=K1_ROUNDS[cd][0],
             earlier_err=tuple(map(max, *(v["earlier_err"] for v in rounds.values()))),
             sass=sass[f"k1_sm90[{cd}]"], ptxas=ptxas[f"k1_sm90[{cd}]"],
+            # the Blender and DTU slice: its eval tiles with the white background, and its runs' launches
+            slice_per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]]
+                              for x in slice_k["k1"][cd]["launches"]},
+            **slice_launches("K1", cd, slice_cli, slice_ev, demo),
         ))
+        kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], slice_k["k1"][cd]["err"][0])
+        kernels[-1]["mean_abs_err"] = max(kernels[-1]["mean_abs_err"], slice_k["k1"][cd]["err"][1])
     for cd in ("bfloat16", "float32"):
         p, t = tpath["k3"][cd], train[cd]
         for i, (d, line, tol) in enumerate((("fwd", 86, K3_FWD_TOL[cd]), ("bwd", 164, K3_BWD_TOL[cd]))):
-            err = tuple(max(a, b) for a, b in zip(k3_err[cd][d], p[d]))
+            err = tuple(max(a, b, c) for a, b, c in zip(k3_err[cd][d], p[d], slice_k["k3"][cd][d]))
             rows = [dict(ms=x["ms"][d], plain_ms=x["ms"][d + "_plain"], bound_ms=x["bounds"][d][0]) for x in p["launches"]]
             bf16 = cd == "bfloat16"
             entry = dict(
@@ -2219,7 +2677,10 @@ def main() -> int:
                 step_ms=t["step_ms"], steps=TRAIN_STEPS,
                 # the Step-2 path (phase 15): its launches over STEP2_STEPS steps and its step
                 step2_launches=step2[cd]["counts"][i], step2_step_ms=step2[cd]["step_ms"],
-                step2_cli_launches=step2_cli["step2"]["counts"][f"K3-{d}"],
+                step2_cli_launches=step2_cli["step2"]["counts"][f"K3-{d}[{cd}]"],
+                slice_per_launch={x["shape"]: [x["ms"][d], x["ms"][d + "_plain"], x["bounds"][d]]
+                                  for x in slice_k["k3"][cd]["launches"]},
+                **slice_launches(f"K3-{d}", cd, slice_cli, slice_ev, demo),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -2266,7 +2727,7 @@ def main() -> int:
             entry = dict(
                 name=f"fused_nerf_mlp_{d}[{cd}]", route="cuda", source="sinnerf_tpu_torch/csrc/" + source,
                 body="sinnerf_tpu_torch/csrc/" + body, replaces=f"sinnerf_tpu/ops/fused_mlp_t.py:{line}",
-                launches=counts[f"K4-{d}"], max_abs_err=err[0], tolerance=tol,
+                launches=counts[f"K4-{d}[{cd}]"], max_abs_err=err[0], tolerance=tol,
                 ms=mean_of(rows, "ms"), plain_ms=mean_of(rows, "plain_ms"), bound_ms=mean_of(rows, "bound_ms"),
                 bound_by=p["launches"][0]["bounds"][d][1], library_ms=None,
                 per_launch={x["shape"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for x, r in zip(p["launches"], rows)},
@@ -2317,7 +2778,11 @@ def main() -> int:
         # the kernel cut after its rows and after its CDF, in the same rounds
         parts_ms={x["shape"]: x["parts_ms"] for x in k2[:2] + tpath["k2"][:1]},
         parts_vs_whole={x["shape"]: x["parts_vs_new"] for x in k2[:2] + tpath["k2"][:1]},
+        # the slice's shapes: [ms (timed at the training batches), bound ms, error]
+        slice_per_launch={x["shape"]: [x.get("ms"), x["bound_ms"], x["err"]] for x in slice_k["k2"]},
+        **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo),
     ))
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], max(x["err"] for x in slice_k["k2"]))
     for name, r in ((n, x1_res[n]) for n in x1_err):
         kernels.append(dict(
             name=f"exp_kernel_variants[{name}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_kernel_variants.cu",
@@ -2352,7 +2817,9 @@ def main() -> int:
           f"(K1: one eval image; K3 and K4: one train step; K2: both; X1 and X2: one launch of the experiment's "
           f"size); no single PyTorch call computes any kernel's function")
     print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli,
-                      "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli}}))
+                      "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli},
+                      "slice": {"datasets": slice_data, "cli": slice_cli, "eval": slice_ev, "demo": demo,
+                                "seconds": slice_s}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

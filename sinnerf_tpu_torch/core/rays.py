@@ -1,8 +1,8 @@
 """Ray generation from camera intrinsics.
 
 Counterpart of ``sinnerf_tpu/core/rays.py`` (reference
-``datasets/ray_utils.py``): pinhole camera, -z forward, directions not
-normalized, and no +0.5 pixel-center offset.
+``datasets/ray_utils.py``): pinhole camera, -z forward (DTU: +z forward,
+y down), directions not normalized, and no +0.5 pixel-center offset.
 """
 
 from __future__ import annotations
@@ -39,3 +39,15 @@ def get_ray_directions(
         [(ii - w / 2) / f, -(jj - h / 2) / f, -torch.ones_like(ii)],
         dim=-1,
     )
+
+
+def get_ray_directions_pz(h: int, w: int, k3) -> torch.Tensor:
+    """Per-pixel camera-frame directions (H, W, 3), DTU/MVS convention (x
+    right, y down, +z forward), the principal point from the intrinsics
+    ``k3`` (3, 3) (JAX ``get_ray_directions_pz``, reference
+    ``dtu_proj.py:17-35``).  K is taken in float32, as JAX takes it."""
+    k = torch.as_tensor(k3).to(torch.float32)
+    ii, jj = pixel_grid(h, w, device=k.device)
+    # elementwise float32 divisions by K's float32 entries, as JAX divides
+    fx, fy = k[0, 0].expand_as(ii).contiguous(), k[1, 1].expand_as(ii).contiguous()
+    return torch.stack([(ii - k[0, 2]) / fx, (jj - k[1, 2]) / fy, torch.ones_like(ii)], dim=-1)

@@ -28,13 +28,20 @@ def pack_rays_np(
     return np.concatenate([o, d, nf], axis=-1).astype(np.float32)
 
 
-def load_image(path: str, img_wh: Tuple[int, int]) -> np.ndarray:
-    """Load and Lanczos-resize an image to (H, W, 3) float32 in [0, 1]."""
+def load_image(path: str, img_wh: Tuple[int, int], resample: str = "lanczos",
+               blend_alpha_to_white: bool = False) -> np.ndarray:
+    """Load and resize (``resample``: "lanczos" or "bilinear") an image to
+    (H, W, 3) float32 in [0, 1]; an RGBA image is blended onto white when
+    asked (the Blender sets, ``blender_rot3d.py:291``)."""
     from PIL import Image
 
-    img = Image.open(path).resize(img_wh, Image.LANCZOS)
+    filt = Image.LANCZOS if resample == "lanczos" else Image.BILINEAR
+    img = Image.open(path).resize(img_wh, filt)
     arr = np.asarray(img, dtype=np.float32) / 255.0
-    if arr.ndim == 2:
+    if blend_alpha_to_white and arr.shape[-1] == 4:
+        rgb, a = arr[..., :3], arr[..., 3:]
+        arr = rgb * a + (1.0 - a)
+    elif arr.ndim == 2:
         arr = np.stack([arr] * 3, -1)
     return arr[..., :3]
 

@@ -90,12 +90,6 @@ def _eval_near_far(spheric_poses: bool, bounds, near, far):
     return near, far
 
 
-def _proj(k3: np.ndarray, c2w: np.ndarray) -> np.ndarray:
-    """The float64 pixel projection of a camera (K @ OpenCV w2c)."""
-    c2w = torch.as_tensor(np.asarray(c2w, dtype=np.float64))
-    return pose_np.projection_matrix(torch.as_tensor(k3, dtype=torch.float64), pose_np.c2w_to_w2c_cv(c2w)).numpy()
-
-
 class LLFFProj(SingleImageDataset):
     dataset_name = "llff_ray_patch_1image_proj"
 
@@ -168,8 +162,8 @@ class LLFFProj(SingleImageDataset):
 
         # pseudo views = every real camera pose (llff_proj.py:522)
         bank_c2w = self.poses.astype(np.float32)
-        src_projs = np.stack([_proj(self.k3, c) for c in bank_c2w])
-        bank_rgb, bank_depth = build_warp_banks(ref_image, ref_depth, _proj(self.k3, ref_c2w), src_projs,
+        src_projs = np.stack([pose_np.camera_projection_np(self.k3, c) for c in bank_c2w])
+        bank_rgb, bank_depth = build_warp_banks(ref_image, ref_depth, pose_np.camera_projection_np(self.k3, ref_c2w), src_projs,
                                                 zbuffer=True, device=device)
         proj_pose, proj_pix, proj_depth = build_proj_index(bank_rgb, bank_depth)
         scene = {

@@ -1,11 +1,14 @@
-"""Camera pose math for the LLFF loaders and the training sampler.
+"""Camera pose math for the datasets and the training sampler.
 
 The port's own copy of the pieces of ``sinnerf_tpu/data/poses.py`` and
-``sinnerf_tpu/data/jnp_poses.py`` that the LLFF datasets and the sampler
-need (reference ``datasets/llff_ray_patch_1image_proj.py:174-319``,
-``blender_ray_patch_1image_rot3d.py:80-100``): pose averaging and
-centering, the spiral and spheric test paths (numpy), and the rotation,
-world-to-camera and projection matrices of the depth warps (tensors).
+``sinnerf_tpu/data/jnp_poses.py`` that the datasets and the sampler need
+(reference ``datasets/llff_ray_patch_1image_proj.py:174-319``,
+``blender_ray_patch_1image_rot3d.py:31-100``): pose averaging and
+centering, the spiral and spheric test paths, the Blender pseudo-view
+banks and the warps' projections of the banks (numpy, float64, named
+``*_np`` where a tensor function holds the JAX name), and the rotation,
+world-to-camera and projection matrices of the sampler's fresh warp
+(tensors).
 Conventions: c2w are OpenGL-style (x right, y up, -z forward); the warps'
 w2c are OpenCV-style (y down, +z forward).
 """
@@ -16,6 +19,15 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+# OpenGL camera -> OpenCV camera axis flip
+_GL_TO_CV = ((1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, -1.0))
+
+
+def trans_t(t: float) -> np.ndarray:
+    m = np.eye(4)
+    m[2, 3] = t
+    return m
 
 
 def rot_phi(phi: float) -> np.ndarray:
@@ -30,6 +42,76 @@ def rot_theta(th: float) -> np.ndarray:
     return np.array(
         [[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], [0, 0, 0, 1]], dtype=np.float64
     )
+
+
+def rot_z(th: float) -> np.ndarray:
+    c, s = np.cos(th), np.sin(th)
+    return np.array(
+        [[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], dtype=np.float64
+    )
+
+
+def to_homo(pose: np.ndarray) -> np.ndarray:
+    """(3, 4) -> (4, 4) with [0, 0, 0, 1] appended."""
+    pose = np.asarray(pose, dtype=np.float64)
+    if pose.shape[0] == 4:
+        return pose
+    return np.concatenate([pose, np.array([[0.0, 0.0, 0.0, 1.0]])], axis=0)
+
+
+def invert_pose(pose: np.ndarray) -> np.ndarray:
+    """``flatten`` in the reference (``blender_rot3d.py:74-77``): the
+    homogeneous inverse, as (3, 4)."""
+    return np.linalg.inv(to_homo(pose))[:3, :4]
+
+
+def rotate_3d_np(c2w: np.ndarray, x_deg: float, y_deg: float, z_deg: float) -> np.ndarray:
+    """JAX ``poses.rotate_3d`` (:52): ``rot_phi(x) @ rot_theta(y) @ rot_z(z)
+    @ c2w`` in float64, (4, 4)."""
+    rot = rot_phi(np.deg2rad(x_deg)) @ rot_theta(np.deg2rad(y_deg)) @ rot_z(np.deg2rad(z_deg))
+    return rot @ to_homo(c2w)
+
+
+def convert_c2w_to_w2c_cv(c2w: np.ndarray) -> np.ndarray:
+    """OpenGL c2w -> OpenCV w2c (4, 4) in float64 (JAX :78, reference
+    ``blender_rot3d.py:85-100``)."""
+    c2w = to_homo(c2w)
+    flip = np.array(_GL_TO_CV, dtype=np.float64)
+    r_w2c = c2w[:3, :3].T
+    t_w2c = -r_w2c @ c2w[:3, 3:]
+    out = np.eye(4)
+    out[:3, :3] = flip @ r_w2c
+    out[:3, 3:] = flip @ t_w2c
+    return out
+
+
+def projection_matrix_np(k: np.ndarray, w2c: np.ndarray) -> np.ndarray:
+    """JAX ``poses.projection_matrix`` (:95): P (4, 4) with ``P[:3] = K @
+    w2c[:3]`` in float64."""
+    p = to_homo(np.asarray(w2c, dtype=np.float64)).copy()
+    p[:3, :4] = np.asarray(k, dtype=np.float64) @ p[:3, :4]
+    return p
+
+
+def camera_projection_np(k3: np.ndarray, c2w: np.ndarray) -> np.ndarray:
+    """A camera's float64 pixel projection, K @ OpenCV w2c, as the datasets
+    build their warp banks."""
+    return projection_matrix_np(k3, convert_c2w_to_w2c_cv(c2w))
+
+
+def rot3d_grid(ref_c2w: np.ndarray, angle: int) -> np.ndarray:
+    """The 125-pose pseudo-view bank: x, y, z in {-a, -a/2, 0, a/2, a}
+    (JAX :207, reference ``blender_rot3d.py:365-370``).  (125, 3, 4)."""
+    step = max(angle // 2, 1)
+    grid = range(-angle, angle + 1, step)
+    return np.stack([rotate_3d_np(ref_c2w, x, y, z)[:3, :4] for x in grid for y in grid for z in grid], 0)
+
+
+def rot_z_linspace(ref_c2w: np.ndarray, angle: float, n: int = 60) -> np.ndarray:
+    """The Blender ``proj`` bank: rot_z over linspace(-angle, angle, n)
+    (JAX :219, reference ``blender_ray_patch_1image_proj.py:355-356``)."""
+    ref4 = to_homo(ref_c2w)
+    return np.stack([(rot_z(np.deg2rad(a)) @ ref4)[:3, :4] for a in np.linspace(-angle, angle, n)], 0)
 
 
 def normalize(v: np.ndarray) -> np.ndarray:
@@ -124,8 +206,6 @@ def rotate_3d(c2w: torch.Tensor, x_deg, y_deg, z_deg) -> torch.Tensor:
     rot = _rot("x", rad(x_deg)) @ _rot("y", rad(y_deg)) @ _rot("z", rad(z_deg))
     return torch.cat([rot @ c2w[:, :3], rot @ c2w[:, 3:]], dim=1)
 
-
-_GL_TO_CV = ((1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, -1.0))
 
 
 def c2w_to_w2c_cv(c2w: torch.Tensor) -> torch.Tensor:

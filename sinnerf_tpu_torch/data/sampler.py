@@ -11,8 +11,9 @@ and a fresh warp's valid pseudo-patch origins are evaluated for every
 origin at once and drawn from uniformly.
 
 Every draw of an item can be passed in (``ItemDraws``): the ray-pool
-indices, the projected-ray indices, the two patch corners and the
-fresh-warp angles.  A draw not passed comes from the ``torch.Generator``
+indices, the projected-ray indices, the two patch corners (or, with
+warp-patch rejection, the pseudo-view patch's rank among the valid origins)
+and the fresh-warp angles.  A draw not passed comes from the ``torch.Generator``
 given (a CPU generator: the draws are small and move to the device).
 
 The batch dict has the reference's key schema (the keys
@@ -78,6 +79,7 @@ class ItemDraws(NamedTuple):
     real_corner: Optional[torch.Tensor] = None  # (2,) row, col of the ref-image patch
     angles: Optional[torch.Tensor] = None       # (3,) fresh-warp Euler angles, degrees
     patch_corner: Optional[torch.Tensor] = None  # (2,) row, col of the pseudo-view patch
+    patch_rank: Optional[torch.Tensor] = None   # () with reject_warp_patch: the rank among the valid origins
 
 
 def strided_patch(img: torch.Tensor, ll: int, up: int, psx: int, psy: int, s_row: int, s_col: int):
@@ -229,7 +231,8 @@ def sample_item(
         # as the reference's redraw loop (blender_rot3d.py:468-476); none
         # valid degrades to (0, 0), a fully masked patch (JAX :195-204)
         valid = (_strided_sum_map(warp_depth, cfg) != 0).reshape(-1)
-        rank = _randint(int(valid.sum()), (), generator).to(dev)
+        rank = draws.patch_rank if draws.patch_rank is not None else _randint(int(valid.sum()), (), generator)
+        rank = torch.as_tensor(rank).to(dev)
         idx = int(torch.argmax((torch.cumsum(valid.to(torch.int64), 0) > rank).to(torch.int8)))
         ll, up = idx // cfg.col_limit, idx % cfg.col_limit
     else:

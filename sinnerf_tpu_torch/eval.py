@@ -79,8 +79,8 @@ def load_models(ckpt_path: str, device: torch.device) -> Dict[str, "torch.nn.Mod
     if os.path.isdir(ckpt_path):
         raise ValueError(
             f"{ckpt_path} is a directory: the port reads reference-format .ckpt "
-            "files only, not orbax checkpoint directories; write one with the "
-            "JAX package's `save_weights_only --torch`"
+            "files only, not orbax checkpoint directories (the JAX package's "
+            "`save_weights_only --torch` converts those)"
         )
     states = load_torch_nerf_checkpoint(ckpt_path)
     return {name: nerf_from_state(sd).to(device).eval() for name, sd in states.items()}

@@ -613,10 +613,12 @@ def launch_mlp_fwd(packed: PackedWeights, xyz, dirs, use_new_activation=True, si
         )
     _build.check(lib, rc, f"fused_nerf_mlp (forward, {what})")
     launch_mlp_fwd.launches += 1
+    launch_mlp_fwd.launches_by_dtype[str(packed.w.dtype).removeprefix("torch.")] += 1
     return out
 
 
 launch_mlp_fwd.launches = 0
+launch_mlp_fwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
 
 
 def _launch_fwd_block64(packed: PackedWeights, xyz, dirs, use_new_activation, sigma_only) -> torch.Tensor:
@@ -722,10 +724,12 @@ def launch_mlp_bwd(packed: PackedWeights, xyz, dirs, g, use_new_activation=True,
         _build.check(lib, rc, "fused_nerf_mlp (backward, f32 sm90)")
         out = dw, db, dxyz, ddir
     launch_mlp_bwd.launches += 1
+    launch_mlp_bwd.launches_by_dtype[str(packed.w.dtype).removeprefix("torch.")] += 1
     return out
 
 
 launch_mlp_bwd.launches = 0
+launch_mlp_bwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
 
 
 def launch_mlp_bwd_ablated(packed: PackedWeights, xyz, dirs, g, use_new_activation=True, sigma_only=False):
@@ -829,7 +833,8 @@ def fused_nerf_mlp(
     to the model's parameters (float32 gradients; the ``Function`` casts the
     parameters inside), xyz and dirs.  On CUDA tensors both directions launch
     their kernels or raise, and add one to ``launch_mlp_fwd.launches`` and
-    ``launch_mlp_bwd.launches`` per launch; on CPU tensors they take the
+    ``launch_mlp_bwd.launches`` per launch (and to their weights' dtype's entry
+    of ``launches_by_dtype``); on CPU tensors they take the
     plain versions."""
     if xyz.dim() != 2 or xyz.shape[1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"xyz must be (P, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")

@@ -21,7 +21,8 @@ the Hopper kernels; no path of the port runs it.
 ``fused_render_level`` is a ``torch.autograd.Function`` over the module's 24
 float32 parameters, the rays and the depths.  Its forward is the kernel on
 CUDA tensors (it launches or raises, and adds one to
-``fused_render_level.launches`` per launch) and the plain version on CPU
+``fused_render_level.launches`` and to its weights' dtype's entry of
+``fused_render_level.launches_by_dtype`` per launch) and the plain version on CPU
 tensors.  Its backward is JAX's ``_frl_bwd`` (:229): it recomputes the
 level through the per-point K4 (``fused_mlp.fused_nerf_mlp``) on
 ``xyz = o + d z`` and ``composite`` (no noise, the same white background),
@@ -187,6 +188,7 @@ def launch_render(packed: PackedWeights, rays6, z, use_new_activation, white_bac
         )
     _build.check(lib, rc, "fused_render_level")
     fused_render_level.launches += 1
+    fused_render_level.launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
     return rgb, depth, weights
 
 
@@ -267,3 +269,4 @@ def fused_render_level(
 
 
 fused_render_level.launches = 0
+fused_render_level.launches_by_dtype = {"bfloat16": 0, "float32": 0}

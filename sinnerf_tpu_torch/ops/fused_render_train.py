@@ -34,7 +34,8 @@ and returns float32 gradients, so no gradient passes a ``.to(bfloat16)``
 node.  Rays, depths and noise are detached before the ``Function`` and get no
 gradient, as the JAX wrapper stops theirs.  On CUDA tensors both directions
 launch their kernels or raise, and add one to ``launch_train_fwd.launches``
-and ``launch_train_bwd.launches`` per launch.  On CPU tensors they take the
+and ``launch_train_bwd.launches`` per launch, and to their weights' dtype's
+entry of ``launches_by_dtype``.  On CPU tensors they take the
 plain versions:
 
 * ``render_level_train_plain``: the forward, cast for cast with the kernel,
@@ -337,10 +338,12 @@ def launch_train_fwd(packed, rays6, z, noise, use_new_activation, white_back, sl
         )
     _build.check(lib, rc, f"fused_render_level_train (forward, sm90, {packed.w.dtype})")
     launch_train_fwd.launches += 1
+    launch_train_fwd.launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
     return out
 
 
 launch_train_fwd.launches = 0
+launch_train_fwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
 
 
 def launch_train_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back):
@@ -402,10 +405,12 @@ def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_d
     out = _launch_bwd_sm90(entry, (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
                            use_new_activation, white_back, slabs)
     launch_train_bwd.launches += 1
+    launch_train_bwd.launches_by_dtype["bfloat16" if entry == "k3_sm90_bwd" else "float32"] += 1
     return out
 
 
 launch_train_bwd.launches = 0
+launch_train_bwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
 
 
 def launch_train_bwd_block64(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,

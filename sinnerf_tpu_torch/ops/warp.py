@@ -55,9 +55,12 @@ def warp_winner(
     h, w = depth_ref.shape
     n = h * w
     x_src, y_src, depth_src = project_pixels(depth_ref, ref_proj, src_proj)
-    # floor and clamp to the image, as np.floor/np.clip in every reference variant
-    tx = torch.clamp(torch.floor(x_src), 0, w - 1).to(torch.int64).reshape(-1)
-    ty = torch.clamp(torch.floor(y_src), 0, h - 1).to(torch.int64).reshape(-1)
+    # floor and clamp to the image, as np.floor/np.clip in every reference
+    # variant.  A pixel of depth 0 seen from its own camera projects to 0/0:
+    # XLA converts that NaN to 0 (JAX :101-102), so it lands on pixel 0 here
+    # too (a NaN's conversion to an integer is undefined in torch)
+    tx = torch.clamp(torch.nan_to_num(torch.floor(x_src), nan=0.0), 0, w - 1).to(torch.int64).reshape(-1)
+    ty = torch.clamp(torch.nan_to_num(torch.floor(y_src), nan=0.0), 0, h - 1).to(torch.int64).reshape(-1)
     flat = ty * w + tx
     d_flat = depth_src.reshape(-1)
     ordinal = torch.arange(n, dtype=torch.int64, device=depth_ref.device)

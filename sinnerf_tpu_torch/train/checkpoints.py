@@ -44,7 +44,8 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: the port reads reference-format .ckpt files only, not orbax "
-            "checkpoint directories; write one with the JAX package's `save_weights_only --torch`"
+            "checkpoint directories (the JAX package's `save_weights_only --torch` converts those); "
+            "`python -m sinnerf_tpu_torch.utils.save_weights_only` strips the port's own training .ckpt"
         )
     return torch.load(path, map_location="cpu", weights_only=False)
 

@@ -11,11 +11,15 @@ through ``render_chunked`` and a checkpoint (top-2 on val/psnr plus
 ``last``).  Scalars go to TensorBoard under the JAX package's tags when a
 TensorBoard writer imports; without one the writer is None.
 
-The Step-2 extras are built as the JAX trainer builds them (:129-194): the
-discriminator at ``imsize=--patch_size`` when ``--dis_weight > 0``, with its
-own optimizer at a constant 0.2x the learning rate; the frozen ViT when
-``--vit_weight > 0`` and the VGG trunk for ``--patch_loss l2_vgg``, from
-``--vit_weights`` / ``--vgg_weights``, or random from the seed under
+Every training set of the registry trains: Blender's rot3d and proj
+(``--patch_size``), LLFF and DTU (``--patch_size_x`` x ``--patch_size_y``),
+each taking the JAX trainer's flags (:63-110).  The Step-2 extras are built
+as the JAX trainer builds them (:129-194): the discriminator at
+``imsize=--patch_size`` when ``--dis_weight > 0`` (refused when the training
+set's patch is too small for that branch), with its own optimizer at a
+constant 0.2x the learning rate; the frozen ViT when ``--vit_weight > 0``
+and the VGG trunk for ``--patch_loss l2_vgg``, from ``--vit_weights`` /
+``--vgg_weights``, or random from the seed under
 ``--allow_random_pretrained`` (refused otherwise).  ``--num_gpus > 1``
 comes in a later slice and raises.
 """
@@ -83,11 +87,16 @@ def _check_supported(hparams: Any) -> None:
         raise ValueError("--patch_loss l2_vgg requires --vgg_weights <path to torchvision VGG16 weights>: without "
                          "them the perceptual loss uses a RANDOM VGG. Pass --allow_random_pretrained to override "
                          "(tests only).")
-    if hparams.dis_weight > 0:
-        side = min(hparams.patch_size_x, hparams.patch_size_y)  # the LLFF patch; D's branch is --patch_size's
-        if output_side(hparams.patch_size, side) < 1:
-            raise ValueError(f"--dis_weight > 0: a {side}-pixel patch is too small for the discriminator's "
-                             f"imsize={hparams.patch_size} branch")
+
+
+def _check_discriminator_patch(hparams: Any, cfg) -> None:
+    """D's branch is ``--patch_size``'s; the patches it sees are the
+    training set's own (Blender: ``--patch_size``, LLFF and DTU:
+    ``--patch_size_x`` x ``--patch_size_y``)."""
+    side = min(cfg.psx, cfg.psy)
+    if hparams.dis_weight > 0 and output_side(hparams.patch_size, side) < 1:
+        raise ValueError(f"--dis_weight > 0: a {side}-pixel patch is too small for the discriminator's "
+                         f"imsize={hparams.patch_size} branch")
 
 
 def _make_writer(log_dir: str):
@@ -115,6 +124,7 @@ class SinNeRFTrainer:
         ds_kwargs["device"] = self.device
         root = ds_kwargs.pop("root_dir")
         self.train_dataset = ds_cls(root, split="train", **ds_kwargs)
+        _check_discriminator_patch(hparams, self.train_dataset.cfg)
         self.val_dataset = ds_cls(root, split="val", **ds_kwargs)
 
         self.render_settings = build_render_settings(hparams, self.train_dataset.white_back)

@@ -151,14 +151,26 @@ def test_eval_cli_without_device_flag_needs_a_card(tmp_path, monkeypatch):
         port_eval.main(args)
 
 
-def test_eval_cli_rejects_what_is_not_ported(tmp_path):
+def test_eval_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, level_params):
+    """Multi-GPU rendering and orbax directories are refused; the DTU set,
+    a later slice once, renders (tests/test_torch_blender_dtu_cli.py holds
+    it to JAX's eval.py)."""
     flags = ["--root_dir", str(tmp_path), "--ckpt_path", str(tmp_path), "--device", "cpu"]
     with pytest.raises(NotImplementedError):
         port_eval.main(port_eval.get_opts(flags + ["--dataset_name", "llff", "--num_gpus", "2"]))
-    with pytest.raises(NotImplementedError):
-        port_eval.main(port_eval.get_opts(flags + ["--dataset_name", "dtu_proj"]))
     with pytest.raises(ValueError, match="orbax"):
         port_eval.load_models(str(tmp_path), torch.device("cpu"))
+    from sinnerf_tpu_torch.data.synthetic import make_dtu_scene
+
+    root = make_dtu_scene(str(tmp_path / "dtu"), (32, 32))
+    ckpt = save_torch_nerf_checkpoint(str(tmp_path / "w.ckpt"),
+                                      {k: state_dict_from_jax(v) for k, v in level_params.items()})
+    monkeypatch.chdir(tmp_path)
+    psnr = port_eval.main(port_eval.get_opts(["--root_dir", root, "--ckpt_path", ckpt, "--dataset_name", "dtu_proj",
+                                              "--split", "val", "--img_wh", "32", "32", "--N_samples", "4",
+                                              "--N_importance", "4", "--timestamp", "t", "--device", "cpu"]))
+    assert np.isfinite(psnr)
+    assert len(os.listdir(tmp_path / "results" / "dtu_proj" / "test" / "t")) == 4 + 1  # 4 PNGs, the GIF
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -185,17 +185,27 @@ def test_top_k_manager_keeps_the_best_two_and_last(tmp_path):
 @pytest.mark.parametrize("extra", [["--num_gpus", "2"], ["--vit_weight", "10"], ["--dis_weight", "0.01"],
                                    ["--dataset_name", "blender_ray_patch_1image_rot3d"]])
 def test_later_slices_raise(llff_root, tmp_path, extra):
-    """Multi-GPU training and the Blender set are later slices.  The Step-2
-    extras are built (tests/test_torch_step2.py), but refused where the JAX
-    trainer refuses them or cannot run them: the ViT without
-    ``--vit_weights`` or ``--allow_random_pretrained``, and the
-    discriminator on these 8-pixel patches, too small for its 16 branch."""
+    """Multi-GPU training is a later slice.  The Step-2 extras are built
+    (tests/test_torch_step2.py), but refused where the JAX trainer refuses
+    them or cannot run them: the ViT without ``--vit_weights`` or
+    ``--allow_random_pretrained``, and the discriminator on these 8-pixel
+    patches, too small for its 16 branch.  The Blender set is ported: on a
+    Blender scene the trainer builds, and the discriminator is refused on
+    its 8-pixel ``--patch_size`` patches as on LLFF's."""
+    from sinnerf_tpu_torch.data.synthetic import make_blender_scene
     from sinnerf_tpu_torch.opt import get_opts
     from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
 
-    later = extra[0] in ("--num_gpus", "--dataset_name")
+    flags = _flags(llff_root, str(tmp_path)) + extra
+    if extra[0] == "--dataset_name":
+        root = make_blender_scene(str(tmp_path / "scene"), (32, 32))
+        flags += ["--root_dir", root, "--img_wh", "32", "32", "--patch_size", "8", "--ref_idx", "0"]
+        trainer = SinNeRFTrainer(get_opts(flags))
+        assert trainer.train_dataset.dataset_name == extra[1] and trainer.train_dataset.cfg.psx == 8
+        flags += ["--dis_weight", "0.01"]
+    later = extra[0] == "--num_gpus"
     with pytest.raises(NotImplementedError if later else ValueError):
-        SinNeRFTrainer(get_opts(_flags(llff_root, str(tmp_path)) + extra))
+        SinNeRFTrainer(get_opts(flags))
 
 
 def test_cuda_is_the_default_and_refused_without_a_card(llff_root, tmp_path, monkeypatch):
