@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``sinnerf_tpu_torch``) on one card.
+"""Smoke run of the PyTorch/CUDA port (``sinnerf_tpu_torch``) on the
+visible cards (one is enough).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases ddp   # the build and phase 23 alone
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
@@ -164,9 +166,26 @@ Phases, any failure exits non-zero without the final result line:
    kernels in bf16, counted: val PSNR up by more than 3 dB and above an
    empty field's by EMPTY_MARGIN_DB (rot3d's on-card run that must learn),
    steps/s;
-23. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
-   ``step2``, the slice's under ``slice``), then, last, ``{"ok": true,
-   "device": {...}}``.
+23. data parallelism (``parallel/ddp.py``) on the visible cards: min(4,
+   cards) ranks over NCCL, or with one card two ranks sharing it over gloo
+   (NCCL refuses two ranks on one device; it says which), in one launch of
+   the ranks.  DDP_STEPS sharded bf16 ``train_step``s (a lego rot3d batch of
+   one item per rank, the ViT and D random, hinge) against the same steps
+   in one process on the global batch: each step's loss and the first
+   step's NeRF and D gradients to STEP_GRAD_TOL, one hash of every rank's
+   parameters, ``u`` and optimizer state; ms per step per rank and the
+   all-reduce's ms (CUDA events).  The train CLI's ranks on lego Step 1
+   (phase 20's flags at ``--num_gpus <world>``, one epoch of ceil(125 /
+   world) steps; gate: a black render + EMPTY_MARGIN_DB), Step 2 from its
+   checkpoint and Step 2 resumed for an epoch, counted per rank.  The eval
+   CLI's ranks on Step 1's checkpoint against the eval CLI on one card:
+   mean PSNR within DDP_EVAL_PSNR_TOL, every PNG within one level, ms per
+   image.  With two cards or more, a K3 step on ``cuda:1`` from this
+   process on ``cuda:0``.  ``--phases ddp`` runs phase 1 and this phase
+   alone (on a lego stand-in of its own);
+24. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
+   ``step2``, the slice's under ``slice``, the multi-GPU phase's under
+   ``ddp``), then, last, ``{"ok": true, "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -351,6 +370,13 @@ SLICE_ITEMS = 3  # items sampled per training set, after one more
 # 640x512 image (131,072 + 28,928 and 2 x 131,072 + 65,536)
 SLICE_TRAIN_RAYS = (16384, 20480, 16032)
 SLICE_EVAL_TILES = (131072, 28928, 65536)
+# the multi-GPU phase (23): up to DDP_MAX_WORLD ranks, DDP_STEPS sharded
+# steps, draws from generators of their own seeded by DDP_SEED; the eval
+# CLI's ranks against one card: mean PSNR (dB)
+DDP_MAX_WORLD = 4
+DDP_STEPS = 3
+DDP_SEED = 5151
+DDP_EVAL_PSNR_TOL = 1e-2
 
 
 def k4_bwd_tol(n: int, cd: str):
@@ -359,6 +385,15 @@ def k4_bwd_tol(n: int, cd: str):
 
 class Failed(Exception):
     pass
+
+
+def tf32_off() -> None:
+    """cuBLAS and cuDNN in full float32, for every comparison of the run
+    (this process's and the ranks' it starts)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def card_line() -> str:
@@ -2505,6 +2540,331 @@ def phase_demo(device, workdir: str):
     return dict(res, counts=counts, wall_s=wall, empty_psnr=empty, white_psnr=white)
 
 
+# --------------------------------------------------------------------------
+# phase 23: data parallelism over cards (parallel/ddp.py)
+# --------------------------------------------------------------------------
+
+
+def ddp_plan():
+    """(world, backend) of the multi-GPU phase: min(DDP_MAX_WORLD, cards)
+    ranks over NCCL with two cards or more, else two ranks on the one card
+    over gloo (NCCL refuses two ranks on one device)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return (min(DDP_MAX_WORLD, n), "nccl") if n >= 2 else (2, "gloo")
+
+
+def ddp_step_config(cd: str = "bfloat16"):
+    """The lego recipe's step (64 + 64 samples, the white background, its
+    depth weights) with STEP2_FIELDS: the ViT at 10, D at 0.01, hinge."""
+    import dataclasses
+
+    cfg = step2_config(cd, dataset_name="blender_ray_patch_1image_rot3d")
+    return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, n_importance=SLICE_N_IMPORTANCE))
+
+
+def ddp_state(device, items: int):
+    """``new_step2_state`` with a ViT cache of ``items`` rows: every rank
+    and the one-process run build the same weights from the same seeds."""
+    import torch
+
+    from sinnerf_tpu_torch.models.vit import EMBED_DIM
+
+    state = new_step2_state(device)
+    state.ref_feature = torch.zeros((items, EMBED_DIM), device=device)
+    state.ref_feature_valid = torch.zeros((items,), dtype=torch.bool)
+    return state
+
+
+def ddp_draws(step: int, items: int, n_rays: int, device):
+    """Step ``step``'s draws over a global batch of ``items`` items and
+    ``n_rays`` rays, from generators of their own (on the host, so that
+    every rank and the one-process run draw the same): the render's and the
+    Step-2 losses'."""
+    import torch
+
+    from sinnerf_tpu_torch.train.step import RenderDraws
+
+    g = torch.Generator().manual_seed(DDP_SEED + step)
+    s, k = N_SAMPLES, SLICE_N_IMPORTANCE
+    render = RenderDraws(*(t.to(device) for t in (
+        torch.rand((n_rays, s), generator=g), torch.randn((n_rays, s), generator=g),
+        torch.rand((n_rays, k), generator=g), torch.randn((n_rays, s + k), generator=g))))
+    return render, make_step2_draws(torch.Generator().manual_seed(DDP_SEED + 1000 + step), items, device)
+
+
+def state_digest(state) -> str:
+    """sha256 of every NeRF and discriminator parameter, D's ``u`` and both
+    optimizers' state, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    tensors = [p for m in state.models.values() for p in m.parameters()]
+    tensors += list(state.discriminator.parameters()) + state.discriminator.u()
+    for opt in (state.opt_g, state.opt_d):
+        tensors += [t for g in opt.param_groups for p in g["params"] for _, t in sorted(opt.state[p].items())
+                    if isinstance(t, torch.Tensor)]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_grads(state):
+    """(NeRF gradients, discriminator gradients), copied to the host."""
+    return ([p.grad.detach().cpu().clone() for m in state.models.values() for p in m.parameters()],
+            [p.grad.detach().cpu().clone() for p in state.discriminator.parameters()])
+
+
+def ddp_rank(rank: int, world: int, path: str, runs, eval_flags, workdir: str):
+    """One rank of the phase: (a) DDP_STEPS sharded ``train_step``s, the
+    gradients all-reduced, each step and the all-reduce timed (CUDA events);
+    (b) the train CLI's runs (``loop.run``, what ``python -m
+    sinnerf_tpu_torch.train --num_gpus N`` starts on each card), each
+    counted; (c) the eval CLI's rank (``eval.run``) on Step 1's checkpoint,
+    counted and timed."""
+    import torch
+
+    from sinnerf_tpu_torch import eval as port_eval
+    from sinnerf_tpu_torch.opt import get_opts
+    from sinnerf_tpu_torch.parallel import ddp
+    from sinnerf_tpu_torch.train import loop
+    from sinnerf_tpu_torch.train.step import train_step
+
+    tf32_off()
+    device = ddp.rank_device("cuda")
+    inputs = torch.load(path, weights_only=False)
+    items, per_item = inputs["items"], inputs["per_item"]
+    batch = ddp.shard_rows({k: v.to(device) for k, v in inputs["batch"].items()}, rank, world)
+    rows = ddp.bundle_rows(per_item, rank, world, items)
+    mine = slice(rank * items // world, (rank + 1) * items // world)
+    state, cfg = ddp_state(device, items // world), ddp_step_config()
+    hook, reduce_events, step_events = ddp.gradient_hook(world), [], []
+
+    def timed_hook(optimizers):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        hook(optimizers)
+        ev[1].record()
+        reduce_events.append(ev)
+
+    losses, grads = [], None
+    for i in range(DDP_STEPS):
+        render, step2 = ddp_draws(i, items, sum(per_item) * items, device)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, aux = train_step(state, batch, cfg, 0.0, ddp.shard_draws(render, rows),
+                                step2_draws=ddp.shard_draws(step2, mine), grad_hook=timed_hook)
+        ev[1].record()
+        step_events.append(ev)
+        losses.append(aux["metrics"]["train/loss"])
+        if i == 0:
+            grads = ddp_grads(state)  # the all-reduced gradients: the global batch's
+    torch.cuda.synchronize()
+    out = dict(rank=rank, losses=[float(v) for v in losses], digest=state_digest(state),
+               step_ms=[a.elapsed_time(b) for a, b in step_events], allreduce_ms=[a.elapsed_time(b) for a, b in reduce_events],
+               grads=grads if rank == 0 else None, cli={})
+    del state, batch, grads
+    torch.cuda.empty_cache()
+
+    for name, flags in runs:
+        trainer, counts, wall = counted(lambda: loop.run(rank, world, get_opts(flags)))
+        steps = sum(e[1] for e in trainer.epoch_log)
+        out["cli"][name] = dict(loop.summary(trainer), counts=counts, wall_s=wall, steps=steps,
+                                step_ms=1e3 * sum(e[2] for e in trainer.epoch_log) / steps,
+                                epochs=len(trainer.epoch_log), len=len(trainer.train_dataset))
+        del trainer
+        torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        psnr, counts, wall = counted(lambda: port_eval.run(rank, world, port_eval.get_opts(eval_flags)))
+    finally:
+        os.chdir(cwd)
+    out["eval"] = dict(psnr=psnr, counts=counts, wall_s=wall)
+    return out
+
+
+def set_flag(flags, name: str, *values):
+    """``flags`` with ``name``'s values replaced (appended if absent)."""
+    flags = list(flags)
+    if name in flags:
+        i = flags.index(name)
+        j = i + 1
+        while j < len(flags) and not flags[j].startswith("--"):
+            j += 1
+        flags[i:j] = [name, *values]
+    else:
+        flags += [name, *values]
+    return flags
+
+
+def phase_ddp(device, workdir: str, lego: str):
+    """Data parallelism on the visible cards (``ddp_plan``), in one launch of
+    the ranks.  (a) DDP_STEPS sharded ``train_step``s (bf16, lego rot3d
+    batch of ``world`` items, the ViT and D random, hinge) against the same
+    steps in this process on the global batch: each step's loss and the
+    first step's NeRF and D gradients within STEP_GRAD_TOL, every rank's
+    parameters, ``u`` and optimizer state bit-identical after the steps; ms
+    per step per rank and the all-reduce's ms.  (b) the README's lego Step 1
+    at ``--num_gpus <world> --batch_size 1`` with phase 20's flags, one epoch
+    of ceil(125 / world) steps and validation (gate: a black render +
+    EMPTY_MARGIN_DB), Step 2 from its checkpoint, and Step 2 resumed for an
+    epoch: ms per step, launches per rank per kernel, val PSNR.  (c) the
+    eval CLI's ranks on Step 1's checkpoint beside the eval CLI on one card:
+    mean PSNR within DDP_EVAL_PSNR_TOL dB, every PNG within one level, ms per
+    image.  With two cards or more, one K3 forward and backward on the
+    second card from this process, whose current card is the first."""
+    import torch
+
+    from sinnerf_tpu_torch import eval as port_eval
+    from sinnerf_tpu_torch.data import dataset_dict
+    from sinnerf_tpu_torch.parallel import ddp
+    from sinnerf_tpu_torch.train.step import train_step
+
+    world, backend = ddp_plan()
+    how = f"NCCL across {world} cards" if backend == "nccl" else "gloo, two ranks on one card"
+    print(f"multi-GPU phase: {world} ranks, {how}")
+    t0 = time.perf_counter()
+    rot3d = "blender_ray_patch_1image_rot3d"
+    ds = dataset_dict[rot3d](lego, split="train", device=device, img_wh=LEGO_WH, **LEGO_DATA)
+    batch = ds.sample(0, world, torch.Generator().manual_seed(DDP_SEED))
+    per_item = [batch[k].shape[1] for k in ("rays", "depth_ray", "rays_full", "rays_proj")]
+    path = os.path.join(workdir, "ddp_inputs.pt")
+    torch.save(dict(batch={k: v.cpu() for k, v in batch.items()}, items=world, per_item=per_item), path)
+    empty = empty_render_psnr(dataset_dict[rot3d](lego, split="val", img_wh=LEGO_WH, **LEGO_DATA))
+    del ds
+
+    ck = os.path.join(workdir, "ddp_ckpts")
+    step1 = set_flag(set_flag(slice_flags(rot3d, lego, workdir, "ddp_step1"), "--num_gpus", str(world)),
+                     "--ckpt_dir", ck)
+    step2 = set_flag(set_flag(step1, "--exp_name", "ddp_step2"), "--dis_weight", "0.01") + [
+        "--pt_model", os.path.join(ck, "ddp_step1", "last.ckpt"), "--nerf_only"]
+    resumed = set_flag(set_flag(step2, "--num_epochs", "2"), "--ckpt_path", os.path.join(ck, "ddp_step2", "last.ckpt"))
+    runs = (("step1", step1), ("step2", step2), ("step2_resumed", resumed))
+    eval_flags = ["--root_dir", lego, "--img_wh", *map(str, LEGO_WH), "--N_importance", str(SLICE_N_IMPORTANCE),
+                  "--ckpt_path", os.path.join(ck, "ddp_step1", "last.ckpt"), "--compute_dtype", "bfloat16",
+                  "--scene_name", "ddp", "--timestamp", f"n{world}", "--num_gpus", str(world)]
+    t_launch = time.perf_counter()
+    ranks = ddp.launch(ddp_rank, world, "cuda", path, runs, eval_flags, workdir, backend=backend)
+    launch_s = time.perf_counter() - t_launch
+    out = dict(world=world, backend=backend, launch_s=launch_s)
+
+    # (a) the same steps in this process on the global batch
+    tol = STEP_GRAD_TOL["bfloat16"]
+    state, cfg = ddp_state(device, world), ddp_step_config()
+    batch = {k: v.to(device) for k, v in batch.items()}
+    losses, grads = [], None
+    for i in range(DDP_STEPS):
+        render, step2_draws = ddp_draws(i, world, sum(per_item) * world, device)
+        state, aux = train_step(state, batch, cfg, 0.0, render, step2_draws=step2_draws)
+        losses.append(float(aux["metrics"]["train/loss"]))
+        if i == 0:
+            grads = ddp_grads(state)
+    del state, batch
+    torch.cuda.empty_cache()
+    sharded = [sum(r["losses"][i] for r in ranks) / world for i in range(DDP_STEPS)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(sharded, losses))
+    for r in ranks:
+        print(f"sharded train_step rank {r['rank']}: losses {[round(v, 4) for v in r['losses']]}, ms per step "
+              f"{[round(v, 2) for v in r['step_ms']]}, all-reduce ms {[round(v, 3) for v in r['allreduce_ms']]}")
+    print(f"sharded train_step vs one process on the global batch of {world} items: losses {sharded} vs {losses} "
+          f"(worst relative difference {loss_err:.3e}, tol {tol[0]:.0e})")
+    if not loss_err <= tol[0] or not all(math.isfinite(v) for v in sharded):
+        raise Failed("the sharded train_step's losses leave the one-process step's")
+    err_g, err_d = grad_errors(ranks[0]["grads"][0], grads[0]), grad_errors(ranks[0]["grads"][1], grads[1])
+    hold_grads("sharded train_step's first all-reduced NeRF gradients vs one process", err_g, tol)
+    hold_grads("sharded train_step's first all-reduced discriminator gradients vs one process", err_d, tol)
+    digests = {r["digest"] for r in ranks}
+    print(f"after {DDP_STEPS} steps the ranks' parameters, u and optimizer state hash to {len(digests)} value(s)")
+    if len(digests) != 1:
+        raise Failed("the ranks' states differ after the sharded steps")
+    out["step"] = dict(losses=sharded, one_process_losses=losses, loss_err=loss_err, grad_err=err_g, d_grad_err=err_d,
+                       step_ms={r["rank"]: r["step_ms"] for r in ranks},
+                       allreduce_ms={r["rank"]: r["allreduce_ms"] for r in ranks})
+
+    # (b) the train CLI's runs
+    spe = math.ceil(ranks[0]["cli"]["step1"]["len"] / world)
+    out["cli"] = {}
+    for name, _ in runs:
+        per = [r["cli"][name] for r in ranks]
+        for r in per:
+            hold_dtype(r["counts"], "bfloat16", f"multi-GPU train CLI {name} rank {r['rank']}")
+        want = {"K3-fwd": 2 * spe, "K3-bwd": 2 * spe, "K4-fwd": 0, "K4-bwd": 0}
+        bad = [r["counts"] for r in per if any(r["counts"][k] != v for k, v in want.items())
+               or r["counts"]["K1"] == 0 or r["counts"]["K2"] < spe]
+        psnrs = {r["best_psnr"] for r in per}
+        print(f"multi-GPU train CLI {name}: {per[0]['steps']} steps per rank ({per[0]['epochs']} epoch), ms per step "
+              f"by rank {[round(r['step_ms'], 1) for r in per]}, val PSNR {per[0]['val_log']} (black render "
+              f"{empty:.4f}); launches by rank {[r['counts'] for r in per]}")
+        if bad or any(r["steps"] != spe or r["steps_per_epoch"] != spe for r in per) or len(psnrs) != 1:
+            raise Failed(f"multi-GPU train CLI {name}: steps {[r['steps'] for r in per]} (want {spe}), launches "
+                         f"{bad} (want {want}), best PSNR by rank {psnrs}")
+        if not math.isfinite(per[0]["best_psnr"]):
+            raise Failed(f"multi-GPU train CLI {name}: best val PSNR {per[0]['best_psnr']}")
+        out["cli"][name] = dict(steps=spe, step_ms={r["rank"]: r["step_ms"] for r in per},
+                                counts={r["rank"]: r["counts"] for r in per}, psnr=per[0]["best_psnr"],
+                                val_log=per[0]["val_log"], wall_s=max(r["wall_s"] for r in per))
+    step1_psnr = out["cli"]["step1"]["psnr"]
+    if step1_psnr < empty + EMPTY_MARGIN_DB:
+        raise Failed(f"multi-GPU lego Step 1: best val PSNR {step1_psnr} is not {EMPTY_MARGIN_DB} dB above a black "
+                     f"render's {empty}")
+    out["cli"]["empty_psnr"] = empty
+
+    # (c) the eval CLI on one card beside its ranks
+    one_flags = set_flag(set_flag(eval_flags, "--num_gpus", "1"), "--timestamp", "n1")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        psnr1, counts1, wall1 = counted(lambda: port_eval.main(port_eval.get_opts(one_flags)))
+    finally:
+        os.chdir(cwd)
+    from PIL import Image
+
+    res = os.path.join(workdir, "results", rot3d, "ddp")
+    names = sorted(f for f in os.listdir(os.path.join(res, "n1")) if f.endswith(".png"))
+    worst = 0
+    for f in names:
+        a, b = (np.asarray(Image.open(os.path.join(res, d, f)), dtype=np.int16) for d in ("n1", f"n{world}"))
+        worst = max(worst, int(np.abs(a - b).max()))
+    gap = abs(ranks[0]["eval"]["psnr"] - psnr1)
+    ms = {1: 1e3 * wall1 / len(names), world: 1e3 * max(r["eval"]["wall_s"] for r in ranks) / len(names)}
+    print(f"eval CLI on {world} ranks vs one card: mean PSNR {ranks[0]['eval']['psnr']} vs {psnr1} (differ by "
+          f"{gap:.2e} dB, tol {DDP_EVAL_PSNR_TOL}), {len(names)} PNGs differ by at most {worst} level(s); ms per "
+          f"image {ms[world]:.1f} on {world} ranks, {ms[1]:.1f} on one card; launches by rank "
+          f"{[r['eval']['counts'] for r in ranks]}")
+    if not names or gap > DDP_EVAL_PSNR_TOL or worst > 1:
+        raise Failed(f"the sharded eval CLI leaves the one-card eval CLI: {gap} dB, {worst} levels, {len(names)} PNGs")
+    out["eval"] = dict(psnr=ranks[0]["eval"]["psnr"], one_card_psnr=psnr1, psnr_gap=gap, png_levels=worst,
+                       images=len(names), image_ms=ms[world], one_card_image_ms=ms[1],
+                       counts={r["rank"]: r["eval"]["counts"] for r in ranks}, one_card_counts=counts1)
+
+    if torch.cuda.device_count() >= 2:
+        out["second_card"] = ddp_second_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"multi-GPU phase ({how}): {out['seconds']:.1f} s, the ranks' launch {launch_s:.1f} s")
+    return out
+
+
+def ddp_second_card():
+    """One K3 forward and backward (bf16, 16,384 rays x 64) on tensors on the
+    second card, from this process, whose current card is the first: the
+    wrapper launches on its tensors' card (against the plain version)."""
+    import torch
+
+    second = torch.device("cuda", 1)
+    rng = np.random.default_rng(DDP_SEED)
+    rays, z = make_rays(rng, SLICE_TRAIN_RAYS[0], N_SAMPLES, second)
+    noise = torch.tensor(rng.normal(size=z.shape), dtype=torch.float32, device=second)
+    target = torch.tensor(rng.uniform(size=(z.shape[0], 3)), dtype=torch.float32, device=second)
+    current = torch.cuda.current_device()
+    _, _, err_f, err_b, _, _ = k3_check(make_model(30, second), rays, z, noise, target, "bfloat16", True,
+                                        f"K3 bf16 on cuda:1 from a process on cuda:{current}")
+    return dict(current=current, fwd_err=err_f, bwd_err=err_b)
+
+
 def sass_counts():
     """Per kernel of SASS_KERNELS, from its built library: the count of the
     SASS instructions that show the design (``cuobjdump -sass``): HGMMA
@@ -2547,15 +2907,19 @@ def sass_counts():
     return counts, usage
 
 
-def slice_launches(name: str, cd: str, cli, ev, demo):
-    """A kernel's launches on the Blender and DTU slice for the ``kernels``
-    line, as its wrapper counted those of dtype ``cd`` (K2: all of them): in
-    each train CLI run, each eval CLI run and the demo."""
+def slice_launches(name: str, cd: str, cli, ev, demo, ddp_out):
+    """A kernel's launches on the Blender and DTU slice and on the multi-GPU
+    phase for the ``kernels`` line, as its wrapper counted those of dtype
+    ``cd`` (K2: all of them): in each train CLI run, each eval CLI run and
+    the demo; per rank in each multi-GPU run and in the sharded eval."""
     key = f"{name}[{cd}]" if f"{name}[{cd}]" in demo["counts"] else name
     return dict(
         slice_cli_launches={run: r["counts"][key] for run, r in cli.items()},
         slice_eval_launches={run: r["counts"][key] for run, r in ev.items()},
         slice_demo_launches=demo["counts"][key],
+        ddp_cli_launches={run: {rank: c[key] for rank, c in r["counts"].items()}
+                          for run, r in ddp_out["cli"].items() if run != "empty_psnr"},
+        ddp_eval_launches={rank: c[key] for rank, c in ddp_out["eval"]["counts"].items()},
     )
 
 
@@ -2563,7 +2927,13 @@ def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on the visible cards.")
+    parser.add_argument("--phases", choices=("all", "ddp"), default="all",
+                        help="ddp: the card, the build and the multi-GPU phase alone")
+    phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
@@ -2575,8 +2945,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from sinnerf_tpu_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     device = torch.device("cuda")
     card = card_line()
     print(card)
@@ -2588,6 +2957,15 @@ def main() -> int:
             with open(log) as f:
                 usage = [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(os.path.basename(log), *usage, sep="\n  ")
+        if phases == "ddp":
+            with tempfile.TemporaryDirectory() as workdir:
+                from sinnerf_tpu_torch.data.synthetic import make_blender_scene_rich
+
+                ddp_out = phase_ddp(device, workdir, make_blender_scene_rich(os.path.join(workdir, "lego"), LEGO_WH))
+            print(json.dumps({"ddp": ddp_out, "card": card}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         sass, ptxas = sass_counts()
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
@@ -2620,8 +2998,9 @@ def main() -> int:
             slice_cli = phase_slice_cli(device, workdir, lego, dtu)
             slice_ev = phase_slice_eval(device, workdir, lego, dtu, slice_cli)
             demo = phase_demo(device, workdir)
-        slice_s = time.perf_counter() - t_slice
-        print(f"phases 18-22 (the Blender and DTU slice): {slice_s:.1f} s")
+            slice_s = time.perf_counter() - t_slice
+            print(f"phases 18-22 (the Blender and DTU slice): {slice_s:.1f} s")
+            ddp_out = phase_ddp(device, workdir, lego)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2652,7 +3031,7 @@ def main() -> int:
             # the Blender and DTU slice: its eval tiles with the white background, and its runs' launches
             slice_per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]]
                               for x in slice_k["k1"][cd]["launches"]},
-            **slice_launches("K1", cd, slice_cli, slice_ev, demo),
+            **slice_launches("K1", cd, slice_cli, slice_ev, demo, ddp_out),
         ))
         kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], slice_k["k1"][cd]["err"][0])
         kernels[-1]["mean_abs_err"] = max(kernels[-1]["mean_abs_err"], slice_k["k1"][cd]["err"][1])
@@ -2680,7 +3059,7 @@ def main() -> int:
                 step2_cli_launches=step2_cli["step2"]["counts"][f"K3-{d}[{cd}]"],
                 slice_per_launch={x["shape"]: [x["ms"][d], x["ms"][d + "_plain"], x["bounds"][d]]
                                   for x in slice_k["k3"][cd]["launches"]},
-                **slice_launches(f"K3-{d}", cd, slice_cli, slice_ev, demo),
+                **slice_launches(f"K3-{d}", cd, slice_cli, slice_ev, demo, ddp_out),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -2780,7 +3159,7 @@ def main() -> int:
         parts_vs_whole={x["shape"]: x["parts_vs_new"] for x in k2[:2] + tpath["k2"][:1]},
         # the slice's shapes: [ms (timed at the training batches), bound ms, error]
         slice_per_launch={x["shape"]: [x.get("ms"), x["bound_ms"], x["err"]] for x in slice_k["k2"]},
-        **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo),
+        **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo, ddp_out),
     ))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], max(x["err"] for x in slice_k["k2"]))
     for name, r in ((n, x1_res[n]) for n in x1_err):
@@ -2819,7 +3198,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli,
                       "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli},
                       "slice": {"datasets": slice_data, "cli": slice_cli, "eval": slice_ev, "demo": demo,
-                                "seconds": slice_s}}))
+                                "seconds": slice_s},
+                      "ddp": ddp_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

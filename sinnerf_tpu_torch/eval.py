@@ -9,6 +9,9 @@ hand-written CUDA kernels, ``--mlp_impl xla`` through the plain PyTorch path.
     python -m sinnerf_tpu_torch.eval --root_dir data/nerf_llff_data/room \
         --dataset_name llff --scene_name llff_room_s4 --img_wh 504 378 \
         --N_importance 64 --split val --ckpt_path ckpts/room.ckpt
+
+``--num_gpus N`` renders each image's rays sharded over N cards, one
+process each (JAX ``eval.py:139-161``); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ _EVAL_FLAGS = [
     ("ref_idx", dict(type=int, default=None,
                      help="override the blender reference-frame index")),
     ("num_gpus", dict(type=int, default=1,
-                      help="cards to render over (only 1 is supported yet)")),
+                      help="cards to render each image over, one process each "
+                           "(with --device cpu: gloo processes)")),
     ("device", dict(type=str, default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, the CPU")),
 ]
@@ -103,15 +107,30 @@ def _write_gif(path: str, imgs, fps: int = 5) -> None:
 
 
 def main(args):
+    """Render the split on ``--num_gpus`` ranks (in this process on one);
+    returns the mean PSNR, or None without ground truth."""
+    from sinnerf_tpu_torch.parallel import ddp
+    from sinnerf_tpu_torch.utils.device import resolve_device
+
+    world = ddp.world_for(args.num_gpus, args.device)
+    if world == 1 and ddp.torchrun_env() is None:
+        return run(0, 1, args)
+    return ddp.launch(run, world, resolve_device(args.device).type, args)[0]
+
+
+def run(rank: int, world: int, args):
+    """Rank ``rank`` of ``world``: every rank renders its slab of each
+    image and gets the whole image; rank 0 writes the PNGs, depth files and
+    GIF and prints the mean PSNR."""
     from sinnerf_tpu_torch.data.depth_io import save_pfm
     from sinnerf_tpu_torch.data import dataset_dict
-    from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked
+    from sinnerf_tpu_torch.parallel import ddp
+    from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked, render_chunked_sharded
     from sinnerf_tpu_torch.utils.device import resolve_device
     from sinnerf_tpu_torch.utils.visualization import visualize_depth
 
-    device = resolve_device(args.device)
-    if args.num_gpus > 1:
-        raise NotImplementedError("multi-GPU rendering is not ported yet; use --num_gpus 1")
+    device = ddp.rank_device(resolve_device(args.device).type)
+    write = rank == 0
     if args.timestamp == "":
         parts = args.ckpt_path.split('/')
         args.timestamp = parts[1] if len(parts) > 1 else 'ckpt'
@@ -136,14 +155,19 @@ def main(args):
     )
 
     dir_name = f'results/{args.dataset_name}/{args.scene_name}/{args.timestamp}'
-    os.makedirs(dir_name, exist_ok=True)
-    tile = pick_val_tile(w * h, args.chunk)
+    if write:
+        os.makedirs(dir_name, exist_ok=True)
+    tile = pick_val_tile(w * h, args.chunk, world)
 
     imgs, psnrs = [], []
     for i in range(dataset.val_len()):
         sample = dataset.val_item(i)
         rays = torch.from_numpy(sample["rays"]).to(device)
-        results = render_chunked(models, rays, settings, tile=tile)
+        if world > 1:
+            results = render_chunked_sharded(models, rays, settings, rank, world, tile=tile,
+                                             keys=("rgb_fine", "depth_fine"))
+        else:
+            results = render_chunked(models, rays, settings, tile=tile)
         img_pred = results["rgb_fine"].cpu().numpy().reshape(h, w, 3)
         if "fname" in sample:
             # exact reference formula: only .JPG is stripped (eval.py:164)
@@ -151,7 +175,7 @@ def main(args):
         else:
             fname = f'{i:03d}'
 
-        if args.save_depth:
+        if args.save_depth and write:
             depth_pred = np.nan_to_num(results["depth_fine"].cpu().numpy().reshape(h, w))
             if args.depth_format == 'pfm':
                 save_pfm(os.path.join(dir_name, f'depth_{fname}.pfm'), depth_pred)
@@ -163,18 +187,21 @@ def main(args):
 
         img_pred_ = (np.clip(img_pred, 0, 1) * 255).astype(np.uint8)
         imgs.append(img_pred_)
-        _write_png(os.path.join(dir_name, f'{fname}.png'), img_pred_)
+        if write:
+            _write_png(os.path.join(dir_name, f'{fname}.png'), img_pred_)
 
         if "rgbs" in sample:
             img_gt = np.asarray(sample["rgbs"]).reshape(h, w, 3)
             mse = np.mean((img_pred - img_gt) ** 2)
             psnrs.append(float(-10.0 * np.log10(mse)))
 
-    _write_gif(os.path.join(dir_name, f'{args.scene_name}.gif'), imgs, fps=5)
+    if write:
+        _write_gif(os.path.join(dir_name, f'{args.scene_name}.gif'), imgs, fps=5)
 
     if psnrs:
         mean_psnr = float(np.mean(psnrs))
-        print(f'Mean PSNR : {mean_psnr:.2f}')
+        if write:
+            print(f'Mean PSNR : {mean_psnr:.2f}')
         return mean_psnr
     return None
 

@@ -38,7 +38,8 @@ _FLAG_SPEC = [
                    help="ray tile size for image-sized renders")),
     ("num_epochs", dict(type=int, default=80)),
     ("num_gpus", dict(type=int, default=4,
-                      help="number of cards (only 1 is ported yet)")),
+                      help="number of cards, one process each; the global batch is "
+                           "batch_size * num_gpus (with --device cpu: gloo processes)")),
     ("ckpt_path", dict(type=str, default=None,
                        help="checkpoint to fully resume from")),
     ("prefixes_to_ignore", dict(nargs="+", type=str, default=["loss"])),

@@ -24,7 +24,8 @@ values so that command lines carry over unchanged:
   in chunks that are recomputed in the backward pass.
 
 Every random draw can be passed in as a tensor.  ``render_rays`` records
-gradients when the caller has them on; ``render_chunked`` turns them off.
+gradients when the caller has them on; ``render_chunked`` and
+``render_chunked_sharded`` (one image over several ranks) turn them off.
 ``points_chunk`` (the JAX package's ``lax.map`` over point chunks) is not
 ported: the kernels need no chunking and the plain path chunks by rays.
 
@@ -35,7 +36,7 @@ Outputs use the reference's result-dict schema: ``rgb_*`` (N, 3),
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +49,7 @@ from sinnerf_tpu_torch.ops.fused_mlp import fused_nerf_mlp, torch_dtype
 from sinnerf_tpu_torch.ops.fused_render import fused_render_level
 from sinnerf_tpu_torch.ops.fused_render_train import PLAIN_CHUNK, fused_render_level_train
 from sinnerf_tpu_torch.ops.fused_sample_pdf import fused_sample_pdf_merge
+from sinnerf_tpu_torch.parallel import ddp
 
 N_FREQS_XYZ = 10  # models/sinnerf.py:133
 N_FREQS_DIR = 4   # models/sinnerf.py:134
@@ -255,6 +257,28 @@ def render_chunked(
     eval_settings = settings.eval_mode()
     outs = [render_rays(models, rays[i : i + tile], eval_settings) for i in range(0, rays.shape[0], tile)]
     return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
+def render_chunked_sharded(
+    models: Dict[str, NeRF],
+    rays: torch.Tensor,
+    settings: RenderSettings,
+    rank: int,
+    world: int,
+    tile: int = 32768,
+    keys: Optional[Sequence[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """``render_chunked`` with the ray axis sharded over ``world`` ranks
+    (JAX ``render_chunked_sharded``, renderer.py:441): the rays padded to a
+    multiple of ``tile * world``, each rank renders its contiguous slab of
+    whole tiles, and every rank gets the whole image's outputs, those of
+    ``keys`` when given (the per-sample ``opacity_*`` are most of the bytes
+    to gather: 123 MB of a 400x400 image at 64 + 128 samples).  The render
+    holds no collective; the gather follows it.  Every rank calls it with
+    the same rays and replicated models."""
+    slab, n = ddp.shard_rays(rays, rank, world, tile)
+    out = render_chunked(models, slab, settings, tile)
+    return ddp.gather_rays({k: out[k] for k in (keys or out)}, n, world)
 
 
 def pick_val_tile(n_rays: int, chunk: int, n_devices: int = 1) -> int:

@@ -12,22 +12,29 @@
 It runs on the card unless ``--device cpu`` is given, writes checkpoints
 under ``--ckpt_dir/--exp_name`` (top-2 on val/psnr and ``last.ckpt``, which
 the port's eval CLI reads and ``--ckpt_path`` resumes) and prints the best
-val PSNR.
+val PSNR.  ``--num_gpus N`` trains on N cards, one process each (NCCL), with
+``--batch_size`` items per card; with ``--device cpu`` it runs N gloo
+processes.  Under ``torchrun --nproc_per_node N`` each process is one rank.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, List, Union
+
 from sinnerf_tpu_torch.opt import get_opts
-from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
+from sinnerf_tpu_torch.parallel import ddp
+from sinnerf_tpu_torch.train.loop import SinNeRFTrainer, run, run_rank
+from sinnerf_tpu_torch.utils.device import resolve_device
 
 
-def main(hparams) -> SinNeRFTrainer:
-    """Train with ``hparams``; returns the trainer after its fit, with the
-    best val PSNR in ``trainer.best_psnr``."""
-    trainer = SinNeRFTrainer(hparams)
-    trainer.best_psnr = trainer.fit()
-    print(f"best val/psnr: {trainer.best_psnr:.3f}")
-    return trainer
+def main(hparams) -> Union[SinNeRFTrainer, List[Dict[str, Any]]]:
+    """Train with ``hparams`` on ``--num_gpus`` ranks.  On one, in this
+    process: returns the trainer.  On several, one process each: returns
+    the ranks' ``loop.summary`` in rank order."""
+    world = ddp.world_for(hparams.num_gpus, hparams.device)
+    if world == 1 and ddp.torchrun_env() is None:
+        return run(0, 1, hparams)
+    return ddp.launch(run_rank, world, resolve_device(hparams.device).type, hparams)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ top-2 on val/psnr plus ``last``).  A training checkpoint is a
 reference-format file that also carries what a resume needs: the optimizer
 states ``[opt_g, opt_d]``, the ViT cache and its flags, the epoch, the step,
 the top-k ranking and the flags.  The JAX package's orbax checkpoint
-directories are not read by the port.
+directories are not read by the port.  Under data parallelism rank 0 alone
+writes (JAX :24-48 scopes orbax to the calling process for the same
+reason); the file is the same at any number of ranks, its ViT cache holding
+the global batch's rows.
 """
 
 from __future__ import annotations
@@ -92,11 +95,12 @@ def load_torch_discriminator(path: str, model: Discriminator, prefixes_to_ignore
 
 def nerf_state_dict(states: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """``{'coarse': state_dict, 'fine': state_dict}`` -> the reference's
-    prefixed, CPU ``state_dict``."""
+    prefixed ``state_dict``, copied to the host (a module's ``state_dict``
+    aliases its live parameters)."""
     sd = {}
     for name, prefix in LEVELS:
         for key, value in states.get(name, {}).items():
-            sd[prefix + key] = torch.as_tensor(value).detach().cpu().contiguous()
+            sd[prefix + key] = torch.as_tensor(value).detach().cpu().clone().contiguous()
     if not sd:
         raise KeyError("no 'coarse'/'fine' NeRF state to write")
     return sd

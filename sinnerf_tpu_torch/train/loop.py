@@ -20,8 +20,18 @@ set's patch is too small for that branch), with its own optimizer at a
 constant 0.2x the learning rate; the frozen ViT when ``--vit_weight > 0``
 and the VGG trunk for ``--patch_loss l2_vgg``, from ``--vit_weights`` /
 ``--vgg_weights``, or random from the seed under
-``--allow_random_pretrained`` (refused otherwise).  ``--num_gpus > 1``
-comes in a later slice and raises.
+``--allow_random_pretrained`` (refused otherwise).
+
+Data parallelism (JAX :103-116, 213-236, 344-345, 470-500, 557-600): with
+``--num_gpus N`` the trainer runs on each of N ranks (``parallel/ddp.py``
+starts them), ``--batch_size`` items per rank and a global batch of
+``batch_size * N``.  Every rank builds the same state from the seed or the
+checkpoint, samples its own items of the global batch with generators of
+its own, and all-reduces the gradients before the optimizers step; the
+Step-2 ``()`` draws come from a generator seeded alike on every rank.  The
+ViT cache holds the rank's rows.  Validation renders each image sharded
+over the ranks.  Rank 0 alone writes TensorBoard (scalars reduced to the
+global batch's, its item 0's images) and checkpoints.
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ from sinnerf_tpu_torch.models.discriminator import Discriminator, export_torch_d
 from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
 from sinnerf_tpu_torch.models.vgg import load_vgg
 from sinnerf_tpu_torch.models.vit import EMBED_DIM, load_vit
-from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked
+from sinnerf_tpu_torch.parallel import ddp
+from sinnerf_tpu_torch.render.renderer import RenderSettings, pick_val_tile, render_chunked, render_chunked_sharded
 from sinnerf_tpu_torch.train.checkpoints import (
     TopKCheckpointManager,
     load_torch_discriminator,
@@ -48,13 +59,13 @@ from sinnerf_tpu_torch.train.checkpoints import (
     read_checkpoint,
 )
 from sinnerf_tpu_torch.train.optimizers import get_optimizer, lr_for_epoch, set_lr
-from sinnerf_tpu_torch.train.step import Step2Draws, TrainConfig, TrainState, refresh_coins, train_step
+from sinnerf_tpu_torch.train.step import Step2Draws, TrainConfig, TrainState, batch_coins, refresh_coins, train_step
 from sinnerf_tpu_torch.utils.device import resolve_device
 from sinnerf_tpu_torch.utils.metrics import psnr as psnr_metric
 from sinnerf_tpu_torch.utils.visualization import visualize_depth
 
-LATER = "is ported in a later slice"
 D_LR_RATE = 0.2  # the discriminator's constant share of --lr (sinnerf.py:208)
+RANK_SEED_STRIDE = 104729  # rank r's sampler, render and host generators: the seed + r * this
 
 
 def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
@@ -70,9 +81,11 @@ def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
     )
 
 
-def _check_supported(hparams: Any) -> None:
-    if hparams.num_gpus > 1:
-        raise NotImplementedError(f"--num_gpus > 1: multi-GPU training {LATER}; pass --num_gpus 1")
+def _check_supported(hparams: Any, world: int) -> None:
+    if hparams.num_gpus != world:
+        raise ValueError(f"--num_gpus {hparams.num_gpus} runs {hparams.num_gpus} ranks, this trainer is one of "
+                         f"{world}: start it through `python -m sinnerf_tpu_torch.train` (or torchrun), which "
+                         "starts one process per card")
     if hparams.loss_type in ("l2_vgg", "l2_ssim"):
         # the random-ray loss feeds flat (N, 3) bundles, on which the
         # reference's VGG and SSIM losses crash (losses.py:105, 129)
@@ -99,6 +112,18 @@ def _check_discriminator_patch(hparams: Any, cfg) -> None:
                          f"imsize={hparams.patch_size} branch")
 
 
+def _host_copy(tree):
+    """``tree`` with every tensor copied to the host: a ``state_dict``'s
+    tensors alias the live ones."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
 def _make_writer(log_dir: str):
     """A TensorBoard writer, or None when no TensorBoard package imports."""
     for module in ("tensorboardX", "torch.utils.tensorboard"):
@@ -110,10 +135,13 @@ def _make_writer(log_dir: str):
 
 
 class SinNeRFTrainer:
-    def __init__(self, hparams: Any):
-        _check_supported(hparams)
+    def __init__(self, hparams: Any, rank: int = 0, world: int = 1):
+        """Rank ``rank`` of ``world`` (``--num_gpus``); at ``world > 1`` the
+        process group is up and this process's card is current."""
+        _check_supported(hparams, world)
         self.hparams = hparams
-        self.device = resolve_device(hparams.device)
+        self.rank, self.world = rank, world
+        self.device = ddp.rank_device(resolve_device(hparams.device).type)
         seed = hparams.seed
         if hparams.dataset_name not in dataset_dict:
             raise ValueError(f"--dataset_name {hparams.dataset_name!r} is not a known dataset; "
@@ -142,7 +170,8 @@ class SinNeRFTrainer:
             depth_anneal=hparams.depth_anneal,
             load_depth=hparams.load_depth,
         )
-        self.global_batch_size = hparams.batch_size
+        self.batch_size = hparams.batch_size  # this rank's items per step
+        self.global_batch_size = hparams.batch_size * world
 
         # ---- models: reference-width NeRFs drawn from the seed -------------
         rng = np.random.default_rng(seed)
@@ -166,9 +195,9 @@ class SinNeRFTrainer:
             st.opt_d = get_optimizer(hparams, disc.parameters(), rate=D_LR_RATE)
         if hparams.vit_weight > 0:
             st.vit = load_vit(hparams.vit_weights, init).to(self.device)
-            # one cached CLS feature per item, valid after its first refresh
-            st.ref_feature = torch.zeros((self.global_batch_size, EMBED_DIM), device=self.device)
-            st.ref_feature_valid = torch.zeros((self.global_batch_size,), dtype=torch.bool)
+            # one cached CLS feature per item of this rank, valid after its first refresh
+            st.ref_feature = torch.zeros((self.batch_size, EMBED_DIM), device=self.device)
+            st.ref_feature_valid = torch.zeros((self.batch_size,), dtype=torch.bool)
         if hparams.patch_loss == "l2_vgg":
             st.vgg = load_vgg(hparams.vgg_weights, init).to(self.device)
 
@@ -177,13 +206,21 @@ class SinNeRFTrainer:
         if hparams.ckpt_path:  # full resume (train.py:46)
             best = self._resume(hparams.ckpt_path)
         # draws: the sampler's and the ViT refresh coins on the host, the
-        # render's and the discriminator's on the device
-        self.sample_generator = torch.Generator().manual_seed(seed + 7919 * self.start_epoch)
-        self.render_generator = torch.Generator(device=self.device).manual_seed(seed + 1 + 7919 * self.start_epoch)
-        self.host_generator = torch.Generator().manual_seed(seed + 2 + 7919 * self.start_epoch)
+        # render's and the discriminator's on the device, each rank its own;
+        # over several ranks the discriminator calls' () draws on the host,
+        # alike on every rank (JAX draws them once for the global batch)
+        own = seed + 7919 * self.start_epoch + RANK_SEED_STRIDE * rank
+        self.sample_generator = torch.Generator().manual_seed(own)
+        self.render_generator = torch.Generator(device=self.device).manual_seed(own + 1)
+        self.host_generator = torch.Generator().manual_seed(own + 2)
+        self.batch_generator = torch.Generator().manual_seed(seed + 5 + 7919 * self.start_epoch)
+        self.grad_hook = ddp.gradient_hook(world) if world > 1 else None
 
-        self.ckpt_manager = TopKCheckpointManager(os.path.join(hparams.ckpt_dir, hparams.exp_name), top_k=2, best=best)
-        self.writer = _make_writer(os.path.join(hparams.log_dir, hparams.exp_name))
+        self.ckpt_manager = self.writer = None
+        if rank == 0:
+            self.ckpt_manager = TopKCheckpointManager(os.path.join(hparams.ckpt_dir, hparams.exp_name), top_k=2,
+                                                      best=best)
+            self.writer = _make_writer(os.path.join(hparams.log_dir, hparams.exp_name))
         self.epoch_log: List[Tuple[int, int, float]] = []  # (epoch, steps, seconds) of each training epoch
         self.val_log: List[Tuple[int, float]] = []  # (epoch, val PSNR) of each validation
 
@@ -204,30 +241,44 @@ class SinNeRFTrainer:
         if st.discriminator is not None:
             load_torch_discriminator(path, st.discriminator)
         if st.vit is not None and blob.get("ref_feature") is not None:
-            st.ref_feature = blob["ref_feature"].to(self.device)
-            st.ref_feature_valid = blob["ref_feature_valid"].cpu()
+            # the checkpoint holds the global batch's rows; this rank takes its own
+            rows = slice(self.rank * self.batch_size, (self.rank + 1) * self.batch_size)
+            st.ref_feature = blob["ref_feature"][rows].to(self.device)
+            st.ref_feature_valid = blob["ref_feature_valid"][rows].cpu()
         st.step = int(blob.get("global_step", 0))
         saved_epoch = blob.get("epoch")
         self.start_epoch = 0 if saved_epoch is None else int(saved_epoch) + 1
         return blob.get("ckpt_best")
 
     def _save(self, epoch: int, val_psnr: float) -> None:
+        """Rank 0 writes the checkpoint (the ViT cache gathered to the global
+        batch's rows first, on every rank); the others wait for it."""
+        st = self.state
+        ref_feature = ref_valid = None
+        if st.ref_feature is not None:
+            ref_feature = ddp.all_gather_rows(st.ref_feature.detach(), self.world)
+            ref_valid = ddp.all_gather_rows(st.ref_feature_valid.cpu(), self.world)
+        if self.rank == 0:
+            self._write(epoch, val_psnr, ref_feature, ref_valid)
+        ddp.barrier()
+
+    def _write(self, epoch: int, val_psnr: float, ref_feature, ref_valid) -> None:
         st = self.state
         state_dict = nerf_state_dict({k: m.state_dict() for k, m in st.models.items()})
         if st.discriminator is not None:
             state_dict.update(export_torch_discriminator_state(st.discriminator, prefix="D."))
         blob = {
             "state_dict": state_dict,
-            "optimizer_states": [opt.state_dict() for opt in (st.opt_g, st.opt_d) if opt is not None],
+            "optimizer_states": [_host_copy(opt.state_dict()) for opt in (st.opt_g, st.opt_d) if opt is not None],
             "epoch": epoch,
             "global_step": st.step,
             "val_psnr": val_psnr,
             "hparams": {k: v for k, v in vars(self.hparams).items()
                         if isinstance(v, (int, float, str, bool, list, tuple))},
         }
-        if st.ref_feature is not None:
-            blob["ref_feature"] = st.ref_feature.detach().cpu().clone()
-            blob["ref_feature_valid"] = st.ref_feature_valid.cpu().clone()
+        if ref_feature is not None:
+            blob["ref_feature"] = ref_feature.detach().cpu().clone()
+            blob["ref_feature_valid"] = ref_valid.cpu().clone()
         self.ckpt_manager.save(blob, epoch, val_psnr)
 
     # --------------------------------------------------------------- train
@@ -249,7 +300,8 @@ class SinNeRFTrainer:
         os.makedirs(log_dir, exist_ok=True)
         with profile(activities=activities) as prof:
             best = self._fit()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        if self.rank == 0:
+            prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
         return best
 
     def _fit(self) -> float:
@@ -276,15 +328,22 @@ class SinNeRFTrainer:
             set_lr(self.state.opt_d, self.hparams.lr, rate=D_LR_RATE)
         t0 = time.perf_counter()
         for i in range(spe):
-            batch = self.train_dataset.sample(epoch * spe + i, self.global_batch_size, self.sample_generator)
+            # this rank's items of the global batch: step * world + rank in
+            # steps of batch_size (at world 1, the step's items)
+            step = (epoch * spe + i) * self.world + self.rank
+            batch = self.train_dataset.sample(step, self.batch_size, self.sample_generator)
             step2_draws = Step2Draws()
+            if self.world > 1 and self.state.discriminator is not None:
+                step2_draws = batch_coins(self.cfg.dloss, self.batch_generator, self.device)
             if self.state.vit is not None:
-                step2_draws = Step2Draws(refresh=refresh_coins(self.global_batch_size, self.host_generator))
+                step2_draws = step2_draws._replace(refresh=refresh_coins(self.batch_size, self.host_generator))
             self.state, out = train_step(self.state, batch, self.cfg, float(epoch), generator=self.render_generator,
-                                         step2_draws=step2_draws)
-            if self.state.step % 10 == 0 and self.writer:
-                self._log_scalars(out["metrics"], self.state.step, lr)
-                self._log_images(out["images"], self.state.step)
+                                         step2_draws=step2_draws, grad_hook=self.grad_hook)
+            if self.state.step % 10 == 0:
+                metrics = ddp.reduce_metrics(out["metrics"], self.world)  # every rank: a collective
+                if self.writer:
+                    self._log_scalars(metrics, self.state.step, lr)
+                    self._log_images(out["images"], self.state.step)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -319,12 +378,16 @@ class SinNeRFTrainer:
         n = self.val_dataset.val_len()
         if max_batches is not None:
             n = min(n, max_batches)
-        tile = pick_val_tile(w * h, hp.chunk)
+        tile = pick_val_tile(w * h, hp.chunk, self.world)
         psnrs = []
         for i in range(n):
             item = self.val_dataset.val_item(i)
             rays = torch.from_numpy(item["rays"]).to(self.device)
-            results = render_chunked(self.state.models, rays, self.render_settings, tile=tile)
+            if self.world > 1:  # every rank gets the whole image, so the same PSNR
+                results = render_chunked_sharded(self.state.models, rays, self.render_settings, self.rank,
+                                                 self.world, tile=tile, keys=("rgb_fine", "depth_fine"))
+            else:
+                results = render_chunked(self.state.models, rays, self.render_settings, tile=tile)
             if "rgbs" not in item:
                 continue
             gt = torch.from_numpy(item["rgbs"]).to(self.device)
@@ -338,3 +401,29 @@ class SinNeRFTrainer:
         if log and self.writer:
             self.writer.add_scalar("val/psnr", mean_psnr, epoch)
         return mean_psnr
+
+
+def run(rank: int, world: int, hparams) -> SinNeRFTrainer:
+    """Rank ``rank`` of ``world``: train with ``hparams``; returns the
+    trainer after its fit, with the best val PSNR in ``trainer.best_psnr``
+    (rank 0 prints it)."""
+    trainer = SinNeRFTrainer(hparams, rank, world)
+    trainer.best_psnr = trainer.fit()
+    if trainer.writer:
+        trainer.writer.close()
+    if rank == 0:
+        print(f"best val/psnr: {trainer.best_psnr:.3f}")
+    return trainer
+
+
+def summary(trainer: SinNeRFTrainer) -> Dict[str, Any]:
+    """What a rank's run leaves for the process that started it."""
+    return dict(rank=trainer.rank, world=trainer.world, best_psnr=trainer.best_psnr, epoch_log=trainer.epoch_log,
+                val_log=trainer.val_log, steps_per_epoch=trainer.steps_per_epoch(), step=trainer.state.step)
+
+
+def run_rank(rank: int, world: int, hparams) -> Dict[str, Any]:
+    """``run``'s ``summary``: what the train CLI launches on each rank
+    (defined here: a spawned process does not import a package's
+    ``__main__``)."""
+    return summary(run(rank, world, hparams))

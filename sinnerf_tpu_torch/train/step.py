@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,7 +47,7 @@ from sinnerf_tpu_torch.losses.depth import (
 from sinnerf_tpu_torch.losses.gan import d_loss as gan_d_loss
 from sinnerf_tpu_torch.losses.gan import g_loss as gan_g_loss
 from sinnerf_tpu_torch.losses.photometric import L2_SSIM_LOSS, L2_VGG_LOSS, loss_dict
-from sinnerf_tpu_torch.models.diffaug import DiffAugDraws, coin, diff_augment
+from sinnerf_tpu_torch.models.diffaug import SKIP_PROB, DiffAugDraws, coin, diff_augment
 from sinnerf_tpu_torch.models.discriminator import DCallDraws, Discriminator
 from sinnerf_tpu_torch.models.nerf import NeRF
 from sinnerf_tpu_torch.models.vgg import VGG16Features
@@ -127,6 +127,30 @@ def refresh_coins(b: int, generator: Optional[torch.Generator] = None) -> torch.
     """(b,) bool host tensor: each item's coin of p = VIT_REFRESH_PROB to
     refresh its cached ViT feature this step; ``generator`` is a host one."""
     return torch.rand((b,), generator=generator) < VIT_REFRESH_PROB
+
+
+def batch_coins(dloss: str, generator: torch.Generator, device) -> Step2Draws:
+    """The () draws of a step's discriminator calls, in the JAX call order:
+    each call's coin and its DiffAugment ``skip`` (and for ``relavistic``
+    the outer augmentation's coin and ``skip``), drawn on the host from
+    ``generator`` and moved to ``device``.  JAX draws each once for the
+    global batch; under data parallelism every rank seeds ``generator``
+    alike, so that its ranks agree on them.  The per-item draws stay the
+    rank's own."""
+    def flip(p: float = 0.5) -> torch.Tensor:
+        return (torch.rand((), generator=generator) < p).to(device)
+
+    def call() -> DCallDraws:
+        c = flip()
+        return DCallDraws(coin=c, aug=DiffAugDraws(skip=flip(SKIP_PROB)))
+
+    d_fake_g = call()
+    relavistic = {}
+    if dloss == "relavistic":
+        c = flip()
+        relavistic = dict(real_g_coin=c, real_g_aug=DiffAugDraws(skip=flip(SKIP_PROB)), d_real_g=call())
+    d_real = call()
+    return Step2Draws(d_fake_g=d_fake_g, d_real=d_real, d_fake=call(), **relavistic)
 
 
 def _check_supported(cfg: TrainConfig, discriminator, vit, vgg) -> None:
@@ -381,12 +405,17 @@ def train_step(
     draws: RenderDraws = RenderDraws(),
     generator: Optional[torch.Generator] = None,
     step2_draws: Step2Draws = Step2Draws(),
+    grad_hook: Optional[Callable[[Sequence[torch.optim.Optimizer]], None]] = None,
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """One optimization step: renders once, backpropagates the total loss
     once and steps ``opt_g`` and, with the GAN on, ``opt_d``, in place; the
     discriminator's ``u`` and the ViT cache advance.  Returns the state and
     ``{'metrics', 'images'}``; the parameters' ``.grad`` hold this step's
-    gradients."""
+    gradients.  ``grad_hook``, when given, is called with the optimizers
+    that step (``opt_g``, and ``opt_d`` with the GAN on) after ``backward``
+    has written every ``.grad`` and before either steps: data parallelism
+    all-reduces the gradients there (``parallel.ddp.gradient_hook``).  The
+    metrics stay this batch's."""
     gan = cfg.dis_weight > 0
     state.opt_g.zero_grad(set_to_none=True)
     if gan:
@@ -397,6 +426,8 @@ def train_step(
         step2_draws=step2_draws,
     )
     total.backward()
+    if grad_hook is not None:
+        grad_hook([state.opt_g, state.opt_d] if gan else [state.opt_g])
     state.opt_g.step()
     if gan:
         state.opt_d.step()

@@ -152,12 +152,17 @@ def test_eval_cli_without_device_flag_needs_a_card(tmp_path, monkeypatch):
 
 
 def test_eval_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, level_params):
-    """Multi-GPU rendering and orbax directories are refused; the DTU set,
-    a later slice once, renders (tests/test_torch_blender_dtu_cli.py holds
-    it to JAX's eval.py)."""
-    flags = ["--root_dir", str(tmp_path), "--ckpt_path", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
-        port_eval.main(port_eval.get_opts(flags + ["--dataset_name", "llff", "--num_gpus", "2"]))
+    """Orbax directories are refused, and on ``cuda`` rendering over more
+    cards than are visible; the DTU set, a later slice once, renders
+    (tests/test_torch_blender_dtu_cli.py holds it to JAX's eval.py), and so
+    does ``--num_gpus 2`` with ``--device cpu``: two gloo ranks, the same
+    mean PSNR, rank 0's files alone."""
+    flags = ["--root_dir", str(tmp_path), "--ckpt_path", str(tmp_path), "--dataset_name", "llff", "--num_gpus", "2"]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="does not fall back"):
+            port_eval.main(port_eval.get_opts(flags))
     with pytest.raises(ValueError, match="orbax"):
         port_eval.load_models(str(tmp_path), torch.device("cpu"))
     from sinnerf_tpu_torch.data.synthetic import make_dtu_scene
@@ -166,11 +171,18 @@ def test_eval_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, level_params
     ckpt = save_torch_nerf_checkpoint(str(tmp_path / "w.ckpt"),
                                       {k: state_dict_from_jax(v) for k, v in level_params.items()})
     monkeypatch.chdir(tmp_path)
-    psnr = port_eval.main(port_eval.get_opts(["--root_dir", root, "--ckpt_path", ckpt, "--dataset_name", "dtu_proj",
-                                              "--split", "val", "--img_wh", "32", "32", "--N_samples", "4",
-                                              "--N_importance", "4", "--timestamp", "t", "--device", "cpu"]))
-    assert np.isfinite(psnr)
-    assert len(os.listdir(tmp_path / "results" / "dtu_proj" / "test" / "t")) == 4 + 1  # 4 PNGs, the GIF
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # one thread for each of two ranks
+    try:
+        psnr = {n: port_eval.main(port_eval.get_opts([
+            "--root_dir", root, "--ckpt_path", ckpt, "--dataset_name", "dtu_proj", "--split", "val", "--img_wh",
+            "32", "32", "--N_samples", "4", "--N_importance", "4", "--timestamp", f"t{n}", "--device", "cpu",
+            "--num_gpus", str(n)])) for n in (1, 2)}
+    finally:
+        torch.set_num_threads(threads)
+    assert np.isfinite(psnr[1]) and abs(psnr[2] - psnr[1]) < 0.01
+    for n in (1, 2):
+        assert len(os.listdir(tmp_path / "results" / "dtu_proj" / "test" / f"t{n}")) == 4 + 1  # 4 PNGs, the GIF
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -183,7 +195,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib'))"
         " or k == 'sinnerf_tpu' or k.startswith('sinnerf_tpu.'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 20 and 'sinnerf_tpu_torch.parallel.ddp' in mods, mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

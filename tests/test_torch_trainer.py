@@ -184,14 +184,18 @@ def test_top_k_manager_keeps_the_best_two_and_last(tmp_path):
 
 @pytest.mark.parametrize("extra", [["--num_gpus", "2"], ["--vit_weight", "10"], ["--dis_weight", "0.01"],
                                    ["--dataset_name", "blender_ray_patch_1image_rot3d"]])
-def test_later_slices_raise(llff_root, tmp_path, extra):
-    """Multi-GPU training is a later slice.  The Step-2 extras are built
-    (tests/test_torch_step2.py), but refused where the JAX trainer refuses
-    them or cannot run them: the ViT without ``--vit_weights`` or
-    ``--allow_random_pretrained``, and the discriminator on these 8-pixel
-    patches, too small for its 16 branch.  The Blender set is ported: on a
-    Blender scene the trainer builds, and the discriminator is refused on
-    its 8-pixel ``--patch_size`` patches as on LLFF's."""
+def test_later_slices_raise(llff_root, tmp_path, extra, monkeypatch):
+    """What the trainer refuses.  ``--num_gpus 2`` is ported: with
+    ``--device cpu`` two gloo ranks build the trainer (one item each of a
+    global batch of two), a trainer built outside such a launch is refused,
+    and on ``cuda`` the CLI refuses two ranks when fewer cards are visible.
+    The Step-2 extras are built (tests/test_torch_step2.py), but refused
+    where the JAX trainer refuses them or cannot run them: the ViT without
+    ``--vit_weights`` or ``--allow_random_pretrained``, and the
+    discriminator on these 8-pixel patches, too small for its 16 branch.
+    The Blender set is ported: on a Blender scene the trainer builds, and
+    the discriminator is refused on its 8-pixel ``--patch_size`` patches as
+    on LLFF's."""
     from sinnerf_tpu_torch.data.synthetic import make_blender_scene
     from sinnerf_tpu_torch.opt import get_opts
     from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
@@ -203,8 +207,17 @@ def test_later_slices_raise(llff_root, tmp_path, extra):
         trainer = SinNeRFTrainer(get_opts(flags))
         assert trainer.train_dataset.dataset_name == extra[1] and trainer.train_dataset.cfg.psx == 8
         flags += ["--dis_weight", "0.01"]
-    later = extra[0] == "--num_gpus"
-    with pytest.raises(NotImplementedError if later else ValueError):
+    if extra[0] == "--num_gpus":
+        import ddp_workers
+        from sinnerf_tpu_torch.parallel import ddp
+        from sinnerf_tpu_torch.train.__main__ import main
+
+        assert ddp.launch(ddp_workers.built, 2, "cpu", get_opts(flags)) == [(r, 2, 1, 2, r, 2) for r in range(2)]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="does not fall back"):
+            main(get_opts([f for f in flags if f not in ("--device", "cpu")]))
+    with pytest.raises(ValueError):
         SinNeRFTrainer(get_opts(flags))
 
 
