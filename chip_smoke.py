@@ -10,12 +10,14 @@ Phases, any failure exits non-zero without the final result line:
    kernels from ``sinnerf_tpu_torch/csrc`` (build seconds, and every
    kernel's ``-Xptxas -v`` registers, shared memory and spills printed);
    count the Hopper kernels' (K3, K1 and K4 in bf16, K1, K3 and K4 in f32)
-   and K2's HGMMA, bulk-copy (UBLKCP, UTMALDG), vector-reduction, FFMA,
+   and K2's, and the kernel experiments' Hopper variants' (phases 12-13),
+   HGMMA, bulk-copy (UBLKCP, UTMALDG; multicast ones), vector-reduction, FFMA,
    128-bit shared load and 128-bit global load and store instructions in
    ``cuobjdump -sass`` of their libraries, and fail without wgmma (bf16) or
    FFMA (f32), or without bulk copies, or (the f32 training kernels) without
    vector reductions in a backward or with a spill, or (K2) without 128-bit
-   global loads and stores;
+   global loads and stores, or (X1's ``pe_ilp2_t2x``) without the multicast
+   copy;
 2. hold K1 (``fused_render_level``, the Hopper kernels) against its plain
    version, float32 and bfloat16, at 4096 rays x S = 64 and 192, at 1000
    rays x S = 12, and at every ragged shape of K1_RAGGED (1 to 5292 rays, S
@@ -93,26 +95,32 @@ Phases, any failure exits non-zero without the final result line:
    the plain path and on the kernels, their val PSNRs held together; and
    the eval CLI renders one of the checkpoints;
 12. X1, the forward-kernel variants of K4-fwd
-   (``sinnerf_tpu_torch.scripts.exp_kernel_variants``): every variant's
-   kernel against its plain version and against production K4-fwd (the
-   Hopper kernel, ``k4_fwd_sm90``) at 4096
-   and 333 points; then the experiment's entry point (``main``) at 8,388,608
-   points with every count set to 0 just before and read just after (each
-   variant launched, finite, within K4-fwd's limit of ``pe``, the depth
-   merge equal to ``torch.sort``); on the inputs it ran on, each variant
-   held against its plain version (timed there) and ``pe`` against
-   production K4-fwd;
+   (``sinnerf_tpu_torch.scripts.exp_kernel_variants``) on the production
+   Hopper body (``exp_kernel_variants_sm90.cu``; ``pe`` is production K4-fwd
+   bf16, ``k4_fwd_sm90``, and must equal it bit for bit; phase 1 fails a
+   variant without HGMMA or bulk copies, ``pe_ilp2_t2x`` without the
+   multicast copy): every variant's kernel against its plain version and against
+   ``pe`` at 4096 and 333 points; then the experiment's entry point
+   (``main``) at 8,388,608 points with every count set to 0 just before and
+   read just after (each variant launched, finite, within K4-fwd's limit of
+   ``pe``, timed beside its earlier ``wmma`` port in alternating rounds, the
+   depth merge equal to ``torch.sort``); on the inputs it ran on, each
+   variant held against its plain version (timed there) and ``pe`` against
+   production K4-fwd, bit for bit;
 13. X2, the pipelining variants of K3-bwd
-   (``sinnerf_tpu_torch.scripts.exp_bwd_pipeline``): at 128 rays x S = 8 (a
-   partly open field) and 333 x 10 (an open one), the earlier forward that
-   gives the variants their residuals against its plain version, every
-   variant's kernel against its plain version, the exact ones also against
-   ``base`` (the earlier K3-bwd, whose body they share) within its
-   run-to-run spread; then the entry point at 16,384 rays x 192 samples over
-   all eight variants (both two_stream tiles, timed beside ``base`` in
-   alternating rounds) with the counts set to 0 just before and read just
-   after; on the inputs it ran on, each variant held against its plain
-   version (timed there);
+   (``sinnerf_tpu_torch.scripts.exp_bwd_pipeline``) on the production Hopper
+   K3-bwd bf16 (``exp_bwd_pipeline_sm90.cu``; ``base`` is
+   ``train_bwd_sm90<0>``; phase 1 fails a variant without HGMMA or bulk
+   copies): at 128 rays x S = 8 (a partly open field) and 333 x 10 (an open one),
+   production K3-fwd bf16, which gives the variants their residuals, and
+   the earlier forward against their plain version, every variant's kernel
+   against its plain version, the exact ones also against production K3-bwd
+   bf16 within its run-to-run spread; then the entry point at 16,384 rays x
+   192 samples over all eight variants (both two_stream tiles), each timed
+   beside ``base`` and beside its earlier ``wmma`` port in alternating
+   rounds, with the counts set to 0 just before and read just after; on the
+   inputs it ran on, each variant held against its plain version (timed
+   there);
 14. ``torch.profiler`` over PROFILED_STEPS bfloat16 stochastic
    ``train_step``s: the device's busy and idle share and its time by kernel;
 15. the Step-2 training path: ``train_step`` with the full ViT-S/16 loss
@@ -335,6 +343,19 @@ SASS_KERNELS = {
     "k4_fwd_sm90": ("fused_mlp_sm90.cu", "k4_fwd_sm90ILb0E", ("HGMMA", "BULK")),
     "k4_fwd_sm90_sigma": ("fused_mlp_sm90.cu", "k4_fwd_sm90ILb1E", ("HGMMA", "BULK")),
     "k2_lanes": ("fused_sample_pdf.cu", "sample_pdf_lanes_kernelILi3E", ("LDG_128", "STG_128")),
+    # the kernel experiments' Hopper variants (phases 12-13); pe is k4_fwd_sm90 itself
+    **{f"x1[{name}]": ("exp_kernel_variants_sm90.cu", tag, ("HGMMA", "BULK") + extra) for name, tag, extra in (
+        ("pe", "k4_fwd_sm90ILb0E", ()), ("base", "x1_fwd_sm90ILb0ELi1ELb0E", ()),
+        ("ilp2", "x1_fwd_sm90ILb0ELi2ELb0E", ()), ("pe_ilp2", "x1_fwd_sm90ILb1ELi2ELb0E", ()),
+        ("pe_ilp4", "x1_fwd_sm90ILb1ELi4ELb0E", ()), ("pe_ilp2_t2x", "x1_fwd_sm90ILb1ELi2ELb1E", ("MULTICAST",)))},
+    # train_bwd_sm90's Ablate bits (mlp_backward_wgmma.cuh): base 0, no_db 4, no_mask 8, no_dw 2 | 16, mxu_floor
+    # 32 | 8 | 4, cheap_pe 64, pe_pipe 128
+    **{f"x2[{tag}]": ("exp_bwd_pipeline_sm90.cu", kernel, ("HGMMA", "BULK")) for tag, kernel in (
+        ("base:128:1", "train_bwd_sm90ILi0E"), ("no_db:128:1", "train_bwd_sm90ILi4E"),
+        ("no_mask:128:1", "train_bwd_sm90ILi8E"), ("no_dw:128:1", "train_bwd_sm90ILi18E"),
+        ("mxu_floor:128:1", "train_bwd_sm90ILi44E"), ("cheap_pe:128:1", "train_bwd_sm90ILi64E"),
+        ("pe_pipe:128:1", "train_bwd_sm90ILi128E"), ("two_stream:64:2", "two_stream_sm90ILi64E"),
+        ("two_stream:32:2", "two_stream_sm90ILi32E"))},
 }
 # the bf16 stochastic steps that torch.profiler traces
 PROFILED_STEPS = 3
@@ -1025,8 +1046,9 @@ def k3_rounds(model, rays, z, noise, out, ref, target, what: str, cd: str):
     ``flush`` removes the weight gradients' reductions and nothing else,
     ``wgrad`` their products too; float32: ``flush``, and ``scratch`` the kept
     tiles' round trip through global memory) against the earlier backward:
-    in bfloat16 X2's ``base`` on the inputs without noise and with a black
-    background, which X2's kernels take (the same work), in float32
+    in bfloat16 X2's earlier ``base`` (``launch_variant_earlier``, the first
+    port's wmma body) on the inputs without noise and with a black background,
+    which X2's kernels take (the same work), in float32
     ``launch_train_bwd_block64`` on the path's own.  Returns per name the
     mean ms, per ratio its mean and range, and the earlier forward's error."""
     import torch
@@ -1051,7 +1073,7 @@ def k3_rounds(model, rays, z, noise, out, ref, target, what: str, cd: str):
     if bf16:
         bwd = (packed, r6, z, None, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, False)
         base_in = x2.BwdInputs(packed, r6, z, out[2], out[3], out[4], g_rgb, g_depth, g_w)
-        bwd_earlier = lambda: x2.launch_variant("base", 64, 1, base_in)  # noqa: E731
+        bwd_earlier = lambda: x2.launch_variant_earlier("base", 64, 1, base_in)  # noqa: E731
     else:
         bwd = (packed, r6, z, noise, out[2], out[3], out[4], g_rgb, g_depth, g_w, True, True)
         bwd_earlier = lambda: frt.launch_train_bwd_block64(*bwd)  # noqa: E731
@@ -1112,7 +1134,7 @@ def phase_train_path(device, rng, batch, draws):
             parts = frt.ABLATE if cd == "bfloat16" else frt.ABLATE_F32
             print(f"  {K3_ROUNDS[cd][0]} rounds: fwd {rm['fwd']:.3f} ms, earlier fwd {rm['fwd_earlier']:.3f} ms "
                   f"(ratio {r['fwd/fwd_earlier'][0]:.4f}, {r['fwd/fwd_earlier'][1]:.4f}-{r['fwd/fwd_earlier'][2]:.4f}); "
-                  f"bwd {rm['bwd']:.3f} ms, earlier ({'X2 base' if cd == 'bfloat16' else 'block64'}) "
+                  f"bwd {rm['bwd']:.3f} ms, earlier ({'X2 first-port base' if cd == 'bfloat16' else 'block64'}) "
                   f"{rm['bwd_earlier']:.3f} ms (ratio {r['bwd/bwd_earlier'][0]:.4f}, {r['bwd/bwd_earlier'][1]:.4f}-"
                   f"{r['bwd/bwd_earlier'][2]:.4f}); bwd without each part: "
                   + ", ".join(f"{p} {rm[f'bwd_no_{p}']:.3f} ms ({r[f'bwd_no_{p}/bwd'][0]:.4f}, "
@@ -2048,7 +2070,8 @@ def phase_train_cli(device, workdir: str, root: str):
 
 def phase_x1_checks(device, rng):
     """Each X1 variant's kernel against its plain version and against
-    production K4-fwd, at a tile multiple and at a ragged count."""
+    ``pe``, at a tile multiple and at a ragged count; ``pe`` equal to
+    production K4-fwd bit for bit."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_mlp as fm
@@ -2060,7 +2083,9 @@ def phase_x1_checks(device, rng):
         xyz = torch.tensor(rng.normal(scale=2.0, size=(n, 3)), dtype=torch.float32, device=device)
         dirs = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=device)
         xpe, dpe = x1.encode(xyz, dirs)
-        prod = fm.launch_mlp_fwd(packed, xyz, dirs)
+        pe = x1.make_variant(True, 1, x1.TILE)(packed, xyz, dirs)
+        if not torch.equal(pe, fm.launch_mlp_fwd(packed, xyz, dirs)):
+            raise Failed(f"X1 pe at n={n} is not production K4-fwd bf16 bit for bit")
         for name, (in_pe, ilp, tile) in x1.GRID.items():
             a, b = (xyz, dirs) if in_pe else (xpe, dpe)
             got = x1.make_variant(in_pe, ilp, tile)(packed, a, b)
@@ -2068,20 +2093,22 @@ def phase_x1_checks(device, rng):
             if got.shape != (n, 4) or not bool(got.isfinite().all()):
                 raise Failed(f"X1 {name}: shape {tuple(got.shape)} or non-finite values")
             errs = []
-            for what, ref in (("plain version", x1.variant_plain(packed, in_pe, a, b)), ("production K4-fwd", prod)):
+            for what, ref in (("plain version", x1.variant_plain(packed, in_pe, a, b)), ("pe", pe)):
                 diff = (got - ref).abs()
                 errs.append((diff.max().item(), diff.mean().item()))
-                hold(f"X1 {name:12s} n={n:5d} vs its {what}", errs[-1], K4_FWD_TOL["bfloat16"])
-            w = worst.setdefault(name, dict(plain=(0.0, 0.0), production=(0.0, 0.0)))
-            for key, err in zip(("plain", "production"), errs):
+                hold(f"X1 {name:12s} n={n:5d} vs {what}", errs[-1], K4_FWD_TOL["bfloat16"])
+            w = worst.setdefault(name, dict(plain=(0.0, 0.0), pe=(0.0, 0.0), equal_pe=True))
+            for key, err in zip(("plain", "pe"), errs):
                 w[key] = tuple(map(max, w[key], err))
+            w["equal_pe"] &= bool(torch.equal(got, pe))
     return worst
 
 
 def phase_x1(device):
     """X1's entry point at full size, counts set to 0 just before and read
     just after; then, on the inputs it ran on, each variant held against its
-    plain version (timed there) and ``pe`` against production K4-fwd."""
+    plain version (timed there) and ``pe`` against production K4-fwd, bit
+    for bit."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_mlp as fm
@@ -2106,16 +2133,19 @@ def phase_x1(device):
         if in_pe not in plain:
             plain[in_pe] = timed(lambda: x1.variant_plain(i.packed, in_pe, a, b), 1)
             print(f"X1 plain version (in_pe={in_pe}) {plain[in_pe][1]:.1f} ms at {x1.N_POINTS} points")
-        got = x1.make_variant(in_pe, ilp, tile)(i.packed, a, b)
+        got = x1.make_variant(in_pe, ilp, tile)(i.packed, a, b, i.tiles, i.slabs)
         diff = (got - plain[in_pe][0]).abs()
         res[name]["err_vs_plain"] = (diff.max().item(), diff.mean().item())
         hold(f"X1 {name:12s} at {x1.N_POINTS} points vs its plain version", res[name]["err_vs_plain"],
              K4_FWD_TOL["bfloat16"])
         if name == "pe":
-            diff = (got - fm.launch_mlp_fwd(i.packed, i.xyz, i.dirs)).abs()
+            prod = fm.launch_mlp_fwd(i.packed, i.xyz, i.dirs)
+            diff = (got - prod).abs()
             res[name]["err_vs_production"] = (diff.max().item(), diff.mean().item())
-            hold(f"X1 {name:12s} at {x1.N_POINTS} points vs production K4-fwd", res[name]["err_vs_production"],
-                 K4_FWD_TOL["bfloat16"])
+            if not torch.equal(got, prod):
+                raise Failed(f"X1 pe at {x1.N_POINTS} points is not production K4-fwd bf16 bit for bit: "
+                             f"{res[name]['err_vs_production']}")
+            del prod
         res[name]["plain_ms"] = plain[in_pe][1]
         del got, diff
     del i, plain
@@ -2124,10 +2154,10 @@ def phase_x1(device):
 
 
 def phase_x2_checks(device):
-    """The earlier K3-fwd, which gives X2 its residuals, against its plain
-    version; each X2 variant's kernel against its plain version; the exact
-    ones also against ``base`` (the earlier K3-bwd, whose body they share)
-    within its run-to-run spread."""
+    """Production K3-fwd bf16, which gives X2 its residuals, and the earlier
+    forward against their plain version; each X2
+    variant's kernel against its plain version; the exact ones also against
+    production K3-bwd bf16 within its run-to-run spread."""
     import torch
 
     from sinnerf_tpu_torch.ops import fused_render_train as frt
@@ -2137,29 +2167,32 @@ def phase_x2_checks(device):
     worst, earlier_worst = {}, (0.0, 0.0)
     for n, s, seed in X2_SMALL:
         i = x2.make_inputs(n, s, seed, device)
+        plain_fwd = frt.render_level_train_forward_plain(i.packed, i.rays6, i.z, None, True, False)
+        err = k3_fwd_error(frt.launch_train_fwd(i.packed, i.rays6, i.z, None, True, False), plain_fwd, float(i.z.max()))
+        hold(f"X2 inputs n={n} S={s}: production K3 bfloat16 fwd (the residuals' source)", err, K3_FWD_TOL["bfloat16"])
         earlier = frt.launch_train_fwd_block64(i.packed, i.rays6, i.z, None, True, False)
         torch.cuda.synchronize()
-        err = k3_fwd_error(earlier, frt.render_level_train_forward_plain(i.packed, i.rays6, i.z, None, True, False),
-                           float(i.z.max()))
+        err = k3_fwd_error(earlier, plain_fwd, float(i.z.max()))
         hold(f"X2 inputs n={n} S={s}: earlier K3 bfloat16 fwd (wmma)", err, K3_FWD_TOL["bfloat16"])
         earlier_worst = tuple(map(max, earlier_worst, err))
-        base = x2.run_variant("base", 64, 1, i)
-        if not bool(base[0].any()):
+        prod_args = (i.packed, i.rays6, i.z, None, i.weights, i.alphas, i.rgb_s, i.g_rgb, i.g_depth, i.g_w, True, False)
+        prod = frt.launch_train_bwd(*prod_args)
+        if not bool(prod[0].any()):
             raise Failed(f"X2 inputs at n={n} S={s}: an empty field, every gradient is 0 and nothing is held")
-        spread = x2.leaf_errors(x2.run_variant("base", 64, 1, i), base)
+        spread = x2.leaf_errors(frt.launch_train_bwd(*prod_args), prod)
         for variant, rays, streams in x2.parse_spec(x2.ALL_SPEC):
             tag = f"{variant}:{rays}:{streams}"
             got = x2.run_variant(variant, rays, streams, i)
             torch.cuda.synchronize()
             err = grad_errors(unpack_grads(*got), unpack_grads(*x2.variant_plain(variant, i)))
             hold_grads(f"X2 {tag:16s} n={n} S={s} vs its plain version", err, K3_BWD_TOL["bfloat16"])
-            w = worst.setdefault(tag, dict(plain=(0.0, 0.0), base=None, spread=(0.0, 0.0)))
+            w = worst.setdefault(tag, dict(plain=(0.0, 0.0), production=None, spread=(0.0, 0.0)))
             w["plain"] = tuple(map(max, w["plain"], err))
             if variant in x2.EXACT:
-                err_p = x2.leaf_errors(got, base)
-                hold_grads(f"X2 {tag:16s} n={n} S={s} vs base (two base runs differ by "
+                err_p = x2.leaf_errors(got, prod)
+                hold_grads(f"X2 {tag:16s} n={n} S={s} vs production K3-bwd (two production runs differ by "
                            f"{spread[0]:.1e}, {spread[1]:.1e})", err_p, x2.EXACT_TOL_SMALL)
-                w["base"] = tuple(map(max, w["base"] or (0.0, 0.0), err_p))
+                w["production"] = tuple(map(max, w["production"] or (0.0, 0.0), err_p))
                 w["spread"] = tuple(map(max, w["spread"], spread))
                 w["tolerance"] = x2.EXACT_TOL_SMALL
     return worst, earlier_worst
@@ -2892,6 +2925,7 @@ def sass_counts():
             return sum(v for k, v in ops.items() if pred(k))
 
         c = dict(HGMMA=n(lambda k: k.startswith("HGMMA")), UBLKCP=n(lambda k: k.startswith("UBLKCP")),
+                 MULTICAST=n(lambda k: k.startswith(("UBLKCP", "UTMALDG")) and "MULTICAST" in k),
                  UTMALDG=n(lambda k: k.startswith("UTMALDG")),
                  RED_V4=n(lambda k: re.match(r"REDG?\.\S*(x4|\.128)", k) is not None),
                  FFMA=n(lambda k: k.startswith("FFMA")), LDS_128=n(lambda k: k.startswith("LDS.128")),
@@ -2925,6 +2959,57 @@ def slice_launches(name: str, cd: str, cli, ev, demo, ddp_out):
 
 def mean_of(rows, key: str) -> float:
     return sum(r[key] for r in rows) / len(rows)
+
+
+def x_kernel_entries(x1_err, x1_res, x1_counts, x2_err, x2_res, x2_counts, sass, ptxas):
+    """The ``kernels`` line's X1 and X2 entries, one per variant, from
+    phases 12-13 (and phase 1's SASS counts): errors, times, bound share, the
+    ratio to ``pe`` or ``base`` and to the earlier ``wmma`` port (mean and
+    range over the rounds), SASS counts and launches."""
+    kernels = []
+    for name, r in ((n, x1_res[n]) for n in x1_err):
+        e = x1_err[name]
+        kernels.append(dict(
+            name=f"exp_kernel_variants[{name}]", route="cuda",
+            source="sinnerf_tpu_torch/csrc/exp_kernel_variants_sm90.cu",
+            body="sinnerf_tpu_torch/csrc/" + ("k4_fwd_sm90.cuh + mlp_wgmma.cuh" if name == "pe"
+                                              else "exp_kernel_variants_sm90.cu + mlp_wgmma.cuh"),
+            replaces="scripts/exp_kernel_variants.py:79", launches=x1_counts[name],
+            max_abs_err=max(e["plain"][0], r["err_vs_plain"][0]), mean_abs_err=max(e["plain"][1], r["err_vs_plain"][1]),
+            tolerance=K4_FWD_TOL["bfloat16"], err_vs_plain_full=r["err_vs_plain"], err_vs_pe=e["pe"],
+            equal_to_pe=e["equal_pe"], err_vs_pe_full=[r["max_err_vs_pe"], r["mean_err_vs_pe"]],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="operations", library_ms=None,
+            tflops=r["tflops"], bound_share=r["bound_share"], vs_pe=r["vs_pe"], vs_production=r["vs_production"],
+            vs_production_range=r["vs_production_range"], production_ms=x1_res["production"]["ms"],
+            earlier_source="sinnerf_tpu_torch/csrc/exp_kernel_variants.cu", earlier=r["earlier"],
+            earlier_ms=r["earlier_ms"], vs_earlier=r["vs_earlier"], sass=sass[f"x1[{name}]"],
+            ptxas=ptxas[f"x1[{name}]"],
+        ))
+        if "err_vs_production" in r:
+            kernels[-1].update(err_vs_production_k4_full=r["err_vs_production"])
+    for tag, r in ((t, x2_res[t]) for t in x2_err):
+        e = x2_err[tag]
+        entry = dict(
+            name=f"exp_bwd_pipeline[{tag}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_bwd_pipeline_sm90.cu",
+            body="sinnerf_tpu_torch/csrc/" + ("exp_bwd_pipeline_sm90.cu (two_stream_sm90)" if tag.startswith("two")
+                                              else "mlp_backward_wgmma.cuh (train_bwd_sm90)") + " + mlp_wgmma.cuh",
+            replaces="scripts/exp_bwd_pipeline.py:73", launches=x2_counts[tag],
+            max_abs_err=max(e["plain"][0], r["err_vs_plain"][0]),
+            rel_l2_err=max(e["plain"][1], r["err_vs_plain"][1]), err_vs_plain_full=r["err_vs_plain"],
+            tolerance=K3_BWD_TOL["bfloat16"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="operations", library_ms=None, bound_share=r["bound_share"], vs_production=r["vs_production"],
+            vs_base=r["vs_base"], vs_base_range=r["vs_base_range"], production_ms=x2_res["production"]["ms"],
+            production_vs_base_range=x2_res["production"]["vs_base_range"],
+            earlier_source="sinnerf_tpu_torch/csrc/exp_bwd_pipeline.cu", earlier=r["earlier"],
+            earlier_ms=r["earlier_ms"], vs_earlier=r["vs_earlier"], sass=sass[f"x2[{tag}]"],
+            ptxas=ptxas[f"x2[{tag}]"],
+        )
+        if e["production"] is not None:
+            entry.update(err_vs_production=e["production"], err_vs_production_full=r["err_vs_production"],
+                         production_run_to_run=e["spread"], production_tolerance=e["tolerance"],
+                         production_tolerance_full=r["exact_tol"])
+        kernels.append(entry)
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -3072,7 +3157,7 @@ def main(argv=None) -> int:
             entry.update(
                 earlier_ms=mean_of([r["rounds_ms"] for r in x], f"{d}_earlier"),
                 rounds_ms=mean_of([r["rounds_ms"] for r in x], d),
-                earlier_source="sinnerf_tpu_torch/csrc/" + ("exp_bwd_pipeline.cu (X2 base)" if bf16 and d == "bwd"
+                earlier_source="sinnerf_tpu_torch/csrc/" + ("exp_bwd_pipeline.cu (X2's earlier base)" if bf16 and d == "bwd"
                                                            else "fused_render_train.cu"),
                 vs_earlier={r["shape"]: r["ratios"][f"{d}/{d}_earlier"] for r in x},
                 rounds=K3_ROUNDS[cd][0], sass=sass[sass_key], ptxas=ptxas[sass_key],
@@ -3162,36 +3247,7 @@ def main(argv=None) -> int:
         **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo, ddp_out),
     ))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], max(x["err"] for x in slice_k["k2"]))
-    for name, r in ((n, x1_res[n]) for n in x1_err):
-        kernels.append(dict(
-            name=f"exp_kernel_variants[{name}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_kernel_variants.cu",
-            replaces="scripts/exp_kernel_variants.py:79", launches=x1_counts[name],
-            max_abs_err=max(x1_err[name]["plain"][0], r["err_vs_plain"][0]),
-            mean_abs_err=max(x1_err[name]["plain"][1], r["err_vs_plain"][1]),
-            tolerance=K4_FWD_TOL["bfloat16"], err_vs_plain_full=r["err_vs_plain"],
-            err_vs_production_k4=x1_err[name]["production"], err_vs_pe_full=[r["max_err_vs_pe"], r["mean_err_vs_pe"]],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="operations", library_ms=None,
-            tflops=r["tflops"], bound_share=r["bound_share"], vs_production=r["vs_production"],
-            vs_production_range=r["vs_production_range"], production_ms=x1_res["production"]["ms"],
-        ))
-        if "err_vs_production" in r:
-            kernels[-1].update(err_vs_production_k4_full=r["err_vs_production"])
-    for tag, r in ((t, x2_res[t]) for t in x2_err):
-        entry = dict(
-            name=f"exp_bwd_pipeline[{tag}]", route="cuda", source="sinnerf_tpu_torch/csrc/exp_bwd_pipeline.cu",
-            replaces="scripts/exp_bwd_pipeline.py:73", launches=x2_counts[tag],
-            max_abs_err=max(x2_err[tag]["plain"][0], r["err_vs_plain"][0]),
-            rel_l2_err=max(x2_err[tag]["plain"][1], r["err_vs_plain"][1]), err_vs_plain_full=r["err_vs_plain"],
-            tolerance=K3_BWD_TOL["bfloat16"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="operations", library_ms=None, bound_share=r["bound_share"], vs_production=r["vs_production"],
-            vs_base=r["vs_base"], vs_base_range=r["vs_base_range"], production_ms=x2_res["production"]["ms"],
-            production_vs_base_range=x2_res["production"]["vs_base_range"],
-        )
-        if x2_err[tag]["base"] is not None:
-            entry.update(err_vs_base=x2_err[tag]["base"], err_vs_base_full=r["err_vs_base"],
-                         base_run_to_run=x2_err[tag]["spread"], base_tolerance=x2_err[tag]["tolerance"],
-                         base_tolerance_full=r["exact_tol"])
-        kernels.append(entry)
+    kernels += x_kernel_entries(x1_err, x1_res, x1_counts, x2_err, x2_res, x2_counts, sass, ptxas)
     print(f"total {time.perf_counter() - t0:.1f} s; ms, plain_ms and bound_ms are means over a path's launches "
           f"(K1: one eval image; K3 and K4: one train step; K2: both; X1 and X2: one launch of the experiment's "
           f"size); no single PyTorch call computes any kernel's function")

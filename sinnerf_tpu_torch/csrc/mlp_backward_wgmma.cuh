@@ -75,6 +75,16 @@ constexpr size_t BWD_SCRATCH = (size_t)N_KEPT * ACT_BYTES + (size_t)RAYS * HALF 
 enum Ablate {
   ABL_FLUSH = 1,  // the weight gradients' reductions into dW
   ABL_WGRAD = 2,  // the weight-gradient products (and their flush)
+  // the kernel experiment X2's (exp_bwd_pipeline_sm90.cu), one part each:
+  ABL_DB = 4,         // the bias sums (bias_sum, dbrgb, dbsig)
+  ABL_MASK = 8,       // the trunk's ReLU masks (h1..h8) in the dgrad epilogues
+  ABL_HEAD_DW = 16,   // the heads' weight gradients dwrgb and dwsig
+  ABL_CONST_PE = 32,  // the sample's PE: a constant 0.01 tile (once per tile)
+  ABL_CHEAP_PE = 64,  // the sample's PE: bf16(z 0.01) in every column
+  // X2's exact restructuring pe_pipe (the gradient is the production one):
+  // sample s+1's PE is formed while sample s's last wgrad (W1's) is in
+  // flight, into X (free then), and copied into the PE tile when s+1 starts
+  PIPE_PE = 128,
 };
 
 __device__ __forceinline__ float tile_at(const unsigned char* tile, int r, int c) {
@@ -174,6 +184,13 @@ struct EpiMaskTile {  // the ReLU mask of the cast activation h (a swizzled tile
   const unsigned char* h;
   __device__ float operator()(int r, int c, float v) const { return tile_at(h, r, c) > 0.f ? v : 0.f; }
 };
+struct EpiSigmaTile {  // + g_sig[r] wsig[c], no mask (ABL_MASK)
+  const float* gsig;
+  const bf16* wsig;
+  __device__ float operator()(int r, int c, float v) const {
+    return __fadd_rn(v, __fmul_rn(gsig[r], __bfloat162float(wsig[c])));
+  }
+};
 struct EpiSigmaMaskTile {  // + g_sig[r] wsig[c], then the mask of h8
   const unsigned char* h;
   const float* gsig;
@@ -253,17 +270,23 @@ __device__ __forceinline__ void dir_delta(const Lane& ln, const MlpOut& o, const
 // The heads' weight and bias gradients, in f32 over the tile's points: d in
 // X, da_d in Y, the cast per-point cotangents in darg_s and gsig_s (all
 // synchronised).
+// DB, DW false: X2's ablations of the bias sums and of the weight gradient.
+template <bool DB = true, bool DW = true>
 __device__ __forceinline__ void head_grads(const unsigned char* X, const unsigned char* Y, const float* darg_s,
                                            const float* gsig_s, float* dW, float* dB) {
-  for (int e = threadIdx.x; e < 3 * HALF; e += CONSUMER_THREADS) {  // dwrgb = da_rgb^T d
-    const int ch = e / HALF, k = e % HALF;
-    atomicAdd(dW + WRGB + e, point_sum([&](int p) { return __fmul_rn(darg_s[p * 3 + ch], tile_at(X, p, k)); }));
+  if constexpr (DW)
+    for (int e = threadIdx.x; e < 3 * HALF; e += CONSUMER_THREADS) {  // dwrgb = da_rgb^T d
+      const int ch = e / HALF, k = e % HALF;
+      atomicAdd(dW + WRGB + e, point_sum([&](int p) { return __fmul_rn(darg_s[p * 3 + ch], tile_at(X, p, k)); }));
+    }
+  if constexpr (DB) {
+    if (threadIdx.x < 3 || threadIdx.x == 32) {  // dbrgb, dbsig
+      const int ch = threadIdx.x;
+      atomicAdd(dB + (ch < 3 ? BRGB + ch : BSIG),
+                point_sum([&](int p) { return ch < 3 ? darg_s[p * 3 + ch] : gsig_s[p]; }));
+    }
+    bias_sum(Y, HALF, dB + BD);
   }
-  if (threadIdx.x < 3 || threadIdx.x == 32) {  // dbrgb, dbsig
-    const int ch = threadIdx.x;
-    atomicAdd(dB + (ch < 3 ? BRGB + ch : BSIG), point_sum([&](int p) { return ch < 3 ? darg_s[p * 3 + ch] : gsig_s[p]; }));
-  }
-  bias_sum(Y, HALF, dB + BD);
 }
 
 // dwdx = dad^T d_pe, one f32 product per tile of rays (K3: the direction
@@ -277,6 +300,55 @@ __device__ __forceinline__ void dir_pe_wgrad(const Lane& ln, const float* rays_s
     const int o = e / DIR_PAD, c = e % DIR_PAD;
     atomicAdd(dW + WDX + e, point_sum([&](int p) { return __fmul_rn(dad[p * HALF + o], tile_at(X, p, c)); }));
   }
+}
+
+// X2's PE tiles (train_bwd_sm90's ABL_CONST_PE, ABL_CHEAP_PE): the
+// warpgroup's rows of ``xpe``, every column bf16(0.01), or bf16(z 0.01) of
+// the row's sample (z of rays past n is 1).  Unfenced.
+__device__ __forceinline__ void const_pe(const Lane& ln, const float* __restrict__ z, int ray0, int n, int S, int s,
+                                         bool cheap, unsigned char* xpe) {
+  for (int e = ln.t; e < WG_ROWS * 8; e += 128) {
+    const int r = ln.g * WG_ROWS + e / 8;
+    const float zs = cheap && ray0 + r < n ? z[(size_t)(ray0 + r) * S + s] : 1.f;
+    const __nv_bfloat162 v = __float2bfloat162_rn(cheap ? __fmul_rn(zs, 0.01f) : 0.01f);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&v);
+    *reinterpret_cast<uint4*>(xpe + r * ROW_BYTES + (e % 8) * 16) = make_uint4(u, u, u, u);
+  }
+}
+
+// PIPE_PE: the warpgroup's rows of a 64-column swizzled tile copied to
+// ``dst`` (the same layout).
+__device__ __forceinline__ void copy_pe_rows(const Lane& ln, const unsigned char* src, unsigned char* dst) {
+  const int base = ln.g * WG_ROWS * ROW_BYTES;
+  for (int i = ln.t; i < WG_ROWS * ROW_BYTES / 16; i += 128)
+    reinterpret_cast<int4*>(dst + base)[i] = reinterpret_cast<const int4*>(src + base)[i];
+}
+
+// PIPE_PE's layer 1: dW1 rows of both of the warpgroup's blocks (K3's wgrad
+// over the tile's 128 points), both products in flight while ``between``
+// runs, then flushed.
+template <typename F>
+__device__ __forceinline__ void wgrad_pe_overlapped(const Lane& ln, const unsigned char* D, const unsigned char* A,
+                                                    float* dW, F&& between) {
+  float a0[32], a1[32];
+  sm90::fence_regs(a0);
+  sm90::fence_regs(a1);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < RAYS / 16; ++t)
+    sm90::mma_m64n64<1, 1>(a0, sm90::desc_sw128(D + 2 * ln.g * ACT_BLOCK + t * 16 * ROW_BYTES, ACT_BLOCK, 1024),
+                           sm90::desc_sw128(A + t * 16 * ROW_BYTES, ACT_BLOCK, 1024), t > 0);
+#pragma unroll
+  for (int t = 0; t < RAYS / 16; ++t)
+    sm90::mma_m64n64<1, 1>(a1, sm90::desc_sw128(D + (2 * ln.g + 1) * ACT_BLOCK + t * 16 * ROW_BYTES, ACT_BLOCK, 1024),
+                           sm90::desc_sw128(A + t * 16 * ROW_BYTES, ACT_BLOCK, 1024), t > 0);
+  sm90::wgmma_commit();
+  between();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(a0);
+  sm90::fence_regs(a1);
+  flush<64>(a0, ln, dW + (size_t)2 * ln.g * 64 * XYZ_PAD, XYZ_PAD);
+  flush<64>(a1, ln, dW + (size_t)(2 * ln.g + 1) * 64 * XYZ_PAD, XYZ_PAD);
 }
 
 // The barriers of a backward CTA: a full (one arrival, the producer's, and
@@ -338,6 +410,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
   unsigned char* const kept = scratch + (size_t)blockIdx.x * BWD_SCRATCH;
   float* const dad = reinterpret_cast<float*>(kept + (size_t)N_KEPT * ACT_BYTES);
   constexpr bool do_flush = !(ABLATE & (ABL_FLUSH | ABL_WGRAD)), do_wgrad = !(ABLATE & ABL_WGRAD);
+  constexpr bool do_db = !(ABLATE & ABL_DB), do_mask = !(ABLATE & ABL_MASK), do_head_dw = !(ABLATE & ABL_HEAD_DW);
   uint32_t xphase = 0;
   constexpr int WOFF[9] = {0, W1, W2, W3, W4, W5H, W6, W7, W8};
   constexpr int BOFF[9] = {0, B1, B2, B3, B4, B5, B6, B7, B8};
@@ -374,7 +447,14 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
     for (int s = 0; s < S; ++s) {
       // 1. recompute, keeping h1..h8 and f; the direction PE into Y
       dir_pe(ln, rays_s, Y);
-      sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
+      if constexpr ((ABLATE & (ABL_CONST_PE | ABL_CHEAP_PE)) != 0) {
+        if ((ABLATE & ABL_CHEAP_PE) != 0 || s == 0) const_pe(ln, z, ray0, n, S, s, (ABLATE & ABL_CHEAP_PE) != 0, xpe);
+      } else if constexpr ((ABLATE & PIPE_PE) != 0) {
+        if (s == 0) sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
+        else copy_pe_rows(ln, X, xpe);  // formed during the previous sample's layer 1
+      } else {
+        sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
+      }
       sm90::fence_proxy_async();
       ln.wg_sync();
       MlpOut o;
@@ -412,7 +492,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
       sm90::fence_proxy_async();
       consumers_sync();  // da_d, d (in X), g_sig and da_rgb of every ray
 
-      head_grads(X, Y, darg_s, gsig_s, dW, dB);
+      head_grads<do_db, do_head_dw>(X, Y, darg_s, gsig_s, dW, dB);
       consumers_sync();  // every reader of d in X is done
 
       // 3. the direction layer: dwdh = da_d^T f, then df = da_d wdh
@@ -427,25 +507,32 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
 
       // xyz_encoding_final: dwfin = df^T h8, dwsig = g_sig^T h8, then
       // da8 = mask(h8) (df wfin + g_sig wsig)
-      bias_sum(Y, WIDTH, dB + BFIN);
+      if constexpr (do_db) bias_sum(Y, WIDTH, dB + BFIN);
       reload(X, kept + 7 * (size_t)ACT_BYTES, xbar, xphase);
-      {
+      if constexpr (do_head_dw) {
         const int k = threadIdx.x;
         atomicAdd(dW + WSIG + k, point_sum([&](int p) { return __fmul_rn(gsig_s[p], tile_at(X, p, k)); }));
       }
       for (int ch = 2 * ln.g; do_wgrad && ch < 2 * ln.g + 2; ++ch) wgrad<256>(ln, Y, ch, X, dW + WFIN, WIDTH, do_flush);
       dgrad<16>(acc, ring, ln, Y);
       consumers_sync();
-      dgrad_store(acc, ln, Y, EpiSigmaMaskTile{X, gsig_s, wsig});
+      if constexpr (do_mask) dgrad_store(acc, ln, Y, EpiSigmaMaskTile{X, gsig_s, wsig});
+      else dgrad_store(acc, ln, Y, EpiSigmaTile{gsig_s, wsig});
       sm90::fence_proxy_async();
       consumers_sync();
 
       // the trunk, layers 8 down to 1: the delta of layer l is in Y
       for (int l = 8; l >= 1; --l) {
-        bias_sum(Y, WIDTH, dB + BOFF[l]);
+        if constexpr (do_db) bias_sum(Y, WIDTH, dB + BOFF[l]);
         if (l == 1) {
-          for (int ch = 2 * ln.g; do_wgrad && ch < 2 * ln.g + 2; ++ch)
-            wgrad<64>(ln, Y, ch, xpe, dW + W1, XYZ_PAD, do_flush);
+          if constexpr ((ABLATE & PIPE_PE) != 0) {  // sample s + 1's PE into X while W1's products run
+            wgrad_pe_overlapped(ln, Y, xpe, dW + W1, [&] {
+              if (s + 1 < S) sample_pe_sw(ln, rays_s, z, ray0, n, S, s + 1, X);
+            });
+          } else {
+            for (int ch = 2 * ln.g; do_wgrad && ch < 2 * ln.g + 2; ++ch)
+              wgrad<64>(ln, Y, ch, xpe, dW + W1, XYZ_PAD, do_flush);
+          }
           break;
         }
         reload(X, kept + (size_t)(l - 2) * ACT_BYTES, xbar, xphase);  // h_{l-1}
@@ -455,7 +542,8 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
         }
         dgrad<16>(acc, ring, ln, Y);
         consumers_sync();
-        dgrad_store(acc, ln, Y, EpiMaskTile{X});
+        if constexpr (do_mask) dgrad_store(acc, ln, Y, EpiMaskTile{X});
+        else dgrad_store(acc, ln, Y, EpiPass());
         sm90::fence_proxy_async();
         consumers_sync();
       }

@@ -15,6 +15,9 @@
 //                  each operand K-major or MN-major (the transpose bits)
 //   setmaxnreg     register reallocation between warpgroups
 //   red_add_v4     one 16-byte vector reduction into global memory
+//   clusters       the CTA's rank, a cluster-wide barrier, an mbarrier
+//                  arrival in a partner CTA, a bulk copy multicast to the
+//                  cluster's CTAs; named-barrier arrival without waiting
 //
 // The 128-byte swizzle: a row of 64 bf16 values (128 bytes) holds eight
 // 16-byte chunks, chunk c of row r at position c ^ (r % 8), the rows of a
@@ -192,6 +195,47 @@ __device__ __forceinline__ void mma_m64n256(float (&d)[128], uint64_t da, uint64
 }
 
 #undef SM90_R8
+
+// ---------------------------------------------------------------- clusters
+// (the kernel experiment X1's 2-CTA variant, exp_kernel_variants_sm90.cu)
+// The CTA's rank within its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for all:
+// shared-memory writes before it (barrier inits included) are visible
+// cluster-wide after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// One arrival on the mbarrier at ``bar``'s offset in the shared memory of
+// the cluster's CTA ``rank``.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+}
+
+// bulk_load to the same offsets (``dst``, and ``bar`` for the bytes' arrival)
+// in the shared memory of every CTA of the cluster whose bit is set in
+// ``mask``.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], %4;"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// Arrive at named barrier ``id`` (of ``count`` threads) without waiting: the
+// signalling side of a bar.sync on the same id.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 
 // ------------------------------------------------------------------- other
 template <int REGS>

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_render.cu", "fused_render_sm90.cu", "fused_sample_pdf.cu", "fused_render_train.cu",
            "fused_render_train_sm90.cu", "f32_train_sm90.cu", "fused_mlp.cu", "fused_mlp_sm90.cu",
-           "exp_kernel_variants.cu", "exp_bwd_pipeline.cu")
+           "exp_kernel_variants.cu", "exp_bwd_pipeline.cu", "exp_kernel_variants_sm90.cu", "exp_bwd_pipeline_sm90.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -23,9 +23,8 @@ The source notes give the bound (operations: 1.19 MFLOP per point forward,
 3.48 MFLOP backward) and what each design does about the weights, the
 activations and the 2.4 MB gradient accumulator that fit in no block.
 ``launch_train_fwd_block64`` launches the earlier forward
-(``fused_render_train.cu``: ``nvcuda::wmma`` in bfloat16, FMA in float32),
-whose bfloat16 residuals the kernel experiment X2 reads, and
-``launch_train_bwd_block64`` the earlier float32 backward of the same file;
+(``fused_render_train.cu``: ``nvcuda::wmma`` in bfloat16, FMA in float32)
+and ``launch_train_bwd_block64`` the earlier float32 backward of the same file;
 no path runs them, and ``chip_smoke.py`` times them beside the Hopper ones.
 
 ``fused_render_level_train`` is a ``torch.autograd.Function`` over the
@@ -349,9 +348,8 @@ launch_train_fwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
 def launch_train_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back):
     """The earlier K3-fwd (``fused_render_train.cu``: 64-ray blocks, wmma from
     L2 in bfloat16, FMA in float32) on CUDA tensors: (rgb, depth, weights,
-    alphas, rgb_s).  Off the main path: the kernel experiment X2 takes its
-    residuals from it (bfloat16), and ``chip_smoke.py`` times it beside the
-    Hopper kernels."""
+    alphas, rgb_s).  Off the main path: ``chip_smoke.py`` holds it against
+    the plain forward and times it beside the Hopper kernels."""
     out = _launch_fwd_block64(packed, rays6, z, noise, use_new_activation, white_back)
     launch_train_fwd_block64.launches += 1
     return out

@@ -2,24 +2,29 @@
 
 Counterpart of the JAX package's ``scripts/exp_bwd_pipeline.py``:
 ``run_variant`` (:326) with its kernel ``_exp_bwd_kernel`` (:73-323, call
-:369).  The CUDA kernel is ``csrc/exp_bwd_pipeline.cu``, one template over
-the earlier K3-bwd's body (``csrc/train_backward.cuh``); its note says
-what each variant changes.  bfloat16, no noise, a black background and the
-new activation only, as JAX's.
+:369).  The CUDA kernels are ``csrc/exp_bwd_pipeline_sm90.cu``: the
+production Hopper K3-bwd bf16 (``mlp_backward_wgmma.cuh``'s
+``train_bwd_sm90``) itself and its instantiations with one part removed, and
+``two_stream``'s own loop on the same body; its note says what each variant
+changes.  bfloat16, no noise, a black background and the new activation
+only, as JAX's.
 
     python -m sinnerf_tpu_torch.scripts.exp_bwd_pipeline [--n_rays 16384] [--n_samples 192] [--variants SPEC]
 
 runs the experiment on the card: the production K3-bwd (the anchor) and
 every ``variant:rays:streams`` entry of SPEC at 16,384 rays x 192 samples,
-timed with CUDA events after a warm-up in rounds that alternate them all,
-each beside ``base`` in the same round (mean and range of the ratio).  The
-variants share the earlier K3-bwd body (``train_backward.cuh``, ``wmma``):
-``base`` is that kernel, and production over ``base`` is the Hopper K3-bwd
-(``fused_render_train_sm90.cu``) over the earlier one.  The inputs' residuals
-come from the earlier forward (``launch_train_fwd_block64``), so that the
-variants' recompute rounds as their forward did; the exact variants'
-gradients are held against ``base``'s.  SPEC's middle field is the port's tile, rays per
-block: JAX's ``r_tile`` 512 and 1024 are 32 and 64 rays (``R_TILE``).  The
+each beside its earlier port (``csrc/exp_bwd_pipeline.cu``, the first
+port's ``wmma`` body over ``train_backward.cuh``, on no path), timed with CUDA events after
+a warm-up in rounds that alternate them all: per variant its time, its
+share of the bound, its ratio to ``base`` and to its earlier port (mean and
+range over the rounds).  ``base`` is the production kernel's own
+instantiation (``train_bwd_sm90<0>``), so production over ``base`` is the
+spread of equal work.  The inputs' residuals come from production K3-fwd
+bf16 (``launch_train_fwd``), whose body the recompute shares; the exact
+variants' gradients are held against production K3-bwd's.  SPEC's middle
+field is rays per CTA tile: ``base`` and the ablations run production's
+128-ray tile (JAX's ``r_tile`` 1024), ``two_stream`` JAX's ``r_tile`` 512
+and 1024 as 32 and 64 rays (``R_TILE``) of two sample streams each.  The
 default is JAX's (:445) in those terms.
 
 ``base``, ``two_stream`` and ``pe_pipe`` compute the production gradient;
@@ -45,8 +50,9 @@ import torch
 from sinnerf_tpu_torch.core.composite import intervals
 from sinnerf_tpu_torch.core.encoding import positional_encoding_recurrence
 from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
-from sinnerf_tpu_torch.ops import _build
+from sinnerf_tpu_torch.ops import _build, sm90_layout
 from sinnerf_tpu_torch.ops import fused_render_train as frt
+from sinnerf_tpu_torch.ops.fused_render import _sm_count
 from sinnerf_tpu_torch.ops.fused_mlp import (
     BIAS_SIZE,
     HALF,
@@ -64,38 +70,42 @@ from sinnerf_tpu_torch.ops.fused_mlp import (
     unpack_grads,
     weight_views,
 )
-from sinnerf_tpu_torch.scripts import PEAK_BF16, ratios
+from sinnerf_tpu_torch.scripts import PEAK_BF16, mean_range, ratios
 from sinnerf_tpu_torch.utils.device import resolve_device
 from sinnerf_tpu_torch.utils.timing import interleaved_ms
 
-SOURCE = "exp_bwd_pipeline.cu"
+SOURCE = "exp_bwd_pipeline_sm90.cu"
+SOURCE_EARLIER = "exp_bwd_pipeline.cu"  # the first port's wmma variants, on no path: timed beside these
 VARIANTS = ("base", "no_db", "no_mask", "no_dw", "mxu_floor", "cheap_pe", "two_stream", "pe_pipe")
 EXACT = ("base", "two_stream", "pe_pipe")
-# the kernel's variant ids: two_stream is base at two samples per tile
+# the kernels' variant ids: two_stream is base at two streams
 VARIANT_IDS = {"base": 0, "two_stream": 0, "no_db": 1, "no_mask": 2, "no_dw": 3, "mxu_floor": 4, "cheap_pe": 5,
                "pe_pipe": 6}
-# (variant id, rays per block, samples of a ray per MLP tile) the source builds
-BUILT = {(0, 64, 1), (0, 32, 2), (0, 64, 2)} | {(i, 64, 1) for i in range(1, 7)}
-R_TILE = {512: 32, 1024: 64}  # JAX's r_tile (rays per grid step) -> the port's rays per block
-DEFAULT_SPEC = "base:64:1,no_db:64:1,no_mask:64:1,no_dw:64:1,mxu_floor:64:1,two_stream:32:2,two_stream:64:2"
-ALL_SPEC = DEFAULT_SPEC + ",cheap_pe:64:1,pe_pipe:64:1"
+TILE = sm90_layout.TILE_RAYS  # the production CTA's rays
+# (variant id, rays per tile, streams) the Hopper source builds
+BUILT = {(0, TILE, 1), (0, 32, 2), (0, 64, 2)} | {(i, TILE, 1) for i in range(1, 7)}
+# and the earlier one (rays per block of 64 or 128 points)
+BUILT_EARLIER = {(0, 64, 1), (0, 32, 2), (0, 64, 2)} | {(i, 64, 1) for i in range(1, 7)}
+R_TILE = {512: 32, 1024: 64}  # JAX's r_tile (rays per grid step) -> two_stream's rays per tile
+DEFAULT_SPEC = ("base:128:1,no_db:128:1,no_mask:128:1,no_dw:128:1,mxu_floor:128:1,two_stream:32:2,"
+                "two_stream:64:2")
+ALL_SPEC = DEFAULT_SPEC + ",cheap_pe:128:1,pe_pipe:128:1"
 N_RAYS, N_SAMPLES = 16384, 192
 ROUNDS, REPS = 6, 2  # rounds that alternate production and the variants; launches of each per round
-BASE = "base:64:1"  # what every variant is timed against, in the same round
+BASE = "base:128:1"  # what every variant is timed against, in the same round
 # multiply-adds per point: recompute, dgrad (no gradient to x or the
 # direction PE) and wgrad (the direction-PE block once per ray); no_dw
 # drops the wgrad
 MAC_RECOMPUTE, MAC_DGRAD, MAC_WGRAD = 593_408, 556_544, 589_312
-# the exact variants against ``base`` (the earlier K3-bwd, whose body they
-# share), worst leaf (largest
+# the exact variants against production K3-bwd bf16, worst leaf (largest
 # difference over the leaf's largest entry, relative L2): the same function,
-# its f32 dW/db summed in another order (two_stream's 128-point tiles, the
-# atomics' order from run to run).  Set from K3-bwd's own readings on an
-# H100: at 16,384 x 192 two_stream reads up to 1.6e-5 / 6.1e-6 and
-# production's own two runs 3.3e-6 / 1.6e-6, the limit about three times the
-# first; at 128 rays x 8 and 333 x 10 (EXACT_TOL_SMALL, fewer terms in each
-# sum) the exact variants read up to 5.3e-7 / 2.5e-7 and production's two
-# runs 2.9e-7 / 1.4e-7, the limit about four times the first
+# its f32 dW/db summed in another order (two_stream's 64-point wgrads and
+# per-warpgroup bias sums, the atomics' order from run to run).  Set from
+# K3-bwd's own readings on an H100: at 16,384 x 192 a reordered sum read
+# up to 1.6e-5 / 6.1e-6 and production's own two runs 3.3e-6 / 1.6e-6, the
+# limit about three times the first; at 128 rays x 8 and 333 x 10
+# (EXACT_TOL_SMALL, fewer terms in each sum) up to 5.3e-7 / 2.5e-7 and
+# production's two runs 2.9e-7 / 1.4e-7, the limit about four times the first
 EXACT_TOL = (5e-5, 2e-5)
 EXACT_TOL_SMALL = (2e-6, 1e-6)
 
@@ -105,7 +115,8 @@ class BwdInputs(NamedTuple):
     weights, rays (N, 6), ascending z (N, S), the forward's residuals weights
     and alphas (N, S) and rgb_s (N, S, 3), the cotangents g_rgb (N, 3),
     g_depth (N,), g_w (N, S); all float32.  X2 takes no noise and a black
-    background only (``run_variant`` raises on anything else)."""
+    background only (``run_variant`` raises on anything else).  ``slabs``:
+    the weights' ``sm90_layout.slab_buffer``, built per launch when None."""
 
     packed: PackedWeights
     rays6: torch.Tensor
@@ -118,6 +129,7 @@ class BwdInputs(NamedTuple):
     g_w: torch.Tensor
     noise: Optional[torch.Tensor] = None
     white_back: bool = False
+    slabs: Optional[torch.Tensor] = None
 
 
 def _mlp_backward_no_mask(packed, kept, g_rgb, g_sigma):
@@ -217,13 +229,32 @@ def variant_plain(variant: str, inputs: BwdInputs) -> Tuple[torch.Tensor, torch.
     return ablation_plain(variant, inputs)
 
 
-_signature_set = False
+_signature_set = _earlier_signature_set = False
 
 
 def _lib() -> ctypes.CDLL:
     global _signature_set
     lib = _build.load(SOURCE)
     if not _signature_set:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.exp_bwd_sm90.argtypes = [i] * 3 + [p] * 14 + [i] * 4 + [p]
+        lib.exp_bwd_sm90.restype = i
+        for name, rt in (("exp_bwd_sm90_smem_bytes", i), ("exp_bwd_sm90_scratch_bytes", ctypes.c_longlong),
+                         ("exp_bwd_sm90_slab_elems", i)):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = rt
+        L = sm90_layout
+        got = (lib.exp_bwd_sm90_smem_bytes(), lib.exp_bwd_sm90_scratch_bytes(), lib.exp_bwd_sm90_slab_elems())
+        if got != (L.BWD_SMEM, L.BWD_SCRATCH, L.SLAB_BUFFER_SIZE):
+            raise RuntimeError(f"csrc/{SOURCE} and ops/sm90_layout.py disagree: {got}")
+        _signature_set = True
+    return lib
+
+
+def _lib_earlier() -> ctypes.CDLL:
+    global _earlier_signature_set
+    lib = _build.load(SOURCE_EARLIER)
+    if not _earlier_signature_set:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.exp_bwd_pipeline_scratch_bytes.argtypes = [i] * 3
         lib.exp_bwd_pipeline_scratch_bytes.restype = ctypes.c_longlong
@@ -233,16 +264,17 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_packed_weight_size.restype = i
         if lib.nerf_packed_weight_size() != WEIGHT_SIZE:
             raise RuntimeError("csrc/nerf_mlp.cuh and ops/fused_mlp.py disagree on the weight layout")
-        _signature_set = True
+        _earlier_signature_set = True
     return lib
 
 
-def _check(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs) -> None:
+def _check(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs, built=BUILT) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown X2 variant {variant!r}: {VARIANTS}")
-    if (VARIANT_IDS[variant], r_tile, n_streams) not in BUILT or (variant == "two_stream") != (n_streams > 1):
-        raise ValueError(f"{variant}:{r_tile}:{n_streams} is not built: base and the ablations run 64 rays x 1 "
-                         f"sample per tile, two_stream 32 or 64 rays x 2 samples")
+    if (VARIANT_IDS[variant], r_tile, n_streams) not in built or (variant == "two_stream") != (n_streams > 1):
+        one = TILE if built is BUILT else 64
+        raise ValueError(f"{variant}:{r_tile}:{n_streams} is not built: base and the ablations run {one} rays x 1 "
+                         f"stream per tile, two_stream 32 or 64 rays x 2 streams")
     i = inputs
     n, s = i.z.shape
     if s % n_streams:
@@ -263,29 +295,32 @@ def _check(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs) -> None
         raise ValueError(f"X2 runs on cpu or cuda, not {i.z.device}")
 
 
+def _args(i: BwdInputs):
+    return (i.weights.data_ptr(), i.alphas.data_ptr(), i.rgb_s.data_ptr(), i.g_rgb.data_ptr(), i.g_depth.data_ptr(),
+            i.g_w.data_ptr())
+
+
 def launch_variant(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One variant on CUDA tensors: zeroed, then summed, packed float32
-    (dw, db).  Adds one to ``launch_variant.launches[tag]`` per launch, tag
+    """One variant on CUDA tensors, on the Hopper K3-bwd body: zeroed, then
+    summed, packed float32 (dw, db).  Adds one to
+    ``launch_variant.launches[tag]`` per launch, tag
     ``variant:r_tile:n_streams``."""
     i = inputs
     n, s = i.z.shape
     dev = i.z.device
+    frt.require_sm90(torch.cuda.get_device_capability(dev))
     lib = _lib()
-    vid = VARIANT_IDS[variant]
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if r_tile * n_streams == 64 else 1)
-    scratch = torch.empty(blocks * lib.exp_bwd_pipeline_scratch_bytes(vid, r_tile, n_streams), dtype=torch.uint8,
-                          device=dev)
-    dsig_part = torch.empty((n, s), dtype=torch.float32, device=dev)
-    dw = torch.zeros(WEIGHT_SIZE, dtype=torch.float32, device=dev)
-    db = torch.zeros(BIAS_SIZE, dtype=torch.float32, device=dev)
+    slabs = i.slabs if i.slabs is not None else sm90_layout.slab_buffer(i.packed)
+    blocks = _sm_count(dev)  # persistent CTAs, one per SM at most
+    scratch = torch.empty(blocks * sm90_layout.BWD_SCRATCH, dtype=torch.uint8, device=dev)
+    dsig_part, dw, db = frt._bwd_buffers(n, s, dev)
     with torch.cuda.device(dev):
-        rc = lib.exp_bwd_pipeline(
-            vid, r_tile, n_streams, i.rays6.data_ptr(), i.z.data_ptr(), i.packed.w.data_ptr(), i.packed.b.data_ptr(),
-            i.weights.data_ptr(), i.alphas.data_ptr(), i.rgb_s.data_ptr(), i.g_rgb.data_ptr(), i.g_depth.data_ptr(),
-            i.g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), n, s, blocks, 1,
-            torch.cuda.current_stream(dev).cuda_stream,
+        rc = lib.exp_bwd_sm90(
+            VARIANT_IDS[variant], r_tile, n_streams, i.rays6.data_ptr(), i.z.data_ptr(), slabs.data_ptr(),
+            i.packed.b.data_ptr(), *_args(i), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), n, s, blocks, 1, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(lib, rc, f"exp_bwd_pipeline {variant}:{r_tile}:{n_streams}")
+    _build.check(lib, rc, f"exp_bwd_sm90 {variant}:{r_tile}:{n_streams}")
     launch_variant.launches[f"{variant}:{r_tile}:{n_streams}"] += 1
     return dw, db
 
@@ -293,10 +328,46 @@ def launch_variant(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs)
 launch_variant.launches = collections.Counter()
 
 
+def launch_variant_earlier(variant: str, r_tile: int, n_streams: int,
+                           inputs: BwdInputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The earlier port of a variant (``csrc/exp_bwd_pipeline.cu``, the first
+    ``wmma`` body; ``BUILT_EARLIER``) on CUDA tensors: (dw, db).  On no
+    path: the experiment and ``chip_smoke.py`` time it beside the Hopper
+    kernels.  Adds one to ``launch_variant_earlier.launches[tag]``."""
+    _check(variant, r_tile, n_streams, inputs, BUILT_EARLIER)
+    i = inputs
+    n, s = i.z.shape
+    dev = i.z.device
+    lib = _lib_earlier()
+    vid = VARIANT_IDS[variant]
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * (2 if r_tile * n_streams == 64 else 1)
+    scratch = torch.empty(blocks * lib.exp_bwd_pipeline_scratch_bytes(vid, r_tile, n_streams), dtype=torch.uint8,
+                          device=dev)
+    dsig_part, dw, db = frt._bwd_buffers(n, s, dev)
+    with torch.cuda.device(dev):
+        rc = lib.exp_bwd_pipeline(
+            vid, r_tile, n_streams, i.rays6.data_ptr(), i.z.data_ptr(), i.packed.w.data_ptr(), i.packed.b.data_ptr(),
+            *_args(i), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), n, s, blocks, 1,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, f"exp_bwd_pipeline {variant}:{r_tile}:{n_streams}")
+    launch_variant_earlier.launches[f"{variant}:{r_tile}:{n_streams}"] += 1
+    return dw, db
+
+
+launch_variant_earlier.launches = collections.Counter()
+
+
+def earlier_tag(variant: str, r_tile: int, n_streams: int) -> str:
+    """The earlier port's entry that a Hopper entry is timed beside: the same
+    variant at its 64-ray block (two_stream at its own tile)."""
+    return f"{variant}:{r_tile if n_streams > 1 else 64}:{n_streams}"
+
+
 def run_variant(variant: str, r_tile: int, n_streams: int, inputs: BwdInputs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One variant of X2 (JAX ``run_variant``; ``r_tile`` in rays per block):
+    """One variant of X2 (JAX ``run_variant``; ``r_tile`` in rays per tile):
     the packed float32 (dw, db) of every weight block and bias.  On CUDA
-    tensors it launches the kernel or raises; on CPU tensors it runs
+    tensors it launches the Hopper kernel or raises; on CPU tensors it runs
     ``variant_plain``."""
     _check(variant, r_tile, n_streams, inputs)
     if inputs.z.device.type == "cuda":
@@ -334,8 +405,8 @@ def leaf_errors(got, want) -> Tuple[float, float]:
 def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
     """JAX ``main``'s inputs (:402-417) from a numpy seed: random weights,
     rays with o ~ 0.1 N(0, 1) and d ~ N(0, 1), sorted uniform depths in
-    [2, 6], the residuals of the earlier forward kernel, whose body the
-    variants recompute with (``launch_train_fwd_block64`` on the card, the plain
+    [2, 6], the residuals of production K3-fwd bf16, whose body the
+    variants' recompute shares (``launch_train_fwd`` on the card, the plain
     version on the CPU) and normal cotangents (g_w x 0.01)."""
     rng = np.random.default_rng(seed)
     packed = pack_weights(nerf_from_state(state_dict_from_jax(random_params(rng))).to(device), torch.bfloat16)
@@ -345,33 +416,39 @@ def make_inputs(n_rays: int, n_samples: int, seed: int, device) -> BwdInputs:
 
     rays6 = t(np.concatenate([rng.normal(size=(n_rays, 3)) * 0.1, rng.normal(size=(n_rays, 3))], axis=1))
     z = t(np.sort(rng.uniform(2.0, 6.0, size=(n_rays, n_samples)), axis=1))
+    slabs = None
     if device.type == "cuda":
-        _, _, weights, alphas, rgb_s = frt.launch_train_fwd_block64(packed, rays6, z, None, True, False)
+        slabs = sm90_layout.slab_buffer(packed)
+        _, _, weights, alphas, rgb_s = frt.launch_train_fwd(packed, rays6, z, None, True, False, slabs)
     else:
         _, _, weights, alphas, rgb_s = frt.render_level_train_forward_plain(packed, rays6, z, None, True, False)
     g_rgb, g_depth = t(rng.normal(size=(n_rays, 3))), t(rng.normal(size=(n_rays,)))
     g_w = t(rng.normal(size=(n_rays, n_samples)) * 0.01)
-    return BwdInputs(packed, rays6, z, weights, alphas, rgb_s, g_rgb, g_depth, g_w)
+    return BwdInputs(packed, rays6, z, weights, alphas, rgb_s, g_rgb, g_depth, g_w, slabs=slabs)
 
 
 def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dict:
     """The experiment on the card, on ``inputs`` (``make_inputs`` at the
     flags' size by default): production K3-bwd's time and run-to-run spread,
     and per entry of ``--variants`` its ms, share of the bound, ratio to
-    production and to ``base`` and, for the exact variants, the error
-    against ``base`` (or why it failed)."""
+    ``base`` and to its earlier port (mean and range over the rounds), the
+    earlier port's ms and, for the exact variants, the error against
+    production (or why it failed)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n_rays", type=int, default=N_RAYS)
     ap.add_argument("--n_samples", type=int, default=N_SAMPLES)
-    ap.add_argument("--variants", default=DEFAULT_SPEC, help="variant:rays_per_block:streams,... (all: " + ALL_SPEC + ")")
+    ap.add_argument("--variants", default=DEFAULT_SPEC,
+                    help="variant:rays_per_tile:streams,... (all: " + ALL_SPEC + ")")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")  # it times kernels: on the card or not at all
     i = inputs if inputs is not None else make_inputs(args.n_rays, args.n_samples, 0, device)
+    if i.slabs is None:
+        i = i._replace(slabs=sm90_layout.slab_buffer(i.packed))
     n, s = i.z.shape
     prod_args = (i.packed, i.rays6, i.z, None, i.weights, i.alphas, i.rgb_s, i.g_rgb, i.g_depth, i.g_w, True, False)
-    prod = frt.launch_train_bwd(*prod_args)
-    spread = leaf_errors(frt.launch_train_bwd(*prod_args), prod)
-    fns = {"production": functools.partial(frt.launch_train_bwd, *prod_args)}
+    prod = frt.launch_train_bwd(*prod_args, slabs=i.slabs)
+    spread = leaf_errors(frt.launch_train_bwd(*prod_args, slabs=i.slabs), prod)
+    fns = {"production": functools.partial(frt.launch_train_bwd, *prod_args, slabs=i.slabs)}
     results, grads = {}, {}
     for variant, rays, streams in parse_spec(args.variants):
         tag = f"{variant}:{rays}:{streams}"
@@ -379,6 +456,11 @@ def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dic
             grads[tag] = run_variant(variant, rays, streams, i)  # the warm-up, and the gradient held
             torch.cuda.synchronize()
             fns[tag] = functools.partial(run_variant, variant, rays, streams, i)
+            early = earlier_tag(variant, rays, streams)
+            if "earlier " + early not in fns:
+                launch_variant_earlier(*parse_spec(early)[0], i)
+                torch.cuda.synchronize()
+                fns["earlier " + early] = functools.partial(launch_variant_earlier, *parse_spec(early)[0], i)
         except Exception as e:  # noqa: BLE001 -- the experiment goes on, as JAX's does
             results[tag] = dict(failed=f"{type(e).__name__}: {e}")
             print(f"{tag:18s} FAILED: {type(e).__name__}: {str(e)[:200]}", flush=True)
@@ -394,22 +476,25 @@ def main(argv: Optional[list] = None, inputs: Optional[BwdInputs] = None) -> dic
           f"({100 * bound / prod_ms:.1f}% of its {bound:.3f} ms bound), two runs differ by {spread[0]:.2e} / "
           f"{spread[1]:.2e}; {ROUNDS} rounds x {REPS} launches each; production over {ref} per round "
           f"{min(vs_ref['production']):.4f}-{max(vs_ref['production']):.4f}", flush=True)
-    base = grads[BASE] if BASE in grads else run_variant("base", 64, 1, i)
     for tag, got in grads.items():
         variant = tag.split(":")[0]
         ms = sum(per_round[tag]) / ROUNDS
         b = bound_ms(variant, n, s)
+        early = "earlier " + earlier_tag(*parse_spec(tag)[0])
+        vs_early = [a / e for a, e in zip(per_round[tag], per_round[early])]
         r = dict(ms=ms, rounds_ms=per_round[tag], bound_ms=b, bound_share=b / ms,
                  vs_production=sum(vs_prod[tag]) / ROUNDS, vs_base=sum(vs_ref[tag]) / ROUNDS,
-                 vs_base_range=(min(vs_ref[tag]), max(vs_ref[tag])),
+                 vs_base_range=(min(vs_ref[tag]), max(vs_ref[tag])), earlier=early[len("earlier "):],
+                 earlier_ms=sum(per_round[early]) / ROUNDS, vs_earlier=mean_range(vs_early),
                  finite=bool(got[0].isfinite().all() and got[1].isfinite().all()))
         line = (f"{tag:18s} {ms:9.3f} ms {100 * b / ms:5.1f}% of bound {r['vs_production']:6.3f} x production "
-                f"{r['vs_base']:6.4f} x {ref} ({r['vs_base_range'][0]:.4f}-{r['vs_base_range'][1]:.4f})")
+                f"{r['vs_base']:6.4f} x {ref} ({r['vs_base_range'][0]:.4f}-{r['vs_base_range'][1]:.4f}); earlier "
+                f"{r['earlier_ms']:.3f} ms, {r['vs_earlier'][0]:.4f} x it")
         if variant in EXACT:
-            r["err_vs_base"] = err = leaf_errors(got, base)
+            r["err_vs_production"] = err = leaf_errors(got, prod)
             r["exact_tol"] = EXACT_TOL
             r["exact_ok"] = err[0] <= EXACT_TOL[0] and err[1] <= EXACT_TOL[1]
-            line += f"   vs base {err[0]:.2e} / {err[1]:.2e} (tol {EXACT_TOL[0]:.0e} / {EXACT_TOL[1]:.0e})"
+            line += f"   vs production {err[0]:.2e} / {err[1]:.2e} (tol {EXACT_TOL[0]:.0e} / {EXACT_TOL[1]:.0e})"
             if not r["exact_ok"]:
                 line += " DIVERGED"
         results[tag] = r

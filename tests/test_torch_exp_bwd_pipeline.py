@@ -31,6 +31,9 @@ mxu_floor and cheap_pe, which have no mask or no PE, are held like the
 mask-free leaves, (1e-2, 1e-2), measured 2.5e-3 / 1.4e-3: there is no band
 to hide a fault of the trunk's arithmetic.
 
+``stream_rows`` mirrors the Hopper ``two_stream`` kernel's map of its rows
+to (ray, sample) and is held to cover every pair once.
+
 Tests marked ``cuda`` launch the kernels and skip without a card."""
 
 import functools
@@ -50,6 +53,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sinnerf_tpu.ops.fused_mlp_t import _unpack_grads_t, pack_weights_t, round8
 from sinnerf_tpu.ops.fused_render_train_t import RAY_OUT, _frlt_bwd, _prep, _run_fwd, _weight_specs
 from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
+from sinnerf_tpu_torch.ops import sm90_layout
 from sinnerf_tpu_torch.ops.fused_mlp import pack_weights, param_tensors, unpack_grads
 from sinnerf_tpu_torch.scripts import exp_bwd_pipeline as x2
 
@@ -187,7 +191,7 @@ def jax_grads(params, jax_inputs):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-x{c[2]}")
 def test_variant_matches_jax(params, jax_inputs, jax_grads, case):
     variant, _, n_streams = case
-    rays = 32 if variant == "two_stream" else 64
+    rays = 32 if variant == "two_stream" else x2.TILE
     got = leaves(params, *x2.run_variant(variant, rays, n_streams, port_inputs(jax_inputs)))
     want = {k: v.numpy().astype(np.float64) for k, v in jax_grads[case].items()}
     assert any(np.abs(v).max() > 0 for k, v in want.items() if k.startswith("xyz_encoding_1.")), "empty field"
@@ -212,8 +216,8 @@ def test_two_stream_is_the_production_gradient(params, jax_inputs):
     dsig_part folds the transmittance in, which the plain version computes
     alike."""
     i = port_inputs(jax_inputs)
-    base = x2.run_variant("base", 64, 1, i)
-    for variant, rays, streams in (("two_stream", 32, 2), ("two_stream", 64, 2), ("pe_pipe", 64, 1)):
+    base = x2.run_variant("base", x2.TILE, 1, i)
+    for variant, rays, streams in (("two_stream", 32, 2), ("two_stream", 64, 2), ("pe_pipe", x2.TILE, 1)):
         got = x2.run_variant(variant, rays, streams, i)
         assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
 
@@ -225,27 +229,29 @@ def test_launcher_raises_on_what_the_kernel_does_not_take(params, jax_inputs):
                      g_w=i.g_w[:, :7].contiguous())
     with pytest.raises(ValueError, match="streams"):
         x2.run_variant("two_stream", 32, 2, odd)  # JAX's half = S // 2 drops a sample
-    x2.run_variant("base", 64, 1, odd)  # one stream takes any S
+    x2.run_variant("base", x2.TILE, 1, odd)  # one stream takes any S
     with pytest.raises(ValueError, match="noise"):
-        x2.run_variant("base", 64, 1, i._replace(noise=torch.zeros_like(i.z)))
+        x2.run_variant("base", x2.TILE, 1, i._replace(noise=torch.zeros_like(i.z)))
     with pytest.raises(ValueError, match="black background"):
-        x2.run_variant("base", 64, 1, i._replace(white_back=True))
+        x2.run_variant("base", x2.TILE, 1, i._replace(white_back=True))
     model = nerf_from_state(state_dict_from_jax(params))
     with pytest.raises(ValueError, match="bfloat16"):
-        x2.run_variant("base", 64, 1, i._replace(packed=pack_weights(model, torch.float32)))
+        x2.run_variant("base", x2.TILE, 1, i._replace(packed=pack_weights(model, torch.float32)))
     with pytest.raises(ValueError):
         x2.run_variant("base", 32, 1, i)  # not built
     with pytest.raises(ValueError):
+        x2.run_variant("base", 64, 1, i)  # the earlier port's tile, not the Hopper one's
+    with pytest.raises(ValueError):
         x2.run_variant("no_db", 64, 2, i)
     with pytest.raises(ValueError):
-        x2.run_variant("warp_speed", 64, 1, i)
+        x2.run_variant("warp_speed", x2.TILE, 1, i)
     with pytest.raises(ValueError):
-        x2.run_variant("base", 64, 1, i._replace(z=i.z.double()))
+        x2.run_variant("base", x2.TILE, 1, i._replace(z=i.z.double()))
 
 
 def test_cpu_launcher_does_not_count_launches(jax_inputs):
     before = dict(x2.launch_variant.launches)
-    x2.run_variant("no_mask", 64, 1, port_inputs(jax_inputs))
+    x2.run_variant("no_mask", x2.TILE, 1, port_inputs(jax_inputs))
     assert dict(x2.launch_variant.launches) == before
 
 
@@ -255,6 +261,8 @@ def test_spec_and_bounds():
     assert {e[0] for e in x2.parse_spec(x2.ALL_SPEC)} == set(x2.VARIANTS)
     for variant, rays, streams in x2.parse_spec(x2.ALL_SPEC):
         assert (x2.VARIANT_IDS[variant], rays, streams) in x2.BUILT
+        assert (x2.VARIANT_IDS[variant],) + tuple(map(int, x2.earlier_tag(variant, rays, streams).split(":")[1:])) \
+            in x2.BUILT_EARLIER
     assert x2.bound_ms("base", 16384, 192) == pytest.approx(11.064, abs=1e-3)  # chip_smoke's K3-bwd bound
     assert x2.bound_ms("no_dw", 16384, 192) == pytest.approx(11.064 * 1_149_952 / 1_739_264, abs=1e-3)
 
@@ -272,6 +280,47 @@ def test_smoke_shapes_are_no_empty_field(n, s, seed):
         assert open_share < 0.9, open_share
     dw, db = x2.variant_plain("base", i)
     assert dw.abs().max() > 0 and db.abs().max() > 0
+
+
+def stream_rows(n: int, s: int, rays: int) -> list:
+    """A mirror of ``two_stream``'s rows (``csrc/exp_bwd_pipeline_sm90.cu``'s StreamMap)
+    at n rays x s samples and ``rays`` rays per tile: (tile, pass, row, ray,
+    sample) of every live row, a row's sample from its stream (row // 64:
+    the first or second half of the samples) and its slot in the pass."""
+    if s % 2:
+        raise ValueError(f"2 streams need a sample count that they divide, got S = {s}")
+    per = 64 // rays  # samples of a stream per pass
+    half = s // 2
+    out = []
+    for tile in range(-(-n // rays)):
+        for p in range(-(-half // per)):
+            for row in range(128):
+                ray, slot = tile * rays + (row % 64) % rays, p * per + (row % 64) // rays
+                if ray < n and slot < half:
+                    out.append((tile, p, row, ray, (row // 64) * half + slot))
+    return out
+
+
+@pytest.mark.parametrize("n,s,rays", [(333, 10, 64), (333, 10, 32), (128, 8, 32), (64, 2, 64), (1, 6, 32)])
+def test_two_stream_rows_cover_every_pair_once(n, s, rays):
+    """two_stream's row map (the kernel's StreamMap): every (ray, sample) of
+    n x s once over the tiles and passes, rows 0-63 on the first half of the
+    samples and 64-127 on the second, a ray on the same rows in every pass,
+    each tile's rays its own; an odd S raises."""
+    rows = stream_rows(n, s, rays)
+    assert sorted((ray, smp) for *_, ray, smp in rows) == [(r, k) for r in range(n) for k in range(s)]
+    for tile, _, row, ray, smp in rows:
+        assert (row >= 64) == (smp >= s // 2)
+        assert ray == tile * rays + (row % 64) % rays
+    with pytest.raises(ValueError, match="streams"):
+        stream_rows(n, s + 1, rays)
+
+
+def test_kernels_fit_in_shared_memory():
+    """Every variant runs K3-bwd bf16's CTA (two_stream with one more
+    barrier in its barrier area): its shared memory within the 227 KB a
+    block may take."""
+    assert sm90_layout.BWD_SMEM <= 232_448
 
 
 def test_ratios_are_per_round():
@@ -306,6 +355,11 @@ def cuda_device():
 @pytest.mark.parametrize("n,s", [(128, 8), (333, 10)])
 @pytest.mark.parametrize("entry", x2.ALL_SPEC.split(","))
 def test_variant_kernel_matches_plain(cuda_device, entry, n, s):
+    """Each variant's Hopper kernel against its plain version, on residuals
+    of production K3-fwd bf16; the exact ones also against production K3-bwd
+    bf16."""
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+
     variant, rays, streams = x2.parse_spec(entry)[0]
     i = x2.make_inputs(n, s, 5, cuda_device)
     tag = f"{variant}:{rays}:{streams}"
@@ -316,6 +370,8 @@ def test_variant_kernel_matches_plain(cuda_device, entry, n, s):
     chip_smoke.hold_grads(f"X2 {tag} vs plain", chip_smoke.grad_errors(unpack_grads(*got),
                                                                      unpack_grads(*x2.variant_plain(variant, i))),
                           chip_smoke.K3_BWD_TOL["bfloat16"])
-    if variant in x2.EXACT:  # against base, the earlier K3-bwd whose body the variants share
-        err = x2.leaf_errors(got, x2.run_variant("base", 64, 1, i))
+    if variant in x2.EXACT:
+        prod = frt.launch_train_bwd(i.packed, i.rays6, i.z, None, i.weights, i.alphas, i.rgb_s, i.g_rgb, i.g_depth,
+                                    i.g_w, True, False)
+        err = x2.leaf_errors(got, prod)
         assert err[0] <= x2.EXACT_TOL_SMALL[0] and err[1] <= x2.EXACT_TOL_SMALL[1], err

@@ -19,6 +19,10 @@ products in other orders (and the two PE layouts order the first layer's
 sum differently), so an activation can round to a neighbouring bf16 value
 (measured 5.7e-5 on every row).
 
+The Hopper kernels' host-side layouts are pinned here too: the pre-encoded
+variants' swizzled PE tiles byte for byte against ``sm90_layout.act_offset``,
+the 2-CTA cluster's tile walk, and the CTA's shared memory.
+
 Tests marked ``cuda`` launch the kernels and skip without a card."""
 
 import importlib.util
@@ -36,6 +40,7 @@ from sinnerf_tpu.core.encoding import positional_encoding_blocked_t
 from sinnerf_tpu.ops.fused_mlp_t import DIR_CH, DIR_PAD, XYZ_CH, XYZ_PAD, fused_nerf_mlp_t, pack_weights_t
 from sinnerf_tpu_torch.models.nerf import nerf_from_state, random_params, state_dict_from_jax
 from sinnerf_tpu_torch.ops import fused_mlp as fm
+from sinnerf_tpu_torch.ops import sm90_layout
 from sinnerf_tpu_torch.scripts import exp_kernel_variants as x1
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,10 +152,10 @@ def test_launcher_checks_its_inputs(params):
     xyz, dirs = (torch.from_numpy(a) for a in _points(16))
     packed = _packed(params)
     with pytest.raises(ValueError):
-        x1.make_variant(True, 2, 256)  # not in the grid
+        x1.make_variant(True, 2, 512)  # not in the grid
     with pytest.raises(ValueError):
-        x1.make_variant(False, 4, 64)
-    fwd = x1.make_variant(True, 1, 64)
+        x1.make_variant(False, 4, 128)
+    fwd = x1.make_variant(True, 1, 128)
     with pytest.raises(ValueError, match="bfloat16"):
         fwd(fm.pack_weights(nerf_from_state(state_dict_from_jax(params)), torch.float32), xyz, dirs)
     with pytest.raises(ValueError):
@@ -160,7 +165,51 @@ def test_launcher_checks_its_inputs(params):
     with pytest.raises(ValueError):
         fwd(packed, torch.from_numpy(np.asfortranarray(xyz.numpy())), dirs)
     with pytest.raises(ValueError):
-        x1.make_variant(False, 1, 64)(packed, xyz, dirs)  # wants the pre-encoded rows
+        x1.make_variant(False, 1, 128)(packed, xyz, dirs)  # wants the pre-encoded rows
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 333])
+def test_pe_tiles_are_the_kernels_swizzled_tiles(n):
+    """The pre-encoded variants' bulk-copied PE: per 128-point tile the XPE
+    image then the DPE image, each row's columns where the kernels' swizzle
+    puts them (``sm90_layout.act_offset``, the device's ``sw_off``), zeros
+    past the points and past dpe's 32 columns; bit for bit, and back."""
+    xyz, dirs = (torch.from_numpy(a) for a in _points(n, seed=n))
+    xpe, dpe = x1.encode(xyz, dirs)
+    tiles = x1.pe_tiles(xpe, dpe)
+    assert tiles.dtype == torch.bfloat16 and tiles.numel() * 2 == -(-n // 128) * x1.PE_TILE_BYTES
+    want = np.zeros(tiles.numel(), np.int16)
+    p, c = np.arange(n)[:, None], np.arange(64)[None, :]
+    at = (p // 128) * x1.PE_TILE_BYTES + sm90_layout.act_offset(p % 128, c)
+    want[at // 2] = xpe.view(torch.int16).numpy()
+    want[(at[:, :32] + sm90_layout.PE_BYTES) // 2] = dpe.view(torch.int16).numpy()
+    np.testing.assert_array_equal(tiles.view(torch.int16).numpy(), want)
+    images = [sm90_layout.unswizzle(t, 128) for t in tiles.view(-1, 128 * 64)]  # and back
+    assert torch.equal(torch.cat(images[0::2])[:n].view(torch.int16), xpe.view(torch.int16))
+    assert torch.equal(torch.cat(images[1::2])[:n, :32].view(torch.int16), dpe.view(torch.int16))
+
+
+@pytest.mark.parametrize("n,clusters", [(5 * 128, 2), (7 * 128 - 5, 3), (1, 66), (3 * 128, 66), (x1.N_POINTS + 1, 66)])
+def test_cluster_plan_pairs_the_ctas(n, clusters):
+    """pe_ilp2_t2x's tile walk: every tile once, the two CTAs of a cluster on
+    neighbouring tiles of one pair for the same number of turns (they meet
+    on each slab's barriers), an odd count's last pair with one tile past
+    the points (run, not stored)."""
+    plan = x1.cluster_plan(n, clusters)
+    tiles, walk = plan["tiles"], plan["walk"]
+    assert plan["ctas"] == 2 * plan["clusters"] <= 2 * clusters and len(walk) == plan["ctas"]
+    assert sorted(t for ts in walk.values() for t in ts if t < tiles) == list(range(tiles))
+    assert [t for ts in walk.values() for t in ts if t >= tiles] == ([tiles] if tiles % 2 else [])
+    for c in range(plan["clusters"]):
+        assert [t + 1 for t in walk[c, 0]] == walk[c, 1]
+
+
+def test_kernels_fit_in_shared_memory():
+    """Every variant runs K4-fwd bf16's CTA: its shared memory (the ring,
+    the activation and PE tiles, the rays and eight barriers) within the
+    227 KB a block may take."""
+    assert x1.SMEM == sm90_layout.FWD_SMEM <= 232_448
+    assert x1.PE_TILE_BYTES == 2 * sm90_layout.PE_BYTES  # the XPE and DPE tiles are adjacent in FwdSmem
 
 
 def test_cpu_launcher_does_not_count_launches(params):
@@ -194,6 +243,8 @@ def cuda_device():
 @pytest.mark.parametrize("n", [4096, 333])
 @pytest.mark.parametrize("name", list(x1.GRID))
 def test_variant_kernel_matches_plain(cuda_device, params, name, n):
+    """Each variant's Hopper kernel against its plain version and against
+    ``pe``; ``pe`` is production K4-fwd bf16, bit for bit."""
     in_pe, ilp, tile = x1.GRID[name]
     xyz, dirs = (torch.from_numpy(a).to(cuda_device) for a in _points(n, seed=n))
     a, b = (xyz, dirs) if in_pe else x1.encode(xyz, dirs)
@@ -202,6 +253,9 @@ def test_variant_kernel_matches_plain(cuda_device, params, name, n):
     got = x1.make_variant(in_pe, ilp, tile)(packed, a, b)
     torch.cuda.synchronize()
     assert x1.launch_variant.launches[name] == before + 1
-    for ref in (x1.variant_plain(packed, in_pe, a, b), fm.launch_mlp_fwd(packed, xyz, dirs)):
+    prod = fm.launch_mlp_fwd(packed, xyz, dirs)
+    pe = x1.make_variant(True, 1, 128)(packed, xyz, dirs)
+    assert torch.equal(pe, prod)
+    for ref in (x1.variant_plain(packed, in_pe, a, b), pe):
         diff = (got - ref).abs()
         chip_smoke.hold(f"X1 {name} n={n}", (diff.max().item(), diff.mean().item()), chip_smoke.K4_FWD_TOL["bfloat16"])
