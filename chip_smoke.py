@@ -4,6 +4,7 @@ visible cards (one is enough).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases ddp   # the build and phase 23 alone
+    python3 chip_smoke.py --phases prefetch   # phase 18's prefetched sampler alone
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
@@ -149,16 +150,25 @@ Phases, any failure exits non-zero without the final result line:
    of each from a generator of their own (schema, ranges, ms per item); the
    rot3d items again from the same seed on the card (equal) and on a scene
    built on the CPU (the same random rays and real patch: the card's reads
-   in the fresh warp change no draw);
+   in the fresh warp change no draw).  Then the prefetched sampler on these
+   three sets and the 504x378 LLFF one (``--prefetch_batches``): a group of
+   PREFETCH_K steps (``sample_many``) bit-equal to the per-step batches from
+   the same seed, the generator in the same state after; the card's reads
+   per group counted by ``torch.cuda.set_sync_debug_mode``, at most one
+   under warp-patch rejection (rot3d) and none elsewhere; the sampler's ms
+   per step at K = 1 and K = PREFETCH_K in PREFETCH_ROUNDS alternating
+   rounds;
 19. the slice's kernel shapes against the plain versions, bf16 and f32, with
    the white background: K3-fwd and K3-bwd at 16,384, 20,480 and 16,032
    rays x S = 64 and, after K2 (64 -> 128, drawn ``u``), S = 128; K1 and K2
    (deterministic) at the eval tiles of a 400x400 and a 640x512 image
    (131,072, 28,928 and 65,536 rays) x S = 64 and 128;
-20. the train CLI on each training set, bf16, counted: lego Step 1 with the
+20. the train CLI on each training set, bf16, counted, at the default
+   ``--prefetch_batches 8``: lego Step 1 with the
    README's flags (``--patch_size 64 --sW 6 --sH 6 --N_importance 64
    --depth_weight 8 --proj_weight 1 --depth_smooth_weight 0.5 --dis_weight
-   0 --vit_weight 10``, one epoch of 125 steps) and lego Step 2 from it
+   0 --vit_weight 10``, one epoch of 125 steps), the same at
+   ``--prefetch_batches 1`` (both ms per step printed, both gated), and lego Step 2 from it
    (``--dis_weight 0.01 --pt_model <ck> --nerf_only``, one epoch), their
    best val PSNR above a black render's by EMPTY_MARGIN_DB;
    ``BlenderProj`` (2 epochs of 60 steps, without the random-weight ViT)
@@ -166,7 +176,7 @@ Phases, any failure exits non-zero without the final result line:
    epoch of 8 steps), their best val PSNR above an empty field's (the
    larger of a black and a white render's) by EMPTY_MARGIN_DB; ms per
    step, launches;
-21. the eval CLI on each run's best checkpoint (bf16; Blender's own
+21. the eval CLI on each run's best checkpoint but the step-by-step one (bf16; Blender's own
    defaults otherwise: the mytest slice at ``--angle 64``), counted; the
    weights-only tool on lego Step 2's checkpoint, and the eval CLI on the
    stripped file: the same mean PSNR;
@@ -391,6 +401,12 @@ SLICE_ITEMS = 3  # items sampled per training set, after one more
 # 640x512 image (131,072 + 28,928 and 2 x 131,072 + 65,536)
 SLICE_TRAIN_RAYS = (16384, 20480, 16032)
 SLICE_EVAL_TILES = (131072, 28928, 65536)
+# the prefetched sampler (phase 18's second part): groups of PREFETCH_K steps
+# of one item against the per-step calls, timed in PREFETCH_ROUNDS rounds
+# that alternate them; the LLFF set at the train CLI's flags (504x378)
+PREFETCH_K = 8
+PREFETCH_ROUNDS = 4
+LLFF_DATA = dict(patch_size_x=63, patch_size_y=84, sW=6, sH=6, num_rays=4096)
 # the multi-GPU phase (23): up to DDP_MAX_WORLD ranks, DDP_STEPS sharded
 # steps, draws from generators of their own seeded by DDP_SEED; the eval
 # CLI's ranks against one card: mean PSNR (dB)
@@ -2344,6 +2360,96 @@ def phase_slice_datasets(device, workdir: str):
     return out, lego, dtu
 
 
+def device_reads(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, how many calls in it waited on the device)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # every warning but the mode's own notice that it is a prototype: a
+    # synchronizing call warns "called a synchronizing CUDA operation"
+    reads = [str(w.message) for w in caught if "prototype feature" not in str(w.message)]
+    return result, reads
+
+
+def phase_prefetch(device, workdir: str, lego: str, dtu: str):
+    """The prefetched sampler on the card, with the recipes' flags: the
+    504x378 LLFF set, lego rot3d and proj at 400x400 and DTU scan4 at
+    640x512.  Per set, a group of PREFETCH_K steps of one item
+    (``sample_many``) against PREFETCH_K calls of ``sample`` from the same
+    seed: every slice bit-equal, the generator in the same state after; the
+    reads of the device per group and per step (``set_sync_debug_mode``),
+    at most one per group under warp-patch rejection (rot3d) and none
+    elsewhere; then the sampler's ms per step, host clock, synchronised, in
+    PREFETCH_ROUNDS rounds that alternate a group with its per-step calls."""
+    import torch
+
+    from sinnerf_tpu_torch.data import dataset_dict
+    from sinnerf_tpu_torch.data.synthetic import make_llff_scene
+
+    llff = make_llff_scene(os.path.join(workdir, "llff"), IMG_WH)
+    sets = {
+        "llff_ray_patch_1image_proj": (llff, dict(img_wh=IMG_WH, **LLFF_DATA)),
+        "blender_ray_patch_1image_rot3d": (lego, dict(img_wh=LEGO_WH, **LEGO_DATA)),
+        "blender_ray_patch_1image_proj": (lego, dict(img_wh=LEGO_WH, **LEGO_DATA)),
+        "dtu_proj": (dtu, dict(img_wh=DTU_WH, **DTU_DATA)),
+    }
+    out = {}
+    for name, (root, kw) in sets.items():
+        ds = dataset_dict[name](root, split="train", device=device, **kw)
+        k, seed = PREFETCH_K, SLICE_SEED + 1
+        steps = list(range(k))
+        warm = torch.Generator().manual_seed(seed)
+        ds.sample_many(steps, 1, warm)
+        ds.sample(0, 1, warm)
+        g_many, g_step = torch.Generator().manual_seed(seed), torch.Generator().manual_seed(seed)
+        many, group_reads = device_reads(lambda: ds.sample_many(steps, 1, g_many))
+        singles, step_reads = device_reads(lambda: [ds.sample(s, 1, g_step) for s in steps])
+        unequal = [(key, j) for j in range(k) for key in many if not torch.equal(many[key][j], singles[j][key])]
+        if unequal or not torch.equal(g_many.get_state(), g_step.get_state()):
+            raise Failed(f"{name}: a group of {k} steps differs from the per-step batches at {unequal[:5]} "
+                         f"(generator states equal: {torch.equal(g_many.get_state(), g_step.get_state())})")
+        for j in range(k):
+            check_item({key: v[j] for key, v in many.items()}, ds.cfg, ds.scene["near_far"].tolist(),
+                       f"{name} prefetched step {j}")
+        target = 1 if ds.cfg.reject_warp_patch else 0
+        print(f"prefetch {name}: {k} steps bit-equal to the per-step batches, generator state equal; device reads "
+              f"{len(group_reads)} per group of {k} (target <= {target}), {len(step_reads) / k:g} per step at K=1")
+        if len(group_reads) > target:
+            raise Failed(f"{name}: {len(group_reads)} reads of the device in a group, target {target}: "
+                         f"{group_reads[:3]}")
+        gen = torch.Generator().manual_seed(seed)
+        rounds = {"k1": [], f"k{k}": []}
+        for r in range(PREFETCH_ROUNDS):
+            base = (r + 1) * k
+            runs = (("k1", lambda: [ds.sample(base + j, 1, gen) for j in range(k)]),
+                    (f"k{k}", lambda: ds.sample_many(range(base, base + k), 1, gen)))
+            for mode, fn in (runs if r % 2 == 0 else runs[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rounds[mode].append(1e3 * (time.perf_counter() - t0) / k)
+        row = dict(reads_per_group=len(group_reads), reads_per_step_k1=len(step_reads) / k, read_target=target,
+                   bit_equal=True, rounds_ms=rounds, **{f"{m}_ms_per_step": sum(v) / len(v) for m, v in rounds.items()})
+        print(f"prefetch {name}: sampler ms per step, K=1 {row['k1_ms_per_step']:.3f} (rounds "
+              f"{', '.join(f'{x:.3f}' for x in rounds['k1'])}), K={k} {row[f'k{k}_ms_per_step']:.3f} (rounds "
+              f"{', '.join(f'{x:.3f}' for x in rounds[f'k{k}'])})")
+        out[name] = row
+        del ds, many, singles
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice_kernels(device):
     """The shapes the slice gives the kernels, each against its plain
     version in both dtypes with the white background: K3-fwd and K3-bwd at
@@ -2457,6 +2563,9 @@ def phase_slice_cli(device, workdir: str, lego: str, dtu: str):
     ckpts = os.path.join(workdir, "slice_ckpts")
     runs = (
         ("lego_step1", False, slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego_step1")),
+        # the same run sampling step by step, beside the default --prefetch_batches 8
+        ("lego_step1_k1", False, slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego_step1_k1")
+         + ["--prefetch_batches", "1"]),
         ("lego_step2", False, slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego_step2")
          + ["--dis_weight", "0.01", "--pt_model", os.path.join(ckpts, "lego_step1", "last.ckpt"), "--nerf_only"]),
         ("lego_proj", True, slice_flags("blender_ray_patch_1image_proj", lego, workdir, "lego_proj")
@@ -2490,9 +2599,13 @@ def phase_slice_cli(device, workdir: str, lego: str, dtu: str):
         out[name] = dict(counts=counts, steps=steps, epochs=epochs, step_ms=step_ms, wall_s=wall,
                          psnr=trainer.best_psnr, val_log=trainer.val_log, empty_psnr=empty, white_psnr=white,
                          gate_psnr=floor + EMPTY_MARGIN_DB, val_images=trainer.val_dataset.val_len(),
-                         best_ckpt=os.path.join(ckpts, name, best[0]))
+                         best_ckpt=os.path.join(ckpts, name, best[0]),
+                         prefetch_batches=trainer.hparams.prefetch_batches)
         del trainer
         torch.cuda.empty_cache()
+    k8, k1 = out["lego_step1"], out["lego_step1_k1"]
+    print(f"train CLI lego Step 1: {k8['step_ms']:.1f} ms per step at --prefetch_batches {k8['prefetch_batches']}, "
+          f"{k1['step_ms']:.1f} at 1; best val PSNR {k8['psnr']:.4f} and {k1['psnr']:.4f}")
     return out
 
 
@@ -2508,7 +2621,8 @@ def phase_slice_eval(device, workdir: str, lego: str, dtu: str, cli):
     from sinnerf_tpu_torch.utils.save_weights_only import save_weights_only
 
     out = {}
-    evals = [(name, cli[name]["best_ckpt"]) for name in cli]
+    # the step-by-step lego run trains what its prefetched twin trains
+    evals = [(name, cli[name]["best_ckpt"]) for name in cli if cli[name]["prefetch_batches"] != 1]
     stripped = save_weights_only(cli["lego_step2"]["best_ckpt"], os.path.join(workdir, "lego_step2_weights.ckpt"))
     evals.append(("lego_step2_weights_only", stripped))
     for name, ckpt in evals:
@@ -3016,8 +3130,9 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on the visible cards.")
-    parser.add_argument("--phases", choices=("all", "ddp"), default="all",
-                        help="ddp: the card, the build and the multi-GPU phase alone")
+    parser.add_argument("--phases", choices=("all", "ddp", "prefetch"), default="all",
+                        help="ddp: the card, the build and the multi-GPU phase alone; prefetch: the card and "
+                             "the prefetched sampler alone (no kernel runs)")
     phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3037,6 +3152,17 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     try:
+        if phases == "prefetch":
+            with tempfile.TemporaryDirectory() as workdir:
+                from sinnerf_tpu_torch.data.synthetic import make_blender_scene_rich, make_dtu_scene_rich
+
+                lego = make_blender_scene_rich(os.path.join(workdir, "lego"), LEGO_WH)
+                dtu = make_dtu_scene_rich(os.path.join(workdir, "dtu_scan4"), DTU_WH)
+                prefetch = phase_prefetch(device, workdir, lego, dtu)
+            print(json.dumps({"prefetch": prefetch, "card": card}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         print(f"build: {_build.build():.1f} s")
         for log in sorted(glob.glob(str(_build.BUILD_DIR / "*.log"))):
             with open(log) as f:
@@ -3079,6 +3205,7 @@ def main(argv=None) -> int:
         t_slice = time.perf_counter()
         with tempfile.TemporaryDirectory() as workdir:
             slice_data, lego, dtu = phase_slice_datasets(device, workdir)
+            prefetch = phase_prefetch(device, workdir, lego, dtu)
             slice_k = phase_slice_kernels(device)
             slice_cli = phase_slice_cli(device, workdir, lego, dtu)
             slice_ev = phase_slice_eval(device, workdir, lego, dtu, slice_cli)
@@ -3253,8 +3380,8 @@ def main(argv=None) -> int:
           f"size); no single PyTorch call computes any kernel's function")
     print(json.dumps({"kernels": kernels, "card": card, "psnr": ev["psnr"], "train_cli": cli,
                       "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli},
-                      "slice": {"datasets": slice_data, "cli": slice_cli, "eval": slice_ev, "demo": demo,
-                                "seconds": slice_s},
+                      "slice": {"datasets": slice_data, "prefetch": prefetch, "cli": slice_cli, "eval": slice_ev,
+                                "demo": demo, "seconds": slice_s},
                       "ddp": ddp_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

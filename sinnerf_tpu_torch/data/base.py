@@ -4,7 +4,8 @@ Counterpart of ``sinnerf_tpu/data/base.py``: ray packing, image loading, the
 ``val_len``/``val_item`` API, and for the single-image training datasets the
 pseudo-view warp banks (``build_warp_banks`` :30), the flat index of their
 valid pixels (``build_proj_index`` :51) and ``SingleImageDataset``, whose
-scene bundle lives on the device and feeds ``sampler.sample_batch``.
+scene bundle lives on the device and feeds ``sampler.sample_batch`` (one
+step) and ``sampler.sample_batches_prefetch`` (several).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sinnerf_tpu_torch.data.sampler import SamplerConfig, sample_batch
+from sinnerf_tpu_torch.data.sampler import SamplerConfig, sample_batch, sample_batches_prefetch
 from sinnerf_tpu_torch.ops.warp import forward_warp
 
 
@@ -118,6 +119,12 @@ class SingleImageDataset(EvalDataset):
     def sample(self, step: int, batch_size: int = 1, generator: Optional[torch.Generator] = None, draws=None):
         """The batch of ``step`` with a leading (batch_size,) axis."""
         return sample_batch(self.scene, step, self.cfg, batch_size, generator, draws)
+
+    def sample_many(self, steps, batch_size: int = 1, generator: Optional[torch.Generator] = None, draws=None):
+        """The batches of ``steps`` in one batched call (JAX :97), leaves of
+        shape (K, batch_size, ...): slice ``[j]`` is ``sample(steps[j])`` bit
+        for bit, and ``generator`` ends where K calls of ``sample`` leave it."""
+        return sample_batches_prefetch(self.scene, steps, self.cfg, batch_size, generator, draws)
 
     @staticmethod
     def _finalize_scene(scene_np: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,11 @@
 """Camera pose math for the datasets and the training sampler.
 
-The port's own copy of the pieces of ``sinnerf_tpu/data/poses.py`` and
-``sinnerf_tpu/data/jnp_poses.py`` that the datasets and the sampler need
-(reference ``datasets/llff_ray_patch_1image_proj.py:174-319``,
-``blender_ray_patch_1image_rot3d.py:31-100``): pose averaging and
-centering, the spiral and spheric test paths, the Blender pseudo-view
+The port's own copy of ``sinnerf_tpu/data/poses.py`` and
+``sinnerf_tpu/data/jnp_poses.py`` (reference
+``datasets/llff_ray_patch_1image_proj.py:174-319``,
+``blender_ray_patch_1image_rot3d.py:31-100``, ``dtu_proj.py:45-164``): pose
+averaging and centering, the spiral and spheric test paths, DTU's look-at
+rotations and spiral path, the Blender pseudo-view
 banks and the warps' projections of the banks (numpy, float64, named
 ``*_np`` where a tensor function holds the JAX name), and the rotation,
 world-to-camera and projection matrices of the sampler's fresh warp
@@ -176,14 +177,65 @@ def create_spheric_poses(radius: float, n_poses: int = 120) -> np.ndarray:
     )
 
 
+def look_at_rotation(camera_position: np.ndarray, at=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndarray:
+    """Batched look-at rotations (JAX :164, reference ``dtu_proj.py:45-72``):
+    camera_position (N, 3) -> (N, 3, 3), columns x, y, z; a camera on the
+    ``up`` axis takes its x axis from y x z."""
+    pos = np.atleast_2d(np.asarray(camera_position, dtype=np.float64))
+    at = np.broadcast_to(np.asarray(at, dtype=np.float64), pos.shape)
+    up = np.broadcast_to(np.asarray(up, dtype=np.float64), pos.shape)
+
+    def norm_rows(v):
+        return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-5)
+
+    z_axis = norm_rows(pos - at)
+    x_axis = norm_rows(np.cross(up, z_axis))
+    y_axis = norm_rows(np.cross(z_axis, x_axis))
+    degenerate = np.all(np.isclose(x_axis, 0.0, atol=5e-3), axis=1, keepdims=True)
+    if degenerate.any():
+        x_axis = np.where(degenerate, norm_rows(np.cross(y_axis, z_axis)), x_axis)
+    return np.swapaxes(np.stack([x_axis, y_axis, z_axis], axis=1), 1, 2)
+
+
+def pose_spherical_dtu(radii: np.ndarray, focus_depth: float, n_poses: int = 120,
+                       world_center: np.ndarray = np.zeros(3)) -> np.ndarray:
+    """The DTU spiral render path, OpenCV-handed (JAX :188, reference
+    ``dtu_proj.py:130-164``): (n_poses, 3, 4)."""
+    poses = []
+    for t in np.linspace(0, 4 * np.pi, n_poses + 1)[:-1]:
+        center = np.array([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * radii
+        z = normalize(center - np.array([0, 0, -focus_depth]))
+        y_ = np.array([0.0, 1.0, 0.0])
+        x = normalize(np.cross(y_, z))
+        y = np.cross(z, x)
+        poses.append(np.stack([x, y, z, center + world_center], 1))
+    flip = np.array([[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1.0]])
+    return np.stack(poses, 0) @ flip
+
+
 # --------------------------------------------------------------------------
 # Pose math for the depth warps, as tensors (JAX ``data/jnp_poses.py`` and
 # ``data/poses.py:52-100``): float64 on the host when a dataset builds its
-# warp banks, float32 on the device when the sampler warps a fresh view.
+# warp banks, float32 on the device when the sampler warps fresh views.
+# Each function takes a leading batch of poses.  Their products are written
+# out (``matmul_in_order``), so that a pose's result does not depend on how
+# many poses share the call: a batched and a one-off matmul may round apart,
+# and one ulp in a projection can move a splat to the next pixel.
 # --------------------------------------------------------------------------
 
 
+def matmul_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over the last two axes (leading axes broadcast), each entry
+    the sum of its products taken left to right, one elementwise operation
+    at a time: the same rounding whatever the batch."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k : k + 1] * b[..., k : k + 1, :]
+    return out
+
+
 def _rot(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    """(...) angles in radians -> (..., 3, 3) rotations about ``axis``."""
     c, s = torch.cos(angle), torch.sin(angle)
     z, o = torch.zeros_like(c), torch.ones_like(c)
     rows = {
@@ -191,38 +243,38 @@ def _rot(axis: str, angle: torch.Tensor) -> torch.Tensor:
         "y": [[c, z, -s], [z, o, z], [s, z, c]],
         "z": [[c, -s, z], [s, c, z], [z, z, o]],
     }[axis]
-    return torch.stack([torch.stack(r) for r in rows])
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def rotate_3d(c2w: torch.Tensor, x_deg, y_deg, z_deg) -> torch.Tensor:
     """World-frame Euler rotation of a (3, 4) or (4, 4) pose by degrees
     (``jnp_poses.rotate_3d``, reference ``blender_rot3d.py:80-82``):
-    ``rot_x(x) @ rot_y(y) @ rot_z(z) @ c2w``, returned as (3, 4)."""
-    c2w = torch.as_tensor(c2w)[:3, :4]
+    ``rot_x(x) @ rot_y(y) @ rot_z(z) @ c2w``, returned as (..., 3, 4) for
+    angles of shape (...)."""
+    c2w = torch.as_tensor(c2w)[..., :3, :4]
 
     def rad(deg):
         return torch.deg2rad(torch.as_tensor(deg, dtype=c2w.dtype, device=c2w.device))
 
-    rot = _rot("x", rad(x_deg)) @ _rot("y", rad(y_deg)) @ _rot("z", rad(z_deg))
-    return torch.cat([rot @ c2w[:, :3], rot @ c2w[:, 3:]], dim=1)
-
+    rot = matmul_in_order(matmul_in_order(_rot("x", rad(x_deg)), _rot("y", rad(y_deg))), _rot("z", rad(z_deg)))
+    return matmul_in_order(rot, c2w)
 
 
 def c2w_to_w2c_cv(c2w: torch.Tensor) -> torch.Tensor:
-    """OpenGL c2w (3, 4) or (4, 4) -> OpenCV w2c (4, 4) (reference
-    ``blender_rot3d.py:85-100``): ``R' = flip R^T``, ``t' = flip (-R^T t)``
-    with flip negating the camera's y and z axes."""
+    """OpenGL c2w (..., 3, 4) or (..., 4, 4) -> OpenCV w2c (..., 4, 4)
+    (reference ``blender_rot3d.py:85-100``): ``R' = flip R^T``, ``t' = flip
+    (-R^T t)`` with flip negating the camera's y and z axes."""
     c2w = torch.as_tensor(c2w)
-    flip = torch.tensor(_GL_TO_CV, dtype=c2w.dtype, device=c2w.device)
-    r_w2c = c2w[:3, :3].T
-    t_w2c = -r_w2c @ c2w[:3, 3:]
-    top = torch.cat([flip @ r_w2c, flip @ t_w2c], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=c2w.dtype, device=c2w.device)
-    return torch.cat([top, bottom], dim=0)
+    r_w2c = c2w[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([r_w2c, -matmul_in_order(r_w2c, c2w[..., :3, 3:])], dim=-1)
+    top = torch.cat([top[..., :1, :], -top[..., 1:, :]], dim=-2)
+    bottom = torch.zeros_like(top[..., :1, :])  # [0, 0, 0, 1], made on the device: no copy from the host
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
 
 
 def projection_matrix(k3: torch.Tensor, w2c4: torch.Tensor) -> torch.Tensor:
-    """The (4, 4) pixel projection with ``P[:3] = K @ w2c[:3]``
+    """The (..., 4, 4) pixel projection with ``P[:3] = K @ w2c[:3]``
     (reference ``dtu_proj.py:351-352``)."""
     k3 = torch.as_tensor(k3, dtype=w2c4.dtype, device=w2c4.device)
-    return torch.cat([k3 @ w2c4[:3, :4], w2c4[3:4, :]], dim=0)
+    return torch.cat([matmul_in_order(k3, w2c4[..., :3, :4]), w2c4[..., 3:4, :]], dim=-2)

@@ -5,7 +5,8 @@ loop ``datasets/llff_ray_patch_1image_proj.py:144-166``, the DTU one
 ``dtu_proj.py:236-273`` and the blender last-write warp
 ``blender_ray_patch_1image_rot3d.py:103-150``).  In JAX this is an XLA
 scatter, not a Pallas kernel; here it is plain PyTorch: one
-``scatter_reduce`` per warp.
+``scatter_reduce`` per warp, or per group of the sampler's fresh warps
+(``last_write_winners``).
 
 The z-buffered warp resolves every collision in one ``amin`` over a packed
 64-bit key per splat, ``(depth bits << 32) | source ordinal``: a positive
@@ -43,6 +44,17 @@ def project_pixels(
     return x_src.reshape(h, w), y_src.reshape(h, w), depth_src.reshape(h, w)
 
 
+def _target_pixels(x_src: torch.Tensor, y_src: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The flat target pixel of each splat: floor and clamp to the image, as
+    np.floor/np.clip in every reference variant.  A pixel of depth 0 seen
+    from its own camera projects to 0/0: XLA converts that NaN to 0 (JAX
+    :101-102), so it lands on pixel 0 here too (a NaN's conversion to an
+    integer is undefined in torch)."""
+    tx = torch.clamp(torch.nan_to_num(torch.floor(x_src), nan=0.0), 0, w - 1).to(torch.int64)
+    ty = torch.clamp(torch.nan_to_num(torch.floor(y_src), nan=0.0), 0, h - 1).to(torch.int64)
+    return ty * w + tx
+
+
 def warp_winner(
     depth_ref: torch.Tensor, ref_proj: torch.Tensor, src_proj: torch.Tensor, zbuffer: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,13 +67,7 @@ def warp_winner(
     h, w = depth_ref.shape
     n = h * w
     x_src, y_src, depth_src = project_pixels(depth_ref, ref_proj, src_proj)
-    # floor and clamp to the image, as np.floor/np.clip in every reference
-    # variant.  A pixel of depth 0 seen from its own camera projects to 0/0:
-    # XLA converts that NaN to 0 (JAX :101-102), so it lands on pixel 0 here
-    # too (a NaN's conversion to an integer is undefined in torch)
-    tx = torch.clamp(torch.nan_to_num(torch.floor(x_src), nan=0.0), 0, w - 1).to(torch.int64).reshape(-1)
-    ty = torch.clamp(torch.nan_to_num(torch.floor(y_src), nan=0.0), 0, h - 1).to(torch.int64).reshape(-1)
-    flat = ty * w + tx
+    flat = _target_pixels(x_src.reshape(-1), y_src.reshape(-1), h, w)
     d_flat = depth_src.reshape(-1)
     ordinal = torch.arange(n, dtype=torch.int64, device=depth_ref.device)
     if zbuffer:
@@ -74,6 +80,37 @@ def warp_winner(
         win = torch.full((n,), -1, dtype=torch.int64, device=depth_ref.device)
         win = win.scatter_reduce(0, flat, ordinal, "amax")
     return win, d_flat
+
+
+def last_write_winners(depth_ref: torch.Tensor, rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``warp_winner(..., zbuffer=False)`` for N views at once, the sampler's
+    fresh warps: depth_ref (H, W) and ``rel`` (N, 4, 4), each view's
+    ``src_proj @ inv(ref_proj)``.  Returns ``(win, depth_src)``, each (N,
+    H*W).  Each projected coordinate is a sum of four products in a fixed
+    order and every splat lands in one scatter over ``target + view * H *
+    W``, so a view's winners and depths do not depend on N."""
+    h, w = depth_ref.shape
+    n = h * w
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=depth_ref.dtype, device=depth_ref.device),
+        torch.arange(w, dtype=depth_ref.dtype, device=depth_ref.device),
+        indexing="ij",
+    )
+    d = depth_ref.reshape(-1)
+    pts = (xx.reshape(-1) * d, yy.reshape(-1) * d, d)
+    rel = rel.to(depth_ref.dtype)
+
+    def row(r):
+        return ((rel[:, r, 0:1] * pts[0] + rel[:, r, 1:2] * pts[1]) + rel[:, r, 2:3] * pts[2]) + rel[:, r, 3:4]
+
+    depth_src = row(2)
+    flat = _target_pixels(row(0) / depth_src, row(1) / depth_src, h, w)
+    views = rel.shape[0]
+    flat = flat + torch.arange(views, device=flat.device)[:, None] * n
+    ordinal = torch.arange(n, dtype=torch.int64, device=depth_ref.device).expand(views, n)
+    win = torch.full((views * n,), -1, dtype=torch.int64, device=depth_ref.device)
+    win = win.scatter_reduce(0, flat.reshape(-1), ordinal.reshape(-1), "amax")
+    return win.reshape(views, n), depth_src
 
 
 def forward_warp(

@@ -113,8 +113,10 @@ _FLAG_SPEC = [
                      help="reference frame index override (blender scenes "
                           "outside the built-in table need this)")),
     ("prefetch_batches", dict(type=int, default=8,
-                              help="accepted for the JAX package's command "
-                                   "lines; the port samples per step")),
+                              help="sample K steps' batches in one batched "
+                                   "call of the sampler (within an epoch); "
+                                   "the batches are those of K per-step "
+                                   "calls, bit for bit; 1 samples per step")),
     ("profile", dict(flag=True,
                      help="write a torch.profiler trace of the fit into "
                           "log_dir (reference enables a profiler on "

@@ -2,7 +2,11 @@
 can be compared in one call: ``train_step`` at ``chip_smoke.py``'s Step-1
 shape (16,384 rays, 64 + 128 samples, Adam), stochastic and deterministic
 (``perturb=0``, ``noise_std=0``), and the eval render of one 504x378 image
-at 64 + 128 samples, each in bfloat16 and float32.
+at 64 + 128 samples, each in bfloat16 and float32; then the train CLI's ms
+per step on ``chip_smoke.py``'s LLFF run (bf16, 4 epochs of 5 steps) at
+``--prefetch_batches`` 8 and 1 (a checkout without prefetching samples
+step by step at both), and on lego Step 1 (one epoch of 125 steps) at the
+checkout's default.
 
     python sinnerf_tpu_torch/scripts/step_times.py [--root CHECKOUT]
 
@@ -37,6 +41,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from sinnerf_tpu_torch import eval as port_eval
     from sinnerf_tpu_torch.data.llff import LLFFEval
+    from sinnerf_tpu_torch.data.synthetic import make_blender_scene_rich
     from sinnerf_tpu_torch.render.renderer import RenderSettings, render_chunked
     from sinnerf_tpu_torch.train.step import train_step
 
@@ -71,6 +76,19 @@ def main(argv=None) -> int:
         for cd in ("bfloat16", "float32"):
             settings = RenderSettings(n_samples=cs.N_SAMPLES, n_importance=cs.N_IMPORTANCE, compute_dtype=cd)
             out[f"image_ms[{cd}]"] = cs.timed(lambda: render_chunked(models, rays, settings, cs.eval_tile()), 2)[1]
+        # the train CLI's ms per step (host clock over its epochs): phase 11's
+        # stochastic bf16 LLFF run for 4 epochs of 5 steps, sampled 8 and 1
+        # steps at a time, and phase 20's lego Step 1
+        lego = make_blender_scene_rich(os.path.join(workdir, "lego"), cs.LEGO_WH)
+        llff = cs.cli_flags(scene, workdir, "bfloat16", "llff") + ["--num_epochs", "4"]
+        for name, flags in (("llff_k8", llff + ["--prefetch_batches", "8"]),
+                            ("llff_k1", llff + ["--prefetch_batches", "1"]),
+                            ("lego_step1", cs.slice_flags("blender_ray_patch_1image_rot3d", lego, workdir, "lego"))):
+            trainer = cs.run_cli(flags)[0]
+            out[f"cli_ms_per_step[{name}]"] = 1e3 * sum(e[2] for e in trainer.epoch_log) / sum(
+                e[1] for e in trainer.epoch_log)
+            del trainer
+            torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

@@ -5,11 +5,13 @@ Counterpart of ``sinnerf_tpu/train/loop.py`` (reference
 ``models/sinnerf.py:124-210`` for the system, ``train.py:44-62`` for the
 fit loop, ``models/sinnerf.py:556-586`` for validation): a sanity
 validation of one image, then per epoch the learning rate of
-``lr_for_epoch``, ``steps_per_epoch`` sampled steps of ``train_step``, and
-every ``check_val_every_n_epoch`` epochs a validation over the val split
-through ``render_chunked`` and a checkpoint (top-2 on val/psnr plus
-``last``).  Scalars go to TensorBoard under the JAX package's tags when a
-TensorBoard writer imports; without one the writer is None.
+``lr_for_epoch``, ``steps_per_epoch`` sampled steps of ``train_step``
+(sampled ``--prefetch_batches`` steps at a time, :410-452), and every
+``check_val_every_n_epoch`` epochs a validation over the val split through
+``render_chunked`` and a checkpoint (top-2 on val/psnr plus ``last``).
+Scalars and images go to TensorBoard under the JAX package's tags every 10
+steps, written one log step later (:454-521), when a TensorBoard writer
+imports; without one the writer is None.
 
 Every training set of the registry trains: Blender's rot3d and proj
 (``--patch_size``), LLFF and DTU (``--patch_size_x`` x ``--patch_size_y``),
@@ -66,6 +68,9 @@ from sinnerf_tpu_torch.utils.visualization import visualize_depth
 
 D_LR_RATE = 0.2  # the discriminator's constant share of --lr (sinnerf.py:208)
 RANK_SEED_STRIDE = 104729  # rank r's sampler, render and host generators: the seed + r * this
+# the images of item 0 that the log writes (``_log_images``)
+LOG_IMAGE_KEYS = ("real_patch", "rgb_coarse_full", "rgb_fine_full", "side_rgb", "rgb_coarse_side", "rgb_fine_side",
+                  "depth_coarse_side", "depth_fine_side", "warp_depth")
 
 
 def build_render_settings(hparams: Any, white_back: bool) -> RenderSettings:
@@ -122,6 +127,25 @@ def _host_copy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_copy(v) for v in tree)
     return tree
+
+
+def _start_host_copy(tree):
+    """Start copying the tensors of ``tree`` (a dict of dicts) to the host:
+    (the copies, a CUDA event recorded after them, or None where nothing
+    lives on a card).  A card's tensors go to pinned memory without
+    waiting; on the CPU the copies are plain."""
+    def copy(t):
+        t = t.detach()
+        if not t.is_cuda:
+            return t.clone()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+    out = {name: {k: copy(v) for k, v in part.items()} for name, part in tree.items()}
+    event = None
+    if any(v.is_cuda for part in tree.values() for v in part.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return out, event
 
 
 def _make_writer(log_dir: str):
@@ -221,6 +245,7 @@ class SinNeRFTrainer:
             self.ckpt_manager = TopKCheckpointManager(os.path.join(hparams.ckpt_dir, hparams.exp_name), top_k=2,
                                                       best=best)
             self.writer = _make_writer(os.path.join(hparams.log_dir, hparams.exp_name))
+        self._pending_log = None  # (host copies and their event, step, lr) of the last log step
         self.epoch_log: List[Tuple[int, int, float]] = []  # (epoch, steps, seconds) of each training epoch
         self.val_log: List[Tuple[int, float]] = []  # (epoch, val PSNR) of each validation
 
@@ -318,8 +343,35 @@ class SinNeRFTrainer:
                 self._save(epoch, val_psnr)
         return best_psnr
 
+    def _epoch_batches(self, epoch: int, spe: int):
+        """Yield ``(i, batch)`` for the epoch's ``spe`` steps (JAX :410).
+        This rank's items of the global batch are those of step ``(epoch *
+        spe + i) * world + rank`` in steps of batch_size (at world 1, the
+        step's items).  With ``--prefetch_batches K > 1`` the steps are
+        sampled K at a time by ``sample_many``, in groups that end at the
+        epoch's end (the tail group is ``spe % K``; a group of one takes
+        ``sample``): the same batches and generator state as step by step,
+        with at most one read of the device per group."""
+        k_pref = max(1, self.hparams.prefetch_batches)
+        ds, gen = self.train_dataset, self.sample_generator
+        i = 0
+        while i < spe:
+            k = min(k_pref, spe - i)
+            steps = [(epoch * spe + i + j) * self.world + self.rank for j in range(k)]
+            if k == 1:
+                yield i, ds.sample(steps[0], self.batch_size, gen)
+            else:
+                batches = ds.sample_many(steps, self.batch_size, gen)
+                for j in range(k):
+                    yield i + j, {name: v[j] for name, v in batches.items()}
+            i += k
+
     def _run_epoch(self, epoch: int, spe: int) -> None:
-        """One epoch at the epoch's learning rate; scalars every 10 steps."""
+        """One epoch at the epoch's learning rate; scalars and images every
+        10 steps, written one log step later (JAX :454-521): the host copy
+        of a step's payload starts at its step and is read at the next log
+        step or the epoch's end, so that logging does not wait for the
+        device."""
         lr = lr_for_epoch(self.hparams, epoch)
         set_lr(self.state.opt_g, lr)
         if self.state.opt_d is not None:
@@ -327,11 +379,7 @@ class SinNeRFTrainer:
             # D trains at a constant 0.2x the base lr, re-asserted every epoch
             set_lr(self.state.opt_d, self.hparams.lr, rate=D_LR_RATE)
         t0 = time.perf_counter()
-        for i in range(spe):
-            # this rank's items of the global batch: step * world + rank in
-            # steps of batch_size (at world 1, the step's items)
-            step = (epoch * spe + i) * self.world + self.rank
-            batch = self.train_dataset.sample(step, self.batch_size, self.sample_generator)
+        for _, batch in self._epoch_batches(epoch, spe):
             step2_draws = Step2Draws()
             if self.world > 1 and self.state.discriminator is not None:
                 step2_draws = batch_coins(self.cfg.dloss, self.batch_generator, self.device)
@@ -342,8 +390,11 @@ class SinNeRFTrainer:
             if self.state.step % 10 == 0:
                 metrics = ddp.reduce_metrics(out["metrics"], self.world)  # every rank: a collective
                 if self.writer:
-                    self._log_scalars(metrics, self.state.step, lr)
-                    self._log_images(out["images"], self.state.step)
+                    images = {k: out["images"][k][0] for k in LOG_IMAGE_KEYS}
+                    payload = _start_host_copy({"metrics": metrics, "images": images})
+                    self._flush_pending_log()
+                    self._pending_log = (payload, self.state.step, lr)
+        self._flush_pending_log()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -351,16 +402,29 @@ class SinNeRFTrainer:
         if self.writer:
             self.writer.add_scalar("train/epoch_time", dt, epoch)
 
+    def _flush_pending_log(self) -> None:
+        """Write the pending payload under the step and learning rate it
+        came from, once its host copy has landed."""
+        if self._pending_log is None:
+            return
+        (tree, done), step, lr = self._pending_log
+        self._pending_log = None
+        if done is not None:
+            done.synchronize()
+        self._log_scalars(tree["metrics"], step, lr)
+        self._log_images(tree["images"], step)
+
     def _log_scalars(self, metrics: Dict[str, torch.Tensor], step: int, lr: float) -> None:
         self.writer.add_scalar("lr", lr, step)
         for k, v in metrics.items():
             self.writer.add_scalar(k, float(v), step)
 
     def _log_images(self, images: Dict[str, torch.Tensor], step: int) -> None:
-        """The JAX package's tags (reference ``sinnerf.py:413-444``):
-        'train/images' [real, coarse, fine] and 'train/images_side'."""
+        """Item 0's images under the JAX package's tags (reference
+        ``sinnerf.py:413-444``): 'train/images' [real, coarse, fine] and
+        'train/images_side'."""
         def img(k):
-            return images[k][0].float().cpu().numpy()
+            return images[k].float().numpy()
 
         stack = np.stack([img("real_patch"), img("rgb_coarse_full"), img("rgb_fine_full")])
         self.writer.add_images("train/images", np.clip(stack, 0, 1), step)

@@ -71,6 +71,24 @@ def test_ray_directions_match_jax(sparse):
     _close(jj, jjj)
 
 
+_C2W = np.array([[0.8, -0.2, 0.56, 1.1], [0.3, 0.9, -0.3, -0.4], [-0.5, 0.4, 0.76, 4.0]], np.float32)
+_DIRS = np.random.default_rng(5).normal(size=(6, 7, 3)).astype(np.float32)
+RAY_HELPER_CASES = {
+    "get_rays": lambda m, a: m.get_rays(a(_DIRS), a(_C2W)),
+    "make_ray_bundle": lambda m, a: m.make_ray_bundle(a(_DIRS), a(_C2W), 2.0, 6.0),
+    "get_ndc_rays": lambda m, a: m.get_ndc_rays(24, 32, 38.4, 1.0, *m.get_rays(a(_DIRS), a(_C2W))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAY_HELPER_CASES))
+def test_ray_helpers_match_jax(name):
+    got = RAY_HELPER_CASES[name](t_rays, _t)
+    want = RAY_HELPER_CASES[name](j_rays, jnp.asarray)
+    for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        assert tuple(g.shape) == w.shape
+        _close(g, w)
+
+
 @pytest.mark.parametrize("use_disp,perturb", [(False, 0.0), (True, 0.0), (False, 1.0), (True, 0.5)])
 def test_stratified_z_vals_match_jax(use_disp, perturb):
     rng = np.random.default_rng(3)

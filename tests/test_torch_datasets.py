@@ -88,6 +88,7 @@ def roots(tmp_path_factory):
 
 _C2W = np.array([[0.8, -0.2, 0.56, 1.1], [0.3, 0.9, -0.3, -0.4], [-0.5, 0.4, 0.76, 4.0]])
 _K = np.array([[30.5, 0.0, 15.5], [0.0, 31.25, 12.0], [0.0, 0.0, 1.0]])
+_CAMERAS = np.array([[1.0, 2.0, 3.0], [0.0, 0.0, 2.0], [-1.5, 0.5, 0.2]])  # the second on the up axis
 
 HELPER_CASES = {
     "trans_t": (lambda m: m.trans_t(2.5),) * 2,
@@ -101,6 +102,9 @@ HELPER_CASES = {
     "rot3d_grid": (lambda m: m.rot3d_grid(_C2W, 20),) * 2,
     "rot3d_grid_odd": (lambda m: m.rot3d_grid(_C2W, 7),) * 2,
     "rot_z_linspace": (lambda m: m.rot_z_linspace(_C2W, 20, 60),) * 2,
+    "look_at_rotation": (lambda m: m.look_at_rotation(_CAMERAS),) * 2,
+    "pose_spherical_dtu": (lambda m: m.pose_spherical_dtu(np.array([0.3, 0.2, 0.1]), 4.5, 12,
+                                                           np.array([0.5, -0.25, 1.0])),) * 2,
 }
 
 

@@ -45,6 +45,8 @@ def test_deterministic_training_turns_black_in_jax_as_in_the_port(tmp_path):
     root = make_llff_scene(str(tmp_path / "llff"), witness.CPU_WH)
     jax_trainer, port = witness.twin_trainers(root, str(tmp_path), SEED)
     witness.share_jax_batches(jax_trainer, port)
+    # the witness feeds the JAX batches through the per-step ``sample``
+    port.hparams.prefetch_batches = 1
     empty = chip_smoke.empty_render_psnr(port.val_dataset)
     psnrs, host_step = [], 0
     for epoch in range(EPOCHS):

@@ -10,12 +10,15 @@ float64 on both sides before the cast).  The draws the port makes itself
 are checked by range and shape.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sinnerf_tpu.data import jnp_poses
 from sinnerf_tpu.data import sampler as jax_sampler
 from sinnerf_tpu.data.llff import LLFFProj as JaxLLFFProj
 from sinnerf_tpu.data.synthetic import make_llff_scene
@@ -105,10 +108,12 @@ def test_real_origins_and_patches_match_jax(datasets, mode):
     else:
         assert 0 < len(got) < cfg_p.row_limit * cfg_p.col_limit
         np.testing.assert_array_equal(got, want)
-    for ll, up in ((0, 0), (5, 7), (cfg_p.row_limit - 1, cfg_p.col_limit - 1)):
+    corners = ((0, 0), (5, 7), (cfg_p.row_limit - 1, cfg_p.col_limit - 1))
+    codes = torch.tensor([ll * cfg_p.col_limit + up for ll, up in corners])
+    patches = torch.from_numpy(img).reshape(-1, 3)[port_sampler.patch_pixels(codes, cfg_p, 64)]
+    for (ll, up), patch in zip(corners, patches):
         np.testing.assert_array_equal(
-            port_sampler.strided_patch(torch.from_numpy(img), ll, up, PSX, PSY, S_ROW, S_COL).numpy(),
-            np.asarray(jax_sampler.strided_patch(jnp.asarray(img), ll, up, PSX, PSY, S_ROW, S_COL)))
+            patch.numpy(), np.asarray(jax_sampler.strided_patch(jnp.asarray(img), ll, up, PSX, PSY, S_ROW, S_COL)))
 
 
 def test_llff_scene_matches_jax(datasets):
@@ -134,25 +139,54 @@ def test_llff_eval_splits_match_jax(llff_root, split):
             np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=1e-6, atol=1e-7, err_msg=k)
 
 
+@functools.partial(jax.jit, static_argnums=4)
+def _valid_warp_origins(ref_c2w, k3, ref_depth, angles, cfg):
+    """How many pseudo-patch origins JAX's fresh warp leaves valid
+    (``sampler.py:303-339``)."""
+    pseudo = jnp_poses.rotate_3d(ref_c2w, *angles)
+    ref_p = jnp_poses.projection_matrix(k3, jnp_poses.c2w_to_w2c_cv(ref_c2w))
+    src_p = jnp_poses.projection_matrix(k3, jnp_poses.c2w_to_w2c_cv(pseudo))
+    win, d_flat = jax_warp.warp_winner(ref_depth, ref_p, src_p, zbuffer=False)
+    depth = jnp.where(win >= 0, d_flat[jnp.maximum(win, 0)], 0.0).reshape(ref_depth.shape)
+    return (jax_sampler._strided_sum_map(depth, cfg) != 0).sum()
+
+
 def _jax_draws(scene, cfg, key):
-    """The draws JAX's ``sample_item`` makes from ``key`` (``sampler.py:257-356``),
-    for a configuration without rejection."""
+    """The draws JAX's ``sample_item`` makes from ``key``
+    (``sampler.py:257-356``): the any-pixel mix, the real-origin draw and
+    the warp-patch rank where the configuration rejects patches."""
     keys = jax.random.split(key, 8)
     n_main = cfg.num_rays - cfg.n_any
     n_proj = cfg.n_proj or cfg.num_rays
 
+    def t(a):
+        return torch.from_numpy(np.array(a)).long()
+
     def corner(k):
         k_ll, k_up = jax.random.split(k)
-        return np.array([int(jax.random.randint(k_ll, (), 0, cfg.row_limit)),
-                         int(jax.random.randint(k_up, (), 0, cfg.col_limit))])
+        return torch.tensor([int(jax.random.randint(k_ll, (), 0, cfg.row_limit)),
+                             int(jax.random.randint(k_up, (), 0, cfg.col_limit))])
 
-    return port_sampler.ItemDraws(
-        rays=torch.from_numpy(np.asarray(jax.random.randint(keys[0], (n_main,), 0, scene["pool"].shape[0]))).long(),
-        proj=torch.from_numpy(np.asarray(jax.random.randint(keys[2], (n_proj,), 0, scene["proj_depth"].shape[0]))).long(),
-        real_corner=torch.from_numpy(corner(keys[3])),
-        angles=torch.from_numpy(np.asarray(jax.random.normal(keys[4], (3,)) * (cfg.angle // 2))),
-        patch_corner=torch.from_numpy(corner(keys[5])),
+    angles = jax.random.normal(keys[4], (3,)) * (cfg.angle // 2)
+    draws = dict(
+        rays=t(jax.random.randint(keys[0], (n_main,), 0, scene["pool"].shape[0])),
+        proj=t(jax.random.randint(keys[2], (n_proj,), 0, scene["proj_depth"].shape[0])),
+        angles=torch.from_numpy(np.array(angles)),
     )
+    if cfg.n_any:
+        draws["any_rays"] = t(jax.random.randint(keys[1], (cfg.n_any,), 0, scene["any"].shape[0]))
+    if "real_origins" in scene:
+        origins = scene["real_origins"]
+        code = int(origins[int(jax.random.randint(keys[3], (), 0, origins.shape[0]))])
+        draws["real_corner"] = torch.tensor([code // cfg.col_limit, code % cfg.col_limit])
+    else:
+        draws["real_corner"] = corner(keys[3])
+    if cfg.reject_warp_patch:  # the rank among the fresh warp's valid origins (sampler.py:138-152)
+        valid = int(_valid_warp_origins(scene["ref_c2w"], scene["k3"], scene["ref_depth"], angles, cfg))
+        draws["patch_rank"] = t(jax.random.randint(keys[5], (), 0, max(valid, 1)))
+    else:
+        draws["patch_corner"] = corner(keys[5])
+    return port_sampler.ItemDraws(**draws)
 
 
 @pytest.mark.parametrize("fresh_warp", [False, True])
