@@ -5,6 +5,7 @@ visible cards (one is enough).
     python3 chip_smoke.py
     python3 chip_smoke.py --phases ddp   # the build and phase 23 alone
     python3 chip_smoke.py --phases prefetch   # phase 18's prefetched sampler alone
+    python3 chip_smoke.py --phases soak   # the build and phase 24 alone
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
@@ -201,9 +202,21 @@ Phases, any failure exits non-zero without the final result line:
    image.  With two cards or more, a K3 step on ``cuda:1`` from this
    process on ``cuda:0``.  ``--phases ddp`` runs phase 1 and this phase
    alone (on a lego stand-in of its own);
-24. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
+24. the full-recipe soak (``sinnerf_tpu_torch.scripts.soak``) of the lego
+   and LLFF families at full width (400x400 and 504x378) with the recipes'
+   flags, cut to one epoch per leg with a validation after it, each call
+   counted: every leg (Step 1, Step 2 from Step 1's ``last.ckpt``, the eval
+   CLI on Step 2's) runs; Step 2's NeRFs start equal to Step 1's
+   ``last.ckpt``; per train leg K3-fwd = K3-bwd = 2 x steps, K2 >= steps,
+   all bf16; the eval leg on the f32 K1; the val and eval PSNRs finite.
+   The LLFF soak again: every leg resumes and trains nothing.  Then TF32:
+   the discriminator's gradients at the LLFF Step-2 leg's first step with
+   cuDNN's TF32 off, on (the train CLI's default) and off again, the
+   relative L2 per D leaf printed;
+25. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
    ``step2``, the slice's under ``slice``, the multi-GPU phase's under
-   ``ddp``), then, last, ``{"ok": true, "device": {...}}``.
+   ``ddp``, the soak's under ``soak``; each kernel's launches per soak leg
+   under ``soak_launches``), then, last, ``{"ok": true, "device": {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -414,6 +427,8 @@ DDP_MAX_WORLD = 4
 DDP_STEPS = 3
 DDP_SEED = 5151
 DDP_EVAL_PSNR_TOL = 1e-2
+# the soak phase (24): these families' soaks, one epoch per leg
+SOAK_FAMILIES = ("lego", "llff")
 
 
 def k4_bwd_tol(n: int, cd: str):
@@ -2688,6 +2703,172 @@ def phase_demo(device, workdir: str):
 
 
 # --------------------------------------------------------------------------
+# phase 24: the full-recipe soak's wiring (scripts/soak.py) and TF32 in D
+# --------------------------------------------------------------------------
+
+
+def record_fit_starts(starts):
+    """Replace ``SinNeRFTrainer.fit`` by one that first appends, per run,
+    its experiment, ``--ckpt_path``, the NeRFs' state on the host and the
+    warm-start checkpoint's weights; returns the original ``fit``."""
+    from sinnerf_tpu_torch.train.checkpoints import load_torch_nerf_checkpoint
+    from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
+
+    fit = SinNeRFTrainer.fit
+
+    def recording_fit(self):
+        hp = self.hparams
+        starts.append(dict(
+            exp=hp.exp_name, ckpt_path=hp.ckpt_path,
+            state={lvl: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+                   for lvl, m in self.state.models.items()},
+            warm=load_torch_nerf_checkpoint(hp.pt_model) if hp.pt_model else None))
+        return fit(self)
+
+    SinNeRFTrainer.fit = recording_fit
+    return fit
+
+
+def check_soak_records(family: str, records, starts):
+    """Phase 24's checks of one soak call's records: every leg ran, each
+    train leg one epoch on the bf16 kernels (K3-fwd = K3-bwd = 2 x steps, K2
+    >= steps), Step 2 from Step 1's ``last.ckpt`` bit for bit, the eval leg
+    on the f32 K1, every PSNR finite."""
+    import torch
+
+    legs = [r["leg"] for r in records]
+    if legs != ["step1", "step2", "eval"]:
+        raise Failed(f"soak {family}: legs {legs}")
+    for r in records[:2]:
+        c, steps = r["launches_by_dtype"], r["steps"]
+        hold_dtype(c, "bfloat16", f"soak {family} {r['leg']}")
+        if steps != r["steps_per_epoch"] or not math.isfinite(r["best_psnr"]) or r["resumed_from"] is not None:
+            raise Failed(f"soak {family} {r['leg']}: {steps} steps, PSNR {r['best_psnr']}, "
+                         f"resumed from {r['resumed_from']}")
+        if c["K3-fwd"] != 2 * steps or c["K3-bwd"] != 2 * steps or c["K2"] < steps or c["K1"] == 0:
+            raise Failed(f"soak {family} {r['leg']}: launch counts {c}")
+    ev = records[2]
+    hold_dtype(ev["launches_by_dtype"], "float32", f"soak {family} eval")
+    if ev["launches_by_dtype"]["K1"] == 0 or ev["mean_psnr"] is None or not math.isfinite(ev["mean_psnr"]):
+        raise Failed(f"soak {family} eval: PSNR {ev['mean_psnr']}, launches {ev['launches_by_dtype']}")
+    step2 = [s for s in starts if s["exp"] == records[1]["exp"]][-1]
+    for level, sd in step2["state"].items():
+        warm = step2["warm"][level]
+        if sd.keys() != warm.keys() or not all(torch.equal(sd[k], warm[k]) for k in sd):
+            raise Failed(f"soak {family}: Step 2's {level} NeRF does not start from Step 1's last.ckpt")
+
+
+def phase_soak(device, workdir: str, lego=None):
+    """Phase 24 A: the soak (``sinnerf_tpu_torch.scripts.soak``) of the lego
+    and LLFF families at full width with the recipes' flags, cut to one
+    epoch per leg with a validation after it; each call counted.  Every leg
+    exits, Step 2 starts from Step 1's ``last.ckpt``, the launch counts and
+    dtypes hold (``check_soak_records``); then the LLFF soak again, which
+    resumes every leg and trains nothing.  B: TF32 in the discriminator
+    (``phase_tf32``) on the LLFF Step-2 leg's first batch.  ``lego``, phase
+    18's rich lego scene (the soak's own writer and size), is linked where
+    the soak keeps its scene, so that it is not written twice."""
+    import torch
+
+    from sinnerf_tpu_torch.scripts import soak
+    from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
+
+    work = os.path.join(workdir, "soak")
+    if lego is not None:
+        top = os.path.join(work, "scenes", "rich_lego_{}x{}".format(*LEGO_WH))
+        os.makedirs(top)
+        os.symlink(lego, os.path.join(top, "lego"))
+    cut = ["1", "1", "--work_dir", work, "--", "--check_val_every_n_epoch", "1"]
+    out = {}
+    starts = []
+    fit = record_fit_starts(starts)
+    try:
+        for family in SOAK_FAMILIES:
+            records, counts, wall = counted(lambda: soak.main([family] + cut))
+            check_soak_records(family, records, starts)
+            s1, s2, ev = records
+            print(f"soak {family}, one epoch per leg: Step 1 {s1['steps']} steps at {s1['ms_per_step']:.1f} ms, val "
+                  f"PSNR {s1['best_psnr']:.4f}; Step 2 {s2['steps']} steps at {s2['ms_per_step']:.1f} ms, val PSNR "
+                  f"{s2['best_psnr']:.4f}; eval (f32) mean PSNR {ev['mean_psnr']:.4f} over {ev['images']} images at "
+                  f"{ev['ms_per_image']:.1f} ms; {wall:.1f} s in all; launches {counts}")
+            out[family] = dict(records=records, counts=counts, wall_s=wall)
+        records, counts, wall = counted(lambda: soak.main(["llff"] + cut))
+        trained = [r["steps"] for r in records[:2]]
+        print(f"soak llff again: resumed from {[os.path.basename(r['resumed_from'] or '-') for r in records[:2]]}, "
+              f"steps trained {trained}, eval PSNR {records[2]['mean_psnr']:.4f}, {wall:.1f} s")
+        if trained != [0, 0] or any(r["resumed_from"] is None for r in records[:2]):
+            raise Failed(f"soak llff again: it trained {trained} steps")
+        if abs(records[2]["mean_psnr"] - out["llff"]["records"][2]["mean_psnr"]) > RESUME_PSNR_TOL:
+            raise Failed(f"soak llff again: eval PSNR {records[2]['mean_psnr']}, first "
+                         f"{out['llff']['records'][2]['mean_psnr']}")
+        out["llff_resumed"] = dict(records=records, counts=counts, wall_s=wall)
+    finally:
+        SinNeRFTrainer.fit = fit
+    torch.cuda.empty_cache()
+    out["tf32"] = phase_tf32(work)
+    return out
+
+
+def phase_tf32(work: str):
+    """Phase 24 B: the discriminator's gradients at the first step of the
+    LLFF soak's Step-2 leg (its trainer warm-started from Step 1's
+    ``last.ckpt``, its first batch and draws), taken with cuDNN's TF32 off,
+    on (the train CLI's default, PyTorch's) and off again: the relative L2
+    per D leaf, TF32 on against off and off against off.  TF32 is off for
+    the rest of the run."""
+    import torch
+
+    from sinnerf_tpu_torch.opt import get_opts
+    from sinnerf_tpu_torch.scripts import soak
+    from sinnerf_tpu_torch.train.loop import SinNeRFTrainer
+    from sinnerf_tpu_torch.train.step import compute_losses
+
+    scene = glob.glob(os.path.join(work, "scenes", "rich_llff_*"))[0]
+    ck, log = os.path.join(work, "ck"), os.path.join(work, "log")
+    _, (_, _, flags), _ = soak.legs("llff", 1, 1, scene, ck, log, [])
+    side = os.path.join(work, "tf32")  # this trainer's own checkpoints and logs, none written
+    trainer = SinNeRFTrainer(get_opts(flags + ["--ckpt_dir", side, "--log_dir", side]))
+    st = trainer.state
+    _, batch = next(trainer._epoch_batches(0, trainer.steps_per_epoch()))
+    gen_state = trainer.render_generator.get_state()
+    grads, losses = [], []
+    for tf32 in (False, True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        trainer.render_generator.set_state(gen_state)
+        for p in st.discriminator.parameters():
+            p.grad = None
+        total, aux = compute_losses(st.models, batch, trainer.cfg, 0.0, generator=trainer.render_generator,
+                                    discriminator=st.discriminator)
+        total.backward()
+        grads.append({k: p.grad.detach().clone() for k, p in st.discriminator.named_parameters()})
+        losses.append({k: float(aux["metrics"][k]) for k in ("train/loss", "train/loss_d", "train/loss_g_adv")})
+    tf32_off()
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b}
+
+    on_off, off_off = rel(grads[1], grads[0]), rel(grads[2], grads[0])
+    if not all(math.isfinite(v) for v in (*on_off.values(), *off_off.values())):
+        raise Failed(f"TF32: a D gradient is not finite: {on_off}, {off_off}")
+    print("TF32 in D, LLFF Step 2's first step: relative L2 per D leaf, TF32 on vs off (off vs off): " + ", ".join(
+        f"{k} {on_off[k]:.3e} ({off_off[k]:.3e})" for k in on_off) + f"; losses off {losses[0]}, on {losses[1]}")
+    del trainer, st, grads
+    torch.cuda.empty_cache()
+    return dict(on_vs_off=on_off, off_vs_off=off_off, losses=losses)
+
+
+def soak_launches(name: str, cd: str, soak_out):
+    """A kernel's launches in each leg of phase 24's soaks, as its wrapper
+    counted those of dtype ``cd`` (K2: all of them)."""
+    def key(counts):
+        return f"{name}[{cd}]" if f"{name}[{cd}]" in counts else name
+
+    return dict(soak_launches={run: {r["leg"]: r["launches_by_dtype"][key(r["launches_by_dtype"])]
+                                     for r in v["records"]} for run, v in soak_out.items()
+                               if isinstance(v, dict) and "records" in v})
+
+
+# --------------------------------------------------------------------------
 # phase 23: data parallelism over cards (parallel/ddp.py)
 # --------------------------------------------------------------------------
 
@@ -3130,9 +3311,10 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on the visible cards.")
-    parser.add_argument("--phases", choices=("all", "ddp", "prefetch"), default="all",
+    parser.add_argument("--phases", choices=("all", "ddp", "prefetch", "soak"), default="all",
                         help="ddp: the card, the build and the multi-GPU phase alone; prefetch: the card and "
-                             "the prefetched sampler alone (no kernel runs)")
+                             "the prefetched sampler alone (no kernel runs); soak: the card, the build and the "
+                             "soak phase alone")
     phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3177,6 +3359,13 @@ def main(argv=None) -> int:
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0
+        if phases == "soak":
+            with tempfile.TemporaryDirectory() as workdir:
+                soak_out = phase_soak(device, workdir)
+            print(json.dumps({"soak": soak_out, "card": card}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         sass, ptxas = sass_counts()
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
@@ -3213,6 +3402,10 @@ def main(argv=None) -> int:
             slice_s = time.perf_counter() - t_slice
             print(f"phases 18-22 (the Blender and DTU slice): {slice_s:.1f} s")
             ddp_out = phase_ddp(device, workdir, lego)
+            t_soak = time.perf_counter()
+            soak_out = phase_soak(device, workdir, lego)
+            soak_out["seconds"] = time.perf_counter() - t_soak
+        print(f"phase 24 (the soak's wiring and TF32): {soak_out['seconds']:.1f} s")
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3244,6 +3437,7 @@ def main(argv=None) -> int:
             slice_per_launch={x["shape"]: [x["ms"], x["plain_ms"], x["bound_ms"]]
                               for x in slice_k["k1"][cd]["launches"]},
             **slice_launches("K1", cd, slice_cli, slice_ev, demo, ddp_out),
+            **soak_launches("K1", cd, soak_out),
         ))
         kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], slice_k["k1"][cd]["err"][0])
         kernels[-1]["mean_abs_err"] = max(kernels[-1]["mean_abs_err"], slice_k["k1"][cd]["err"][1])
@@ -3272,6 +3466,7 @@ def main(argv=None) -> int:
                 slice_per_launch={x["shape"]: [x["ms"][d], x["ms"][d + "_plain"], x["bounds"][d]]
                                   for x in slice_k["k3"][cd]["launches"]},
                 **slice_launches(f"K3-{d}", cd, slice_cli, slice_ev, demo, ddp_out),
+                **soak_launches(f"K3-{d}", cd, soak_out),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -3324,6 +3519,7 @@ def main(argv=None) -> int:
                 per_launch={x["shape"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for x, r in zip(p["launches"], rows)},
                 det_step_ms=t["step_ms"], det_step_launches=t["counts"][2 if d == "fwd" else 3],
                 cli_step_ms=cli[f"deterministic_{cd}"]["step_ms"], cli_steps=cli[f"deterministic_{cd}"]["steps"],
+                **soak_launches(f"K4-{d}", cd, soak_out),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -3372,6 +3568,7 @@ def main(argv=None) -> int:
         # the slice's shapes: [ms (timed at the training batches), bound ms, error]
         slice_per_launch={x["shape"]: [x.get("ms"), x["bound_ms"], x["err"]] for x in slice_k["k2"]},
         **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo, ddp_out),
+        **soak_launches("K2", "bfloat16", soak_out),
     ))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], max(x["err"] for x in slice_k["k2"]))
     kernels += x_kernel_entries(x1_err, x1_res, x1_counts, x2_err, x2_res, x2_counts, sass, ptxas)
@@ -3382,7 +3579,7 @@ def main(argv=None) -> int:
                       "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli},
                       "slice": {"datasets": slice_data, "prefetch": prefetch, "cli": slice_cli, "eval": slice_ev,
                                 "demo": demo, "seconds": slice_s},
-                      "ddp": ddp_out}))
+                      "ddp": ddp_out, "soak": soak_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,8 @@
-"""Entry points of the port's kernel experiments, named after the JAX
-package's ``scripts/exp_*.py``, and what they share."""
+"""The port's scripts, named after the JAX package's ``scripts/``: the
+kernel experiments (``exp_kernel_variants``, ``exp_bwd_pipeline``) and what
+they share, the full-recipe soak and its status tool (``soak``,
+``soak_status``), the convergence demo, ``step_times`` and
+``compare_builds``."""
 
 from typing import Dict, List, Sequence, Tuple
 
