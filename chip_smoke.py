@@ -6,6 +6,7 @@ visible cards (one is enough).
     python3 chip_smoke.py --phases ddp   # the build and phase 23 alone
     python3 chip_smoke.py --phases prefetch   # phase 18's prefetched sampler alone
     python3 chip_smoke.py --phases soak   # the build and phase 24 alone
+    python3 chip_smoke.py --phases branches   # the build and phase 25 alone
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
@@ -213,10 +214,28 @@ Phases, any failure exits non-zero without the final result line:
    the discriminator's gradients at the LLFF Step-2 leg's first step with
    cuDNN's TF32 off, on (the train CLI's default) and off again, the
    relative L2 per D leaf printed;
-25. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
+25. every CLI choice that no earlier phase runs (``BRANCHES``; the others
+   are named in ``EARLIER_CHOICES``), each counted.  ``--use_disp``,
+   ``--patch_loss l2_ssim`` and ``l2_vgg`` (a random VGG16) and ``--dloss``
+   ``vanilla``, ``relavistic``, ``wgan`` and ``wgan_gp``: BRANCH_STEPS bf16
+   ``train_step``s on phase 8's batch with the Step-2 extras, the kernel path
+   against the plain path from the same weights and draws (the total loss of
+   every step, the first step's NeRF and D gradients to STEP_GRAD_TOL).
+   ``--spheric_poses``, ``--optimizer`` ``sgd``, ``radam`` and ``ranger``,
+   ``--lr_scheduler`` ``cosine`` and ``poly`` (``--warmup_epochs 1
+   --warmup_multiplier 2``): one train CLI leg each on the 504x378 LLFF
+   scene, BRANCH_EPOCHS epochs and a validation, gated on finite losses, a
+   written ``last.ckpt``, the rate per epoch equal to
+   ``train/optimizers.py``'s and the launches per kernel and dtype.
+   ``--loss_type l2_ssim`` and ``l2_vgg``: the train CLI refuses them, as the
+   reference's does.  ``--phases branches`` runs phase 1 and this phase
+   alone;
+26. print one ``kernels`` JSON line (with the Step-2 phases' numbers under
    ``step2``, the slice's under ``slice``, the multi-GPU phase's under
-   ``ddp``, the soak's under ``soak``; each kernel's launches per soak leg
-   under ``soak_launches``), then, last, ``{"ok": true, "device": {...}}``.
+   ``ddp``, the soak's under ``soak``, phase 25's under ``branches``; each
+   kernel's launches per soak leg under ``soak_launches`` and per phase-25
+   run under ``branch_launches``), then, last, ``{"ok": true, "device":
+   {...}}``.
 
 Errors of renders are max and mean absolute differences of rgb, weights and
 depth (as a share of the far bound).  Errors of gradients are per parameter
@@ -429,6 +448,46 @@ DDP_SEED = 5151
 DDP_EVAL_PSNR_TOL = 1e-2
 # the soak phase (24): these families' soaks, one epoch per leg
 SOAK_FAMILIES = ("lego", "llff")
+# phase 25: every CLI choice that no earlier phase runs, (flag, value) ->
+# (how, what).  "step": BRANCH_STEPS bf16 train_steps with these TrainConfig
+# fields (use_disp: the render's) on phase 8's batch, held against the plain
+# path as phase 15 holds the Step-2 step; "leg": one train CLI leg of
+# BRANCH_EPOCHS epochs on the 504x378 LLFF scene with these flags, one
+# validation at its end; "refusal": the train CLI must refuse these flags, as
+# the reference's trainer does (train/loop.py::_check_supported)
+BRANCHES = {
+    ("use_disp", True): ("step", dict(use_disp=True)),
+    ("patch_loss", "l2_ssim"): ("step", dict(patch_loss="l2_ssim")),
+    ("patch_loss", "l2_vgg"): ("step", dict(patch_loss="l2_vgg")),  # a random VGG16 trunk
+    **{("dloss", d): ("step", dict(dloss=d)) for d in ("vanilla", "relavistic", "wgan", "wgan_gp")},
+    ("spheric_poses", True): ("leg", ["--spheric_poses"]),
+    **{("optimizer", o): ("leg", ["--optimizer", o]) for o in ("sgd", "radam", "ranger")},
+    # the ramp doubles the rate over epochs 0-1, the schedule takes over from epoch 2
+    **{("lr_scheduler", s): ("leg", ["--lr_scheduler", s, "--warmup_epochs", "1", "--warmup_multiplier", "2"])
+       for s in ("cosine", "poly")},
+    **{("loss_type", t): ("refusal", ["--loss_type", t]) for t in ("l2_ssim", "l2_vgg")},
+}
+# the other choices of opt.py and of --dloss: the earlier phase's functions
+# that run each (its value in their source, or it is the flag's default)
+EARLIER_CHOICES = {
+    ("dataset_name", "llff_ray_patch_1image_proj"): ("phase_train_cli", "cli_flags"),
+    ("dataset_name", "blender_ray_patch_1image_rot3d"): ("phase_slice_cli",),
+    ("dataset_name", "blender_ray_patch_1image_proj"): ("phase_slice_cli",),
+    ("dataset_name", "dtu_proj"): ("phase_slice_cli",),
+    ("model", "sinnerf"): ("phase_slice_cli", "slice_flags"),
+    ("optimizer", "adam"): ("phase_train_cli",),
+    ("lr_scheduler", "steplr"): ("phase_train_cli",),
+    ("loss_type", "mse"): ("phase_train_cli",),
+    ("patch_loss", "mse"): ("phase_train_cli",),
+    ("compute_dtype", "bfloat16"): ("phase_train_cli",),
+    ("compute_dtype", "float32"): ("phase_train_cli",),
+    ("mlp_impl", "pallas"): ("phase_train_cli",),
+    ("mlp_impl", "xla"): ("phase_train_cli",),
+    ("dloss", "hinge"): ("phase_step2_cli",),
+}
+BRANCH_STEPS = 2
+BRANCH_EPOCHS = 4
+BRANCH_SEED = 2525
 
 
 def k4_bwd_tol(n: int, cd: str):
@@ -1250,10 +1309,12 @@ def step2_config(cd: str, mlp_impl: str = "pallas", **fields):
     return dataclasses.replace(train_config(cd, mlp_impl), **{**STEP2_FIELDS, **fields})
 
 
-def make_step2_draws(gen, b: int, device):
+def make_step2_draws(gen, b: int, device, dloss: str = "hinge"):
     """One step's Step-2 draws from the CPU generator ``gen``: the ViT
     refresh coins (on the host, as the step takes them), then each
-    discriminator call's coin and DiffAugment draws (on the card)."""
+    discriminator call's coin and DiffAugment draws (on the card), in the
+    step's call order (``relavistic`` augments the real patch for G's term
+    and calls D on it between the first and second calls)."""
     import torch
 
     from sinnerf_tpu_torch.models.diffaug import DiffAugDraws, fill_draws
@@ -1262,12 +1323,20 @@ def make_step2_draws(gen, b: int, device):
 
     x = torch.zeros(b, 3, TRAIN_PATCH, TRAIN_PATCH)
 
-    def call():
+    def coin_aug():
         coin = torch.rand((), generator=gen) < 0.5
         aug = fill_draws(x, POLICY, generator=gen)
-        return DCallDraws(coin.to(device), DiffAugDraws(*(None if t is None else t.to(device) for t in aug)))
+        return coin.to(device), DiffAugDraws(*(None if t is None else t.to(device) for t in aug))
 
-    return Step2Draws(refresh=refresh_coins(b, gen), d_fake_g=call(), d_real=call(), d_fake=call())
+    def call():
+        return DCallDraws(*coin_aug())
+
+    refresh, d_fake_g = refresh_coins(b, gen), call()
+    relavistic = {}
+    if dloss == "relavistic":
+        real_g_coin, real_g_aug = coin_aug()
+        relavistic = dict(real_g_coin=real_g_coin, real_g_aug=real_g_aug, d_real_g=call())
+    return Step2Draws(refresh=refresh, d_fake_g=d_fake_g, d_real=call(), d_fake=call(), **relavistic)
 
 
 def new_step2_state(device, lr: float = 2e-4):
@@ -3307,14 +3376,208 @@ def x_kernel_entries(x1_err, x1_res, x1_counts, x2_err, x2_res, x2_counts, sass,
     return kernels
 
 
+# --------------------------------------------------------------------------
+# phase 25: every CLI choice that no earlier phase runs (BRANCHES)
+# --------------------------------------------------------------------------
+
+
+def branch_name(flag: str, value) -> str:
+    return f"--{flag}" if value is True else f"--{flag} {value}"
+
+
+def branch_config(cd: str, mlp_impl: str, fields):
+    """``step2_config`` with a BRANCHES step's fields (``use_disp`` is the
+    render's)."""
+    import dataclasses
+
+    fields = dict(fields)
+    cfg = step2_config(cd, mlp_impl, **{k: v for k, v in fields.items() if k != "use_disp"})
+    if "use_disp" in fields:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, use_disp=fields["use_disp"]))
+    return cfg
+
+
+def branch_step(device, batch, draws, name: str, fields):
+    """BRANCH_STEPS bf16 ``train_step``s with ``fields`` on the kernels and
+    on the plain path, from the same weights with the same render and Step-2
+    draws, each path counted: the total loss of every step and the first
+    step's NeRF and discriminator gradients to STEP_GRAD_TOL; every loss
+    finite; per kernel-path step K3-fwd 2, K3-bwd 2, K2 1, all bf16; the
+    plain path launches nothing."""
+    import torch
+
+    from sinnerf_tpu_torch.models.vgg import load_vgg
+    from sinnerf_tpu_torch.train.step import train_step
+
+    cd = "bfloat16"
+    gen = torch.Generator().manual_seed(BRANCH_SEED)
+    step_draws = [make_step2_draws(gen, 1, device, fields.get("dloss", "hinge")) for _ in range(BRANCH_STEPS)]
+    seen = {}
+    for impl in ("pallas", "xla"):
+        cfg = branch_config(cd, impl, fields)
+        state = new_step2_state(device)
+        if cfg.patch_loss == "l2_vgg":
+            state.vgg = load_vgg(None, torch.Generator().manual_seed(STEP2_SEED + 2)).to(device)
+
+        def run():
+            nonlocal state
+            losses, grads = [], None
+            for i in range(BRANCH_STEPS):
+                state, aux = train_step(state, batch, cfg, 0.0, draws, step2_draws=step_draws[i])
+                losses.append({t: aux["metrics"][t] for t in STEP2_LOSSES})
+                if i == 0:
+                    grads = ([p.grad for m in state.models.values() for p in m.parameters()],
+                             [p.grad for p in state.discriminator.parameters()])
+            return losses, grads
+
+        (losses, grads), counts, wall = counted(run)
+        losses = [{t: float(v) for t, v in row.items()} for row in losses]
+        seen[impl] = dict(losses=losses, grads=grads, counts=counts, wall_s=wall)
+        if not all(math.isfinite(v) for row in losses for v in row.values()):
+            raise Failed(f"{name} on mlp_impl={impl}: a loss is not finite: {losses}")
+        del state
+    k, x = seen["pallas"], seen["xla"]
+    hold_branch_counts(name, k["counts"], BRANCH_STEPS, leg=False)
+    if any(x["counts"].values()):
+        raise Failed(f"{name}: the plain path launched kernels: {x['counts']}")
+    tol = STEP_GRAD_TOL[cd]
+    loss_err = max(abs(a["train/loss"] - b["train/loss"]) / max(abs(b["train/loss"]), 1e-30)
+                   for a, b in zip(k["losses"], x["losses"]))
+    err_g, err_d = grad_errors(k["grads"][0], x["grads"][0]), grad_errors(k["grads"][1], x["grads"][1])
+    for i, (a, b) in enumerate(zip(k["losses"], x["losses"])):
+        print(f"{name} step {i + 1}: " + ", ".join(f"{t[6:]} {a[t]:.6f} (plain {b[t]:.6f})" for t in STEP2_LOSSES))
+    print(f"{name}: total loss over {BRANCH_STEPS} steps, kernel path vs plain path: worst relative difference "
+          f"{loss_err:.3e} (tol {tol[0]:.0e}); {k['wall_s']:.1f} s (plain {x['wall_s']:.1f} s); launches {k['counts']}")
+    if not loss_err <= tol[0]:
+        raise Failed(f"{name}: the kernel path's loss leaves the plain path's")
+    hold_grads(f"{name} first step's NeRF gradients, kernel path vs plain path", err_g, tol)
+    hold_grads(f"{name} first step's discriminator gradients, kernel path vs plain path", err_d, tol)
+    torch.cuda.empty_cache()
+    return dict(losses=k["losses"], plain_losses=x["losses"], loss_err=loss_err, grad_err=err_g, d_grad_err=err_d,
+                counts=k["counts"], wall_s=k["wall_s"], plain_wall_s=x["wall_s"])
+
+
+def hold_branch_counts(name: str, counts, steps: int, leg: bool) -> None:
+    """Phase 25's launches over ``steps`` bf16 steps: K3-fwd and K3-bwd 2
+    per step, K2 1 per step (a leg: at least, and K1 in its validation),
+    every kernel in bf16."""
+    hold_dtype(counts, "bfloat16", name)
+    k2_k1 = counts["K2"] >= steps and counts["K1"] > 0 if leg else counts["K2"] == steps
+    if not (counts["K3-fwd"] == counts["K3-bwd"] == 2 * steps and k2_k1):
+        raise Failed(f"{name}: launch counts {counts} over {steps} steps")
+
+
+def record_losses(losses):
+    """Replace the trainer's ``train_step`` by one that also appends each
+    step's total loss (a tensor, read after the run); returns the original."""
+    from sinnerf_tpu_torch.train import loop
+
+    inner = loop.train_step
+
+    def step(*args, **kwargs):
+        state, out = inner(*args, **kwargs)
+        losses.append(out["metrics"]["train/loss"])
+        return state, out
+
+    loop.train_step = step
+    return inner
+
+
+def branch_leg(root: str, workdir: str, name: str, argv):
+    """One bf16 train CLI leg of BRANCH_EPOCHS epochs with ``argv`` on the
+    LLFF scene, one validation at its end, counted: every step's loss finite,
+    ``last.ckpt`` written, the rate per epoch as the optimizer held it equal
+    to ``train/optimizers.py::lr_for_epoch``'s, per step K3-fwd 2, K3-bwd 2,
+    K2 at least 1, K1 in the validation, all bf16."""
+    import torch
+
+    from sinnerf_tpu_torch.train import loop
+    from sinnerf_tpu_torch.train.optimizers import lr_for_epoch
+
+    exp = "branch_" + name.strip("-").replace(" ", "_")
+    flags = cli_flags(root, workdir, "bfloat16", exp) + argv + [
+        "--num_epochs", str(BRANCH_EPOCHS), "--check_val_every_n_epoch", str(BRANCH_EPOCHS)]
+    losses = []
+    inner = record_losses(losses)
+    try:
+        trainer, counts, wall = run_cli(flags)
+    finally:
+        loop.train_step = inner
+    losses = [float(v) for v in losses]
+    steps = sum(e[1] for e in trainer.epoch_log)
+    hold_branch_counts(name, counts, steps, leg=True)
+    want_lr = [(e, lr_for_epoch(trainer.hparams, e)) for e in range(BRANCH_EPOCHS)]
+    last = os.path.join(workdir, "train_ckpts", exp, "last.ckpt")
+    print(f"{name}: train CLI leg, {steps} steps, val PSNR {trainer.val_log}, loss "
+          f"{' -> '.join(f'{v:.5f}' for v in losses[:1] + losses[-1:])}, rate per epoch {trainer.lr_log}, "
+          f"{wall:.1f} s; launches {counts}")
+    if [e[0] for e in trainer.epoch_log] != list(range(BRANCH_EPOCHS)) or len(losses) != steps:
+        raise Failed(f"{name}: epochs {trainer.epoch_log}, {len(losses)} losses")
+    if not all(math.isfinite(v) for v in losses) or not math.isfinite(trainer.best_psnr):
+        raise Failed(f"{name}: losses {losses}, best val PSNR {trainer.best_psnr}")
+    if not os.path.exists(last):
+        raise Failed(f"{name}: no {last}")
+    if trainer.lr_log != want_lr:
+        raise Failed(f"{name}: rate per epoch {trainer.lr_log}, train/optimizers.py gives {want_lr}")
+    out = dict(steps=steps, losses=losses, val_log=trainer.val_log, lr_log=trainer.lr_log, counts=counts,
+               wall_s=wall)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def branch_refusal(root: str, workdir: str, name: str, argv):
+    """The train CLI on ``argv`` must raise its ValueError naming the flag
+    before it trains: counted, no kernel launched."""
+    exp = "branch_" + name.strip("-").replace(" ", "_")
+    try:
+        _, counts, _ = run_cli(cli_flags(root, workdir, "bfloat16", exp) + argv)
+    except ValueError as e:
+        if argv[0] not in str(e):
+            raise Failed(f"{name}: refused for another reason: {e}")
+        print(f"{name}: refused: {e}")
+        return dict(refused=str(e))
+    raise Failed(f"{name}: the train CLI ran ({counts}); the reference's trainer refuses it")
+
+
+def phase_branches(device, batch, draws):
+    """Phase 25: every choice of BRANCHES, each as its entry says (a step
+    held against the plain path, a train CLI leg, a refusal)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        root, _ = make_scene(workdir)
+        for (flag, value), (how, what) in BRANCHES.items():
+            name = branch_name(flag, value)
+            if how == "step":
+                out[name] = branch_step(device, batch, draws, name, what)
+            elif how == "leg":
+                out[name] = branch_leg(root, workdir, name, what)
+            else:
+                out[name] = branch_refusal(root, workdir, name, what)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25 (every CLI choice no earlier phase runs): {out['seconds']:.1f} s")
+    return out
+
+
+def branch_launches(name: str, cd: str, branches):
+    """A kernel's launches in each of phase 25's counted runs, as its
+    wrapper counted those of dtype ``cd`` (K2: all of them)."""
+    def key(counts):
+        return f"{name}[{cd}]" if f"{name}[{cd}]" in counts else name
+
+    return dict(branch_launches={choice: r["counts"][key(r["counts"])] for choice, r in branches.items()
+                                 if isinstance(r, dict) and "counts" in r})
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on the visible cards.")
-    parser.add_argument("--phases", choices=("all", "ddp", "prefetch", "soak"), default="all",
+    parser.add_argument("--phases", choices=("all", "ddp", "prefetch", "soak", "branches"), default="all",
                         help="ddp: the card, the build and the multi-GPU phase alone; prefetch: the card and "
                              "the prefetched sampler alone (no kernel runs); soak: the card, the build and the "
-                             "soak phase alone")
+                             "soak phase alone; branches: the card, the build and phase 25 alone")
     phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3366,6 +3629,13 @@ def main(argv=None) -> int:
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0
+        if phases == "branches":
+            rng = np.random.default_rng(0)
+            branches = phase_branches(device, make_train_batch(rng, device), make_draws(rng, 4 * TRAIN_RAYS, device))
+            print(json.dumps({"branches": branches, "card": card}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         sass, ptxas = sass_counts()
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
@@ -3406,6 +3676,7 @@ def main(argv=None) -> int:
             soak_out = phase_soak(device, workdir, lego)
             soak_out["seconds"] = time.perf_counter() - t_soak
         print(f"phase 24 (the soak's wiring and TF32): {soak_out['seconds']:.1f} s")
+        branches = phase_branches(device, batch, draws)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3438,6 +3709,7 @@ def main(argv=None) -> int:
                               for x in slice_k["k1"][cd]["launches"]},
             **slice_launches("K1", cd, slice_cli, slice_ev, demo, ddp_out),
             **soak_launches("K1", cd, soak_out),
+            **branch_launches("K1", cd, branches),
         ))
         kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], slice_k["k1"][cd]["err"][0])
         kernels[-1]["mean_abs_err"] = max(kernels[-1]["mean_abs_err"], slice_k["k1"][cd]["err"][1])
@@ -3467,6 +3739,7 @@ def main(argv=None) -> int:
                                   for x in slice_k["k3"][cd]["launches"]},
                 **slice_launches(f"K3-{d}", cd, slice_cli, slice_ev, demo, ddp_out),
                 **soak_launches(f"K3-{d}", cd, soak_out),
+                **branch_launches(f"K3-{d}", cd, branches),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -3520,6 +3793,7 @@ def main(argv=None) -> int:
                 det_step_ms=t["step_ms"], det_step_launches=t["counts"][2 if d == "fwd" else 3],
                 cli_step_ms=cli[f"deterministic_{cd}"]["step_ms"], cli_steps=cli[f"deterministic_{cd}"]["steps"],
                 **soak_launches(f"K4-{d}", cd, soak_out),
+                **branch_launches(f"K4-{d}", cd, branches),
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
@@ -3569,6 +3843,7 @@ def main(argv=None) -> int:
         slice_per_launch={x["shape"]: [x.get("ms"), x["bound_ms"], x["err"]] for x in slice_k["k2"]},
         **slice_launches("K2", "bfloat16", slice_cli, slice_ev, demo, ddp_out),
         **soak_launches("K2", "bfloat16", soak_out),
+        **branch_launches("K2", "bfloat16", branches),
     ))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], max(x["err"] for x in slice_k["k2"]))
     kernels += x_kernel_entries(x1_err, x1_res, x1_counts, x2_err, x2_res, x2_counts, sass, ptxas)
@@ -3579,7 +3854,7 @@ def main(argv=None) -> int:
                       "step2": {"step": step2, "profile": step2_profile, "cli": step2_cli},
                       "slice": {"datasets": slice_data, "prefetch": prefetch, "cli": slice_cli, "eval": slice_ev,
                                 "demo": demo, "seconds": slice_s},
-                      "ddp": ddp_out, "soak": soak_out}))
+                      "ddp": ddp_out, "soak": soak_out, "branches": branches}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,7 @@
 counterpart of the JAX package's ``scripts/soak.sh``.
 
     python -m sinnerf_tpu_torch.scripts.soak {lego,llff,dtu,llff_vit0} [epochs1] [epochs2] \\
-        [--work_dir DIR] [--log_dir DIR] [-- <flags appended to every leg>]
+        [--work_dir DIR] [--log_dir DIR] [--legs step1,step2,eval] [-- <flags appended to every leg>]
 
 For a family it writes its multi-view-consistent scene (the port's own
 writers, ``data/synthetic.py``) at the legs' ``--img_wh``, then runs Step 1
@@ -23,12 +23,14 @@ flag's last value); the eval leg drops those its CLI does not define.  A
 leg whose ``<ck>/<exp>/last.ckpt`` exists resumes from it (``--ckpt_path``),
 so a finished leg trains no further epoch and a soak can run in pieces; a
 checkpoint is written at each validation, so cut epochs at a multiple of
-``--check_val_every_n_epoch``.  A failed leg stops the soak.
+``--check_val_every_n_epoch``.  A failed leg stops the soak.  ``--legs``
+runs only the legs it names: Step 1 alone can then run to its full count
+over several calls before Step 2 warm-starts from it.
 
 After each run of a leg one JSON line is appended to
 ``<log_dir>/<exp>/soak.jsonl`` (``soak_status`` reads it): a train leg's
-``loop.summary`` (``val_log``, ``epoch_log``, ``steps_per_epoch``, ``step``,
-``best_psnr``), its ms per step (host clock per epoch), wall seconds, the
+``loop.summary`` (``val_log``, ``epoch_log``, ``lr_log``, ``steps_per_epoch``,
+``step``, ``best_psnr``), its ms per step (host clock per epoch), wall seconds, the
 kernels' launches per kernel and dtype, and the card's name and power
 limit; the eval leg's mean PSNR and ms per image.  Default directories lie
 under ``soak_runs/`` of the checkout: ``ck/``, ``log/``, ``scenes/`` and the
@@ -52,6 +54,7 @@ from typing import Dict, List, Optional, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_WORK_DIR = os.path.join(REPO, "soak_runs")
+LEGS = ("step1", "step2", "eval")
 DEFAULT_EPOCHS = {"lego": (160, 20), "llff": (2000, 2000), "dtu": (2000, 2000), "llff_vit0": (2000, 2000)}
 
 # The families' flags as soak.sh:36-111 has them (COMMON, S1, S2, EVAL), with
@@ -248,8 +251,8 @@ def run_train_leg(family: str, leg: str, exp: str, flags: List[str], ck: str, lo
     steps = sum(e[1] for e in summ["epoch_log"])
     ms_per_step = 1e3 * sum(e[2] for e in summ["epoch_log"]) / steps if steps else None
     record = dict(leg=leg, family=family, exp=exp, time=time.time(), resumed_from=last if resumed else None,
-                  argv=argv, **{k: summ[k] for k in ("val_log", "epoch_log", "steps_per_epoch", "step",
-                                                      "best_psnr")},
+                  argv=argv, **{k: summ[k] for k in ("val_log", "epoch_log", "lr_log", "steps_per_epoch",
+                                                      "step", "best_psnr")},
                   steps=steps, ms_per_step=ms_per_step, wall_s=wall, launches_by_dtype=launches,
                   card=card_line() if hparams.device == "cuda" else None)
     del result
@@ -297,13 +300,20 @@ def get_args(argv: Sequence[str]):
     p.add_argument("--work_dir", default=DEFAULT_WORK_DIR,
                    help="holds ck/, scenes/, the eval CLI's results/ and, by default, log/")
     p.add_argument("--log_dir", default=None, help="the legs' --log_dir and the soak.jsonl records")
-    return p.parse_args(argv)
+    p.add_argument("--legs", default=",".join(LEGS),
+                   help="comma-separated legs to run, in the soak's order (default: all of them)")
+    args = p.parse_args(argv)
+    args.legs = tuple(args.legs.split(","))
+    if not set(args.legs) <= set(LEGS):
+        p.error(f"--legs: {args.legs} are not among {LEGS}")
+    return args
 
 
-def legs(family: str, e1: int, e2: int, root: str, ck: str, log_dir: str, extra: Sequence[str]):
-    """The family's legs as (leg, exp, argv): Step 1, then (but for
-    ``llff_vit0``) Step 2 and the eval CLI, each with ``extra`` appended (the
-    eval leg keeps those flags its CLI defines)."""
+def legs(family: str, e1: int, e2: int, root: str, ck: str, log_dir: str, extra: Sequence[str],
+         only: Sequence[str] = LEGS):
+    """The family's legs among ``only`` as (leg, exp, argv): Step 1, then
+    (but for ``llff_vit0``) Step 2 and the eval CLI, each with ``extra``
+    appended (the eval leg keeps those flags its CLI defines)."""
     from sinnerf_tpu_torch.eval import _EVAL_FLAGS
 
     r = RECIPES[family]
@@ -312,7 +322,7 @@ def legs(family: str, e1: int, e2: int, root: str, ck: str, log_dir: str, extra:
     if r["s2"] is not None:
         out.append(("step2", r["exp2"], fill(r["common"] + r["s2"], **paths) + list(extra)))
         out.append(("eval", r["exp2"], fill(r["eval"], **paths) + known_flags(extra, {n for n, _ in _EVAL_FLAGS})))
-    return out
+    return [leg for leg in out if leg[0] in only]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -336,7 +346,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     print(f"soak {args.family}: scene {root} ({time.perf_counter() - t0:.1f} s), device {device}, epochs {e1} / "
           f"{e2}, log {log_dir}")
     records = []
-    for leg, exp, flags in legs(args.family, e1, e2, root, ck, log_dir, extra):
+    for leg, exp, flags in legs(args.family, e1, e2, root, ck, log_dir, extra, args.legs):
         print(f"=== {args.family} {leg} ({exp}) ===", flush=True)
         if leg == "eval":
             records.append(run_eval_leg(args.family, exp, flags, work_dir, log_dir))

@@ -60,7 +60,7 @@ from sinnerf_tpu_torch.train.checkpoints import (
     nerf_state_dict,
     read_checkpoint,
 )
-from sinnerf_tpu_torch.train.optimizers import get_optimizer, lr_for_epoch, set_lr
+from sinnerf_tpu_torch.train.optimizers import get_learning_rate, get_optimizer, lr_for_epoch, set_lr
 from sinnerf_tpu_torch.train.step import Step2Draws, TrainConfig, TrainState, batch_coins, refresh_coins, train_step
 from sinnerf_tpu_torch.utils.device import resolve_device
 from sinnerf_tpu_torch.utils.metrics import psnr as psnr_metric
@@ -248,6 +248,7 @@ class SinNeRFTrainer:
         self._pending_log = None  # (host copies and their event, step, lr) of the last log step
         self.epoch_log: List[Tuple[int, int, float]] = []  # (epoch, steps, seconds) of each training epoch
         self.val_log: List[Tuple[int, float]] = []  # (epoch, val PSNR) of each validation
+        self.lr_log: List[Tuple[int, float]] = []  # (epoch, G's learning rate as its optimizer holds it) per epoch
 
     # ------------------------------------------------------------------ io
     def _resume(self, path: str):
@@ -374,6 +375,7 @@ class SinNeRFTrainer:
         device."""
         lr = lr_for_epoch(self.hparams, epoch)
         set_lr(self.state.opt_g, lr)
+        self.lr_log.append((epoch, get_learning_rate(self.state.opt_g)))
         if self.state.opt_d is not None:
             # the schedule binds to G's optimizer only (sinnerf.py:202-210):
             # D trains at a constant 0.2x the base lr, re-asserted every epoch
@@ -483,7 +485,8 @@ def run(rank: int, world: int, hparams) -> SinNeRFTrainer:
 def summary(trainer: SinNeRFTrainer) -> Dict[str, Any]:
     """What a rank's run leaves for the process that started it."""
     return dict(rank=trainer.rank, world=trainer.world, best_psnr=trainer.best_psnr, epoch_log=trainer.epoch_log,
-                val_log=trainer.val_log, steps_per_epoch=trainer.steps_per_epoch(), step=trainer.state.step)
+                val_log=trainer.val_log, lr_log=trainer.lr_log, steps_per_epoch=trainer.steps_per_epoch(),
+                step=trainer.state.step)
 
 
 def run_rank(rank: int, world: int, hparams) -> Dict[str, Any]:

@@ -96,6 +96,16 @@ def test_legs_append_flags_and_the_eval_leg_keeps_its_own():
     assert soak.DEFAULT_WORK_DIR == os.path.join(REPO, "soak_runs")
 
 
+def test_legs_flag_picks_legs_in_the_soaks_order():
+    args = soak.get_args(["llff", "1600", "--legs", "step1"])
+    assert (args.family, args.epochs1, args.legs) == ("llff", 1600, ("step1",))
+    assert soak.get_args(["llff"]).legs == ("step1", "step2", "eval")
+    picked = soak.legs("llff", 1, 2, "R", "C", "L", [], soak.get_args(["llff", "--legs", "eval,step2"]).legs)
+    assert [leg for leg, _, _ in picked] == ["step2", "eval"]
+    with pytest.raises(SystemExit):
+        soak.get_args(["llff", "--legs", "step3"])
+
+
 def test_soak_without_a_card_raises_before_writing(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -175,9 +185,10 @@ def test_every_leg_appends_its_record(tiny_soak):
     assert [r["leg"] for r in step1] == ["step1", "step1"]
     assert [r["leg"] for r in step2] == ["step2", "eval", "step2", "eval"]
     first = step1[0]
-    for key in ("val_log", "epoch_log", "steps_per_epoch", "step", "best_psnr", "ms_per_step", "wall_s",
+    for key in ("val_log", "epoch_log", "lr_log", "steps_per_epoch", "step", "best_psnr", "ms_per_step", "wall_s",
                 "launches_by_dtype", "card"):
         assert key in first
+    assert first["lr_log"] == [[0, 2e-4]] and step2[0]["lr_log"] == [[0, 5e-5]]  # each leg's --lr at epoch 0
     assert first["steps_per_epoch"] == 10 and first["epoch_log"][0][:2] == [0, 10] and first["ms_per_step"] > 0
     assert first["card"] is None and set(first["launches_by_dtype"].values()) == {0}  # the CPU: plain versions
     assert step2[1]["ms_per_image"] > 0
