@@ -46,6 +46,7 @@ import torch
 
 from sinnerf_tpu_torch.data import poses
 from sinnerf_tpu_torch.ops.warp import last_write_winners
+from sinnerf_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,7 +299,8 @@ def _sample_items(
         valid = (_strided_sum_map(depth_map.reshape(n, h_img, w_img), cfg) != 0).reshape(n, -1)
         rank = patch_code
         if rank_states:
-            counts = valid.sum(1).tolist()  # the group's one read of the device
+            with span("sampler.read"):
+                counts = valid.sum(1).tolist()  # the group's one read of the device
             drawn = torch.zeros(n, dtype=torch.long)
             replay = torch.Generator()
             for pos, state in rank_states.items():

@@ -120,7 +120,10 @@ _FLAG_SPEC = [
     ("profile", dict(flag=True,
                      help="write a torch.profiler trace of the fit into "
                           "log_dir (reference enables a profiler on "
-                          "single-GPU runs, train.py:59)")),
+                          "single-GPU runs, train.py:59); the trace "
+                          "carries the sinnerf.* spans of the train path "
+                          "(the step's phases, the sampler, the log's "
+                          "copy, wait and writes; utils/spans.py)")),
     # the port's own --------------------------------------------------------
     ("device", dict(type=str, default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, the CPU")),

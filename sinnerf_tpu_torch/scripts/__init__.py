@@ -1,8 +1,7 @@
 """The port's scripts, named after the JAX package's ``scripts/``: the
 kernel experiments (``exp_kernel_variants``, ``exp_bwd_pipeline``) and what
 they share, the full-recipe soak and its status tool (``soak``,
-``soak_status``), the convergence demo, ``step_times`` and
-``compare_builds``."""
+``soak_status``), the convergence demo and ``compare_builds``."""
 
 from typing import Dict, List, Sequence, Tuple
 

@@ -64,6 +64,7 @@ from sinnerf_tpu_torch.train.optimizers import get_learning_rate, get_optimizer,
 from sinnerf_tpu_torch.train.step import Step2Draws, TrainConfig, TrainState, batch_coins, refresh_coins, train_step
 from sinnerf_tpu_torch.utils.device import resolve_device
 from sinnerf_tpu_torch.utils.metrics import psnr as psnr_metric
+from sinnerf_tpu_torch.utils.spans import span
 from sinnerf_tpu_torch.utils.visualization import visualize_depth
 
 D_LR_RATE = 0.2  # the discriminator's constant share of --lr (sinnerf.py:208)
@@ -316,7 +317,11 @@ class SinNeRFTrainer:
     def fit(self) -> float:
         """Train and validate; returns the best val PSNR.  ``--profile``
         writes a ``torch.profiler`` trace of the fit into the log dir (the
-        reference profiles single-GPU runs, ``train.py:59``)."""
+        reference profiles single-GPU runs, ``train.py:59``); the trace
+        carries the train path's ``sinnerf.*`` spans (``utils/spans.py``:
+        the step's phases, the sampler and its card read, the log's host
+        copy, wait and writes, the epoch's synchronise) beside the card's
+        kernels."""
         if not self.hparams.profile:
             return self._fit()
         from torch.profiler import ProfilerActivity, profile
@@ -359,12 +364,14 @@ class SinNeRFTrainer:
         while i < spe:
             k = min(k_pref, spe - i)
             steps = [(epoch * spe + i + j) * self.world + self.rank for j in range(k)]
-            if k == 1:
-                yield i, ds.sample(steps[0], self.batch_size, gen)
-            else:
-                batches = ds.sample_many(steps, self.batch_size, gen)
-                for j in range(k):
-                    yield i + j, {name: v[j] for name, v in batches.items()}
+            with span("sampler"):
+                if k == 1:
+                    group = [ds.sample(steps[0], self.batch_size, gen)]
+                else:
+                    batches = ds.sample_many(steps, self.batch_size, gen)
+                    group = [{name: v[j] for name, v in batches.items()} for j in range(k)]
+            for j, batch in enumerate(group):
+                yield i + j, batch
             i += k
 
     def _run_epoch(self, epoch: int, spe: int) -> None:
@@ -390,15 +397,18 @@ class SinNeRFTrainer:
             self.state, out = train_step(self.state, batch, self.cfg, float(epoch), generator=self.render_generator,
                                          step2_draws=step2_draws, grad_hook=self.grad_hook)
             if self.state.step % 10 == 0:
-                metrics = ddp.reduce_metrics(out["metrics"], self.world)  # every rank: a collective
+                with span("log.start"):
+                    metrics = ddp.reduce_metrics(out["metrics"], self.world)  # every rank: a collective
+                    if self.writer:
+                        images = {k: out["images"][k][0] for k in LOG_IMAGE_KEYS}
+                        payload = _start_host_copy({"metrics": metrics, "images": images})
                 if self.writer:
-                    images = {k: out["images"][k][0] for k in LOG_IMAGE_KEYS}
-                    payload = _start_host_copy({"metrics": metrics, "images": images})
                     self._flush_pending_log()
                     self._pending_log = (payload, self.state.step, lr)
         self._flush_pending_log()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("epoch.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.epoch_log.append((epoch, spe, dt))
         if self.writer:
@@ -411,10 +421,12 @@ class SinNeRFTrainer:
             return
         (tree, done), step, lr = self._pending_log
         self._pending_log = None
-        if done is not None:
-            done.synchronize()
-        self._log_scalars(tree["metrics"], step, lr)
-        self._log_images(tree["images"], step)
+        with span("log.wait"):
+            if done is not None:
+                done.synchronize()
+        with span("log.write"):
+            self._log_scalars(tree["metrics"], step, lr)
+            self._log_images(tree["images"], step)
 
     def _log_scalars(self, metrics: Dict[str, torch.Tensor], step: int, lr: float) -> None:
         self.writer.add_scalar("lr", lr, step)

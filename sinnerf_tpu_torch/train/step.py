@@ -54,6 +54,7 @@ from sinnerf_tpu_torch.models.vgg import VGG16Features
 from sinnerf_tpu_torch.models.vit import EMBED_DIM, ViT, vit_cls
 from sinnerf_tpu_torch.render.renderer import RenderSettings, render_rays
 from sinnerf_tpu_torch.utils.metrics import psnr
+from sinnerf_tpu_torch.utils.spans import span
 
 POLICY = "color,cutout"  # DiffAugment inside the discriminator (sinnerf.py:445-487)
 VIT_REFRESH_PROB = 0.05  # per item and step, the cached ViT feature's refresh (sinnerf.py:273)
@@ -209,7 +210,8 @@ def compute_losses(
 
     # ---- one render over all 4 bundles ------------------------------------
     bundles = [_flat(batch[k], 8) for k in ("rays", "depth_ray", "rays_full", "rays_proj")]
-    rendered = render_rays(models, torch.cat(bundles, dim=0), cfg.render, *draws, generator=generator)
+    with span("step.render"):
+        rendered = render_rays(models, torch.cat(bundles, dim=0), cfg.render, *draws, generator=generator)
     offs = [0]
     for r in bundles:
         offs.append(offs[-1] + r.shape[0])
@@ -249,22 +251,23 @@ def compute_losses(
         ref_feature_valid = torch.zeros((b,), dtype=torch.bool)
     loss_vit = zero
     if cfg.vit_weight > 0:
-        # per item: refresh on a coin of p = VIT_REFRESH_PROB, or while the
-        # cache is invalid (the first step); the coins are host tensors, so
-        # whether to run the ViT on the real patch reads nothing back
-        refresh = step2_draws.refresh if step2_draws.refresh is not None else refresh_coins(b)
-        refresh = refresh.cpu() | ~ref_feature_valid.cpu()
-        if bool(refresh.any()):
-            with torch.no_grad():
-                fresh = vit_cls(vit, real_patch)
-            # a non-blocking copy of the host coins: a blocking one would
-            # wait for the render queued before it
-            mask = refresh.to(real_patch.device, non_blocking=True)
-            ref_feature = torch.where(mask[:, None], fresh, ref_feature)
-        ref_feature_valid = ref_feature_valid.cpu() | refresh
-        # one batched ViT call for both rendered patches
-        sem = vit_cls(vit, torch.cat([side_imgs["rgb_coarse"], side_imgs["rgb_fine"]], dim=0))
-        loss_vit = torch.mean((sem[:b] - ref_feature) ** 2) + torch.mean((sem[b:] - ref_feature) ** 2)
+        with span("step.vit"):
+            # per item: refresh on a coin of p = VIT_REFRESH_PROB, or while the
+            # cache is invalid (the first step); the coins are host tensors, so
+            # whether to run the ViT on the real patch reads nothing back
+            refresh = step2_draws.refresh if step2_draws.refresh is not None else refresh_coins(b)
+            refresh = refresh.cpu() | ~ref_feature_valid.cpu()
+            if bool(refresh.any()):
+                with torch.no_grad(), span("step.vit.refresh"):
+                    fresh = vit_cls(vit, real_patch)
+                # a non-blocking copy of the host coins: a blocking one would
+                # wait for the render queued before it
+                mask = refresh.to(real_patch.device, non_blocking=True)
+                ref_feature = torch.where(mask[:, None], fresh, ref_feature)
+            ref_feature_valid = ref_feature_valid.cpu() | refresh
+            # one batched ViT call for both rendered patches
+            sem = vit_cls(vit, torch.cat([side_imgs["rgb_coarse"], side_imgs["rgb_fine"]], dim=0))
+            loss_vit = torch.mean((sem[:b] - ref_feature) ** 2) + torch.mean((sem[b:] - ref_feature) ** 2)
 
     # ---- patch depth supervision (sinnerf.py:354-387) ---------------------
     depth_gt_img = batch["depth_gt"].reshape(b, psx, psy)
@@ -313,37 +316,38 @@ def compute_losses(
     loss_d_g = loss_d_d = zero
     d_u = None
     if cfg.dis_weight > 0:
-        fake_img = side_imgs["rgb_fine"]
-        sd = step2_draws
+        with span("step.disc"):
+            fake_img = side_imgs["rgb_fine"]
+            sd = step2_draws
 
-        def d_call(x, u, frozen, d_draws):
-            return discriminator(x, u, frozen=frozen, draws=d_draws, generator=generator, policy=POLICY)
+            def d_call(x, u, frozen, d_draws):
+                return discriminator(x, u, frozen=frozen, draws=d_draws, generator=generator, policy=POLICY)
 
-        # G term: frozen D, its u advanced by this call first
-        pred_fake_g, u = d_call(fake_img, None, True, sd.d_fake_g)
-        g_pred_real = None
-        if cfg.dloss == "relavistic":
-            # the reference's G branch runs its own D(DiffAugment(real))
-            # (sinnerf.py:454): an outer augmentation with its own coin,
-            # then D's internal one
-            apply = sd.real_g_coin if sd.real_g_coin is not None else coin(real_patch, generator)
-            x_real_g = torch.where(apply, diff_augment(real_patch, POLICY, sd.real_g_aug, generator), real_patch)
-            g_pred_real, u = d_call(x_real_g, u, True, sd.d_real_g)
-        # D terms: live D, detached renders
-        if cfg.dloss == "wgan_gp":
-            # R1 through the very pred_real forward, second order
-            # (create_graph), as the JAX step differentiates it
-            x_real = real_patch.detach().requires_grad_(True)
-            pred_real, u = d_call(x_real, u, False, sd.d_real)
-            (grads_x,) = torch.autograd.grad(pred_real.sum(), x_real, create_graph=True)
-        else:
-            pred_real, u = d_call(real_patch, u, False, sd.d_real)
-        pred_fake_d, d_u = d_call(fake_img.detach(), u, False, sd.d_fake)
-        g_real = g_pred_real if g_pred_real is not None else pred_real
-        loss_d_g = gan_g_loss(pred_fake_g, cfg.dloss, pred_real=g_real.detach())
-        loss_d_d = gan_d_loss(pred_real, pred_fake_d, cfg.dloss)
-        if cfg.dloss == "wgan_gp":
-            loss_d_d = loss_d_d + 10.0 * torch.mean(torch.sum(grads_x.reshape(b, -1) ** 2, dim=1))
+            # G term: frozen D, its u advanced by this call first
+            pred_fake_g, u = d_call(fake_img, None, True, sd.d_fake_g)
+            g_pred_real = None
+            if cfg.dloss == "relavistic":
+                # the reference's G branch runs its own D(DiffAugment(real))
+                # (sinnerf.py:454): an outer augmentation with its own coin,
+                # then D's internal one
+                apply = sd.real_g_coin if sd.real_g_coin is not None else coin(real_patch, generator)
+                x_real_g = torch.where(apply, diff_augment(real_patch, POLICY, sd.real_g_aug, generator), real_patch)
+                g_pred_real, u = d_call(x_real_g, u, True, sd.d_real_g)
+            # D terms: live D, detached renders
+            if cfg.dloss == "wgan_gp":
+                # R1 through the very pred_real forward, second order
+                # (create_graph), as the JAX step differentiates it
+                x_real = real_patch.detach().requires_grad_(True)
+                pred_real, u = d_call(x_real, u, False, sd.d_real)
+                (grads_x,) = torch.autograd.grad(pred_real.sum(), x_real, create_graph=True)
+            else:
+                pred_real, u = d_call(real_patch, u, False, sd.d_real)
+            pred_fake_d, d_u = d_call(fake_img.detach(), u, False, sd.d_fake)
+            g_real = g_pred_real if g_pred_real is not None else pred_real
+            loss_d_g = gan_g_loss(pred_fake_g, cfg.dloss, pred_real=g_real.detach())
+            loss_d_d = gan_d_loss(pred_real, pred_fake_d, cfg.dloss)
+            if cfg.dloss == "wgan_gp":
+                loss_d_d = loss_d_d + 10.0 * torch.mean(torch.sum(grads_x.reshape(b, -1) ** 2, dim=1))
 
     # ---- total (sinnerf.py:492-509) ---------------------------------------
     dw = max(cfg.depth_weight - epoch / (500.0 / cfg.depth_weight), 1.0) if cfg.depth_anneal else cfg.depth_weight
@@ -417,22 +421,26 @@ def train_step(
     all-reduces the gradients there (``parallel.ddp.gradient_hook``).  The
     metrics stay this batch's."""
     gan = cfg.dis_weight > 0
-    state.opt_g.zero_grad(set_to_none=True)
-    if gan:
-        state.opt_d.zero_grad(set_to_none=True)
-    total, aux = compute_losses(
-        state.models, batch, cfg, epoch, draws, generator, discriminator=state.discriminator, vit=state.vit,
-        vgg=state.vgg, ref_feature=state.ref_feature, ref_feature_valid=state.ref_feature_valid,
-        step2_draws=step2_draws,
-    )
-    total.backward()
-    if grad_hook is not None:
-        grad_hook([state.opt_g, state.opt_d] if gan else [state.opt_g])
-    state.opt_g.step()
-    if gan:
-        state.opt_d.step()
-        state.discriminator.set_u(aux["d_u"])
-    if cfg.vit_weight > 0:
-        state.ref_feature, state.ref_feature_valid = aux["ref_feature"], aux["ref_feature_valid"]
-    state.step += 1
+    with span("step"):
+        state.opt_g.zero_grad(set_to_none=True)
+        if gan:
+            state.opt_d.zero_grad(set_to_none=True)
+        with span("step.losses"):
+            total, aux = compute_losses(
+                state.models, batch, cfg, epoch, draws, generator, discriminator=state.discriminator,
+                vit=state.vit, vgg=state.vgg, ref_feature=state.ref_feature,
+                ref_feature_valid=state.ref_feature_valid, step2_draws=step2_draws,
+            )
+        with span("step.backward"):
+            total.backward()
+        with span("step.optimizer"):
+            if grad_hook is not None:
+                grad_hook([state.opt_g, state.opt_d] if gan else [state.opt_g])
+            state.opt_g.step()
+            if gan:
+                state.opt_d.step()
+                state.discriminator.set_u(aux["d_u"])
+            if cfg.vit_weight > 0:
+                state.ref_feature, state.ref_feature_valid = aux["ref_feature"], aux["ref_feature_valid"]
+        state.step += 1
     return state, {"metrics": aux["metrics"], "images": aux["images"]}
