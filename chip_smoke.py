@@ -7,6 +7,7 @@ visible cards (one is enough).
     python3 chip_smoke.py --phases prefetch   # phase 18's prefetched sampler alone
     python3 chip_smoke.py --phases soak   # the build and phase 24 alone
     python3 chip_smoke.py --phases branches   # the build and phase 25 alone
+    python3 chip_smoke.py --phases k3bwd   # the build and phase 19's K3-bwd bf16 split alone
 
 Phases, any failure exits non-zero without the final result line:
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
@@ -164,7 +165,14 @@ Phases, any failure exits non-zero without the final result line:
    the white background: K3-fwd and K3-bwd at 16,384, 20,480 and 16,032
    rays x S = 64 and, after K2 (64 -> 128, drawn ``u``), S = 128; K1 and K2
    (deterministic) at the eval tiles of a 400x400 and a 640x512 image
-   (131,072, 28,928 and 65,536 rays) x S = 64 and 128;
+   (131,072, 28,928 and 65,536 rays) x S = 64 and 128.  Then K3-bwd bf16
+   at the train batches of lego, LLFF and Blender proj (K3_SPLIT_RAYS) x S
+   = 64 and 128 with noise: held against its plain version, its launches
+   counted as split (``launch_train_bwd.split_launches``) exactly where the
+   launch plan cuts its ray tiles into sample ranges, and timed beside its
+   bound and, in K3_SPLIT_ROUNDS alternating rounds, beside itself on whole
+   tiles (the plan's ``chunks`` held at 1); ``--phases k3bwd`` runs phase 1
+   and this part alone;
 20. the train CLI on each training set, bf16, counted, at the default
    ``--prefetch_batches 8``: lego Step 1 with the
    README's flags (``--patch_size 64 --sW 6 --sH 6 --N_importance 64
@@ -349,6 +357,13 @@ X2_SMALL = ((128, 8, 60), (333, 10, 62))
 # the Hopper K3 kernels against the earlier ones at the path's shapes:
 # (rounds that alternate them, launches of each per round) per dtype
 K3_ROUNDS = {"bfloat16": (6, 2), "float32": (4, 1)}
+# phase 19's K3-bwd bf16 split: the train batches of lego, LLFF and Blender
+# proj (one wave, 147 and 160 tiles of 128 on 132 SMs), alternating rounds
+# (rounds, calls) of the plan's split and whole tiles
+K3_SPLIT_RAYS = (16384, 18776, 20480)
+K3_SPLIT_SAMPLES = (64, 128)
+K3_SPLIT_ROUNDS = (4, 2)
+K3_SPLIT_SEED = 2020
 # the Hopper K4 kernels against the earlier ones at the path's shapes:
 # (rounds that alternate them, launches of each per round) per dtype
 K4_ROUNDS = {"bfloat16": (4, 1), "float32": (4, 1)}
@@ -2604,6 +2619,69 @@ def phase_slice_kernels(device):
     return out
 
 
+def phase_k3_bwd_split(device):
+    """K3-bwd bf16 at K3_SPLIT_RAYS x K3_SPLIT_SAMPLES (noise, black
+    background): held against its plain version, split launches counted
+    where the plan splits, timed beside its bound and beside the same kernel
+    on whole tiles.  Per shape: the plan's chunks, units and busiest CTA's
+    sample passes (and whole tiles'), ms, whole-tile ms, their ratio's mean
+    and range over the rounds, the bound and the errors."""
+    import torch
+
+    from sinnerf_tpu_torch.ops import fused_render_train as frt
+    from sinnerf_tpu_torch.ops import sm90_layout
+    from sinnerf_tpu_torch.ops.fused_mlp import pack_weights
+    from sinnerf_tpu_torch.utils.timing import interleaved_ms
+
+    rng = np.random.default_rng(K3_SPLIT_SEED)
+    model = make_model(30, device)
+    packed = pack_weights(model, torch.bfloat16)
+    slabs = frt._slabs(packed, None)
+    sms = frt._sm_count(device)
+    out = []
+    for n in K3_SPLIT_RAYS:
+        for s in K3_SPLIT_SAMPLES:
+            rays, z = make_rays(rng, n, s, device)
+            noise = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32, device=device)
+            target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
+            plan = sm90_layout.launch_plan(n, s, sms)
+            whole = plan["tiles_per_cta"] * s
+            what = (f"K3-bwd bf16 n={n} S={s}: {plan['chunks']} ranges, {plan['units']} units, "
+                    f"{plan['bwd_passes_per_cta']} passes a CTA (whole tiles {whole})")
+            counts = frt.launch_train_bwd.launches, frt.launch_train_bwd.split_launches
+            res, _, _, err_b, spread, _ = k3_check(model, rays, z, noise, target, "bfloat16", False, what)
+            launched = frt.launch_train_bwd.launches - counts[0]
+            if frt.launch_train_bwd.split_launches - counts[1] != (launched if plan["chunks"] > 1 else 0):
+                raise Failed(f"{what}: {frt.launch_train_bwd.split_launches - counts[1]} of {launched} launches "
+                             f"counted as split")
+            args = (packed, rays, z, noise, res[2], res[3], res[4], *cotangents(res, target), True, False)
+
+            def whole_tiles():
+                chunks, sm90_layout.bwd_chunks = sm90_layout.bwd_chunks, lambda *_: 1
+                try:
+                    return frt.launch_train_bwd(*args, slabs=slabs)
+                finally:
+                    sm90_layout.bwd_chunks = chunks
+
+            fns = {"split": lambda: frt.launch_train_bwd(*args, slabs=slabs), "whole": whole_tiles}
+            for fn in fns.values():
+                fn()
+            rounds, reps = K3_SPLIT_ROUNDS
+            per_round = interleaved_ms(fns, rounds, reps)
+            ratio = [a / b for a, b in zip(per_round["split"], per_round["whole"])]
+            ms = {k: sum(v) / rounds for k, v in per_round.items()}
+            bound = k3_bound(n, s, "bfloat16", True)[0]
+            print(f"  {ms['split']:.3f} ms (whole tiles {ms['whole']:.3f}; ratio {sum(ratio) / rounds:.4f}, "
+                  f"{min(ratio):.4f}-{max(ratio):.4f}; bound {bound:.3f} ms, {bound / ms['split']:.2%} of it)")
+            out.append(dict(shape=f"{n}x{s}", chunks=plan["chunks"], units=plan["units"],
+                            passes_per_cta=plan["bwd_passes_per_cta"], whole_passes_per_cta=whole, ms=ms["split"],
+                            whole_ms=ms["whole"], ratio=(sum(ratio) / rounds, min(ratio), max(ratio)),
+                            bound_ms=bound, err=err_b, spread=spread))
+            del rays, z, noise, res, args, fns
+            torch.cuda.empty_cache()
+    return out
+
+
 def slice_flags(dataset: str, root: str, workdir: str, exp: str):
     """The train CLI's flags of the slice's recipes: Step 1 of the README's
     lego recipe (ViT on, random under --allow_random_pretrained), at 400x400
@@ -3574,10 +3652,11 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on the visible cards.")
-    parser.add_argument("--phases", choices=("all", "ddp", "prefetch", "soak", "branches"), default="all",
+    parser.add_argument("--phases", choices=("all", "ddp", "prefetch", "soak", "branches", "k3bwd"), default="all",
                         help="ddp: the card, the build and the multi-GPU phase alone; prefetch: the card and "
                              "the prefetched sampler alone (no kernel runs); soak: the card, the build and the "
-                             "soak phase alone; branches: the card, the build and phase 25 alone")
+                             "soak phase alone; branches: the card, the build and phase 25 alone; k3bwd: the "
+                             "card, the build and phase 19's K3-bwd bf16 split alone")
     phases = parser.parse_args(argv).phases
     if not os.path.isdir(os.path.join(ROOT, "sinnerf_tpu_torch")):
         print("chip_smoke: the sinnerf_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3636,6 +3715,11 @@ def main(argv=None) -> int:
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0
+        if phases == "k3bwd":
+            print(json.dumps({"k3_bwd_split": phase_k3_bwd_split(device), "card": card}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         sass, ptxas = sass_counts()
         rng = np.random.default_rng(0)
         k1_err = phase_k1_checks(device, rng)
@@ -3666,6 +3750,7 @@ def main(argv=None) -> int:
             slice_data, lego, dtu = phase_slice_datasets(device, workdir)
             prefetch = phase_prefetch(device, workdir, lego, dtu)
             slice_k = phase_slice_kernels(device)
+            k3_split = phase_k3_bwd_split(device)
             slice_cli = phase_slice_cli(device, workdir, lego, dtu)
             slice_ev = phase_slice_eval(device, workdir, lego, dtu, slice_cli)
             demo = phase_demo(device, workdir)
@@ -3743,6 +3828,9 @@ def main(argv=None) -> int:
             )
             if d == "fwd":
                 entry.update(mean_abs_err=err[1])
+            elif bf16:  # phase 19's split: [ms, ms on whole tiles, bound ms, ranges per tile]
+                entry.update(split_per_launch={x["shape"]: [x["ms"], x["whole_ms"], x["bound_ms"], x["chunks"]]
+                                               for x in k3_split})
             else:  # max_abs_err is the worst leaf's largest difference over its largest entry
                 entry.update(rel_l2_err=err[1], run_to_run=max(k3_err[cd]["spread"], p["spread"]),
                              step_grad_err=t["grad_err"], step_grad_tolerance=STEP_GRAD_TOL[cd], losses=t["losses"])

@@ -353,12 +353,12 @@ static int launch_ablated(const Args& a) {
   if (e != cudaSuccess) return (int)e;
   const int tiles = (a.n + RAYS - 1) / RAYS;
   if (tiles == 0) return 0;
-  // no noise and a black background, as JAX's experiment
+  // no noise, a black background and whole tiles (one sample range each), as JAX's experiment
   train_bwd_sm90<ABLATE><<<tiles < a.blocks ? tiles : a.blocks, CTA_THREADS, BwdSmem::BYTES, (cudaStream_t)a.stream>>>(
       (const float*)a.rays, (const float*)a.z, nullptr, (const unsigned char*)a.slabs, (const float*)a.b,
       (const float*)a.w_res, (const float*)a.a_res, (const float*)a.rgb_res, (const float*)a.g_rgb,
       (const float*)a.g_depth, (const float*)a.g_w, (float*)a.dsig_part, (unsigned char*)a.scratch, (float*)a.dw,
-      (float*)a.db, a.n, a.s, a.new_act, 0);
+      (float*)a.db, a.n, a.s, 1, a.new_act, 0);
   return (int)cudaGetLastError();
 }
 

@@ -118,15 +118,16 @@ template <int ABLATE>
 static int launch_bwd(const void* rays, const void* z, const void* noise, const void* slabs, const void* b,
                       const void* w_res, const void* a_res, const void* rgb_res, const void* g_rgb, const void* g_depth,
                       const void* g_w, void* dsig_part, void* scratch, void* dw, void* db, int n, int s, int blocks,
-                      int new_act, int white_back, void* stream) {
+                      int chunks, int new_act, int white_back, void* stream) {
+  if (chunks < 1 || s % chunks != 0) return (int)cudaErrorInvalidValue;
   int e = set_smem((const void*)train_bwd_sm90<ABLATE>, BwdSmem::BYTES);
   if (e) return e;
-  const int tiles = (n + RAYS - 1) / RAYS;
-  if (tiles == 0) return 0;
-  train_bwd_sm90<ABLATE><<<tiles < blocks ? tiles : blocks, CTA_THREADS, BwdSmem::BYTES, (cudaStream_t)stream>>>(
+  const int units = (n + RAYS - 1) / RAYS * chunks;
+  if (units == 0) return 0;
+  train_bwd_sm90<ABLATE><<<units < blocks ? units : blocks, CTA_THREADS, BwdSmem::BYTES, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)z, (const float*)noise, (const unsigned char*)slabs, (const float*)b,
       (const float*)w_res, (const float*)a_res, (const float*)rgb_res, (const float*)g_rgb, (const float*)g_depth,
-      (const float*)g_w, (float*)dsig_part, (unsigned char*)scratch, (float*)dw, (float*)db, n, s, new_act,
+      (const float*)g_w, (float*)dsig_part, (unsigned char*)scratch, (float*)dw, (float*)db, n, s, chunks, new_act,
       white_back);
   return (int)cudaGetLastError();
 }
@@ -154,13 +155,15 @@ int k3_sm90_fwd(const void* rays, const void* z, const void* noise, const void* 
 // The forward's inputs and residuals and the cotangents g_rgb (n, 3),
 // g_depth (n,), g_w (n, s) -> dw (packed weight layout, f32) and db (packed
 // bias layout), both ADDED INTO: zero them first.  dsig_part (n, s) f32
-// scratch; scratch holds ``blocks`` times k3_sm90_scratch_bytes().
+// scratch; scratch holds ``blocks`` times k3_sm90_scratch_bytes().  Each ray
+// tile's samples are cut into ``chunks`` equal ranges (a divisor of s), and
+// the CTAs walk the (tile, range) units (ops/sm90_layout.py::launch_plan).
 int k3_sm90_bwd(const void* rays, const void* z, const void* noise, const void* slabs, const void* b,
                 const void* w_res, const void* a_res, const void* rgb_res, const void* g_rgb, const void* g_depth,
                 const void* g_w, void* dsig_part, void* scratch, void* dw, void* db, int n, int s, int blocks,
-                int new_act, int white_back, void* stream) {
+                int chunks, int new_act, int white_back, void* stream) {
   return launch_bwd<0>(rays, z, noise, slabs, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w, dsig_part, scratch, dw,
-                       db, n, s, blocks, new_act, white_back, stream);
+                       db, n, s, blocks, chunks, new_act, white_back, stream);
 }
 
 // k3_sm90_bwd with one part removed on purpose, for timing only
@@ -170,14 +173,14 @@ int k3_sm90_bwd(const void* rays, const void* z, const void* noise, const void* 
 int k3_sm90_bwd_ablated(const void* rays, const void* z, const void* noise, const void* slabs, const void* b,
                         const void* w_res, const void* a_res, const void* rgb_res, const void* g_rgb,
                         const void* g_depth, const void* g_w, void* dsig_part, void* scratch, void* dw, void* db, int n,
-                        int s, int blocks, int new_act, int white_back, int ablate, void* stream) {
+                        int s, int blocks, int chunks, int new_act, int white_back, int ablate, void* stream) {
   switch (ablate) {
     case ABL_FLUSH:
       return launch_bwd<ABL_FLUSH>(rays, z, noise, slabs, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w, dsig_part,
-                                   scratch, dw, db, n, s, blocks, new_act, white_back, stream);
+                                   scratch, dw, db, n, s, blocks, chunks, new_act, white_back, stream);
     case ABL_WGRAD:
       return launch_bwd<ABL_WGRAD>(rays, z, noise, slabs, b, w_res, a_res, rgb_res, g_rgb, g_depth, g_w, dsig_part,
-                                   scratch, dw, db, n, s, blocks, new_act, white_back, stream);
+                                   scratch, dw, db, n, s, blocks, chunks, new_act, white_back, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

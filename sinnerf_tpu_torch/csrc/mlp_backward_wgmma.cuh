@@ -13,9 +13,15 @@
 // Bound: operations, 3.48 MFLOP per point (recompute, dgrad, wgrad).
 //
 // A CTA (two consumer warpgroups of 64 rays, one producer warpgroup) owns a
-// tile of 128 rays; persistent CTAs walk the tiles.  Per tile, stage A (the
-// descending suffix sums into dsig_part) is train_backward.cuh's.  Per
-// sample, upwards:
+// unit: a tile of 128 rays and one of ``chunks`` equal ranges of its samples
+// (ops/sm90_layout.py::launch_plan picks chunks from the shape; 1 when the
+// tiles fit on the SMs); persistent CTAs walk the units.  Only the
+// transmittance and the per-ray direction-delta sum carry from one sample to
+// the next: a unit rebuilds its starting transmittance by the same product,
+// in the same order, and flushes its own partial sum.  Per unit, stage A
+// (the descending suffix sums into dsig_part, from the last sample down to
+// the range's first, written for the range) is train_backward.cuh's.  Per
+// sample of the range, upwards:
 //   1. Recompute with mlp_wgmma.cuh's mlp_pass, the forward's own body, so
 //      that sigma's gate and every ReLU round as they did in the forward.
 //      Each trunk layer's output tile is copied to the CTA's global scratch
@@ -23,8 +29,8 @@
 //      the delta tile, which is free then.
 //   2. The head: dL/dsigma (gated) and da_rgb per ray, cast; the direction
 //      delta straight from the direction layer's accumulators, still in
-//      registers; its f32 per-ray sum over samples stays in global scratch
-//      (SumDirDelta's role) and meets the direction PE once per tile.
+//      registers; its f32 per-ray sum over the unit's samples stays in global
+//      scratch (SumDirDelta's role) and meets the direction PE once per unit.
 //   3. Per layer, from the direction layer down to layer 1, with the delta
 //      D (128 x O, bf16) in shared memory and the layer's input A brought
 //      back from scratch by one 64 KB bulk copy:
@@ -44,7 +50,7 @@
 //
 // Shared memory (BwdSmem, ops/sm90_layout.py BWD_SMEM): the activation tile
 // (also each layer's input), the delta tile, the sample PE, a 2-stage ring,
-// rays and the per-ray head cotangents.
+// rays, the per-ray head cotangents and the unit's starting transmittance.
 // Tested as the port's other kernels are: the CPU tests run their plain
 // versions as before (tests/test_torch_k3_sm90.py pins the slab layout); on
 // the card, python3 chip_smoke.py builds, checks and times them.
@@ -60,7 +66,8 @@ struct BwdSmem {
   static constexpr int STAGES = 2;
   static constexpr int X = 0, Y = ACT_BYTES, XPE = 2 * ACT_BYTES, RING = XPE + PE_BYTES;
   static constexpr int SMALL = RING + STAGES * STAGE_BYTES;
-  static constexpr int RAYS_F = SMALL, GSIG = SMALL + 3072, DARG = GSIG + 512, BARS = SMALL + 6144;
+  static constexpr int RAYS_F = SMALL, GSIG = SMALL + 3072, DARG = GSIG + 512, TRANS = DARG + 1536;
+  static constexpr int BARS = SMALL + 6144;
   static constexpr int BYTES = SMALL + SMALL_BYTES + ALIGN;
 };
 
@@ -373,25 +380,27 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
                const float* __restrict__ w_res, const float* __restrict__ a_res,
                const float* __restrict__ rgb_res, const float* __restrict__ g_rgb,
                const float* __restrict__ g_depth, const float* __restrict__ g_w, float* dsig_part,
-               unsigned char* scratch, float* dW, float* dB, int n, int S, int new_act, int white_back) {
+               unsigned char* scratch, float* dW, float* dB, int n, int S, int chunks, int new_act,
+               int white_back) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   using L = BwdSmem;
   float* rays_s = reinterpret_cast<float*>(sm + L::RAYS_F);
   float* gsig_s = reinterpret_cast<float*>(sm + L::GSIG);
   float* darg_s = reinterpret_cast<float*>(sm + L::DARG);
+  float* trans_s = reinterpret_cast<float*>(sm + L::TRANS);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* empty = full + L::STAGES;
   uint64_t* xbar = empty + L::STAGES;
   init_bwd_barriers(full, empty, xbar);
-  const int n_tiles = (n + RAYS - 1) / RAYS;
+  const int n_units = (n + RAYS - 1) / RAYS * chunks, span = S / chunks;  // units of span samples
 
   if (threadIdx.x >= CONSUMER_THREADS) {  // the producer warpgroup
     sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMER_THREADS) {
       uint32_t it = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-        for (int s = 0; s < S; ++s) {
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+        for (int s = 0; s < span; ++s) {
           produce(slabs, sm + L::RING, full, empty, L::STAGES, it, N_FWD_SLABS, [](int j) { return j; });
           produce(slabs, sm + L::RING, full, empty, L::STAGES, it, N_BWD_SLABS, [](int j) { return bwd_slab(j); });
         }
@@ -415,22 +424,29 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
   constexpr int WOFF[9] = {0, W1, W2, W3, W4, W5H, W6, W7, W8};
   constexpr int BOFF[9] = {0, B1, B2, B3, B4, B5, B6, B7, B8};
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int ray0 = tile * RAYS;
-    consumers_sync();  // the previous tile's readers of the rays, X and dad are done
+  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+    const int ray0 = unit / chunks * RAYS, s0 = unit % chunks * span, s1 = s0 + span;
+    consumers_sync();  // the previous unit's readers of the rays, X, dad and trans_s are done
     load_rays(rays, ray0, n, rays_s);
-    if (threadIdx.x < RAYS && ray0 + (int)threadIdx.x < n) {  // stage A, downwards
-      const int my = ray0 + threadIdx.x;
-      const float gr = g_rgb[(size_t)my * 3], gg = g_rgb[(size_t)my * 3 + 1], gb = g_rgb[(size_t)my * 3 + 2];
+    const int row = threadIdx.x % RAYS, ray = ray0 + row;
+    if (threadIdx.x < RAYS && ray < n) {  // stage A, downwards from the last sample
+      const float gr = g_rgb[(size_t)ray * 3], gg = g_rgb[(size_t)ray * 3 + 1], gb = g_rgb[(size_t)ray * 3 + 2];
       const float gsum = __fadd_rn(__fadd_rn(gr, gg), gb);
       float suffix = 0.f;
-      for (int s = S - 1; s >= 0; --s) {
-        const size_t at = (size_t)my * S + s;
-        const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, g_depth[my], z[at], g_w[at], gsum, white_back);
-        const float u = fmaxf(__fadd_rn(__fsub_rn(1.f, a_res[at]), 1e-10f), 1e-10f);
-        dsig_part[at] = __fdiv_rn(-suffix, u);
+      for (int s = S - 1; s >= s0; --s) {
+        const size_t at = (size_t)ray * S + s;
+        const float c = weight_cotangent(rgb_res + at * 3, gr, gg, gb, g_depth[ray], z[at], g_w[at], gsum, white_back);
+        if (s < s1) {
+          const float u = fmaxf(__fadd_rn(__fsub_rn(1.f, a_res[at]), 1e-10f), 1e-10f);
+          dsig_part[at] = __fdiv_rn(-suffix, u);
+        }
         suffix = __fadd_rn(suffix, __fmul_rn(c, w_res[at]));
       }
+    } else if (threadIdx.x >= RAYS) {  // meanwhile the transmittance at s0, upwards, as the sample loop forms it
+      float t = 1.f;
+      for (int s = 0; ray < n && s < s0; ++s)
+        t = __fmul_rn(t, __fadd_rn(__fsub_rn(1.f, a_res[(size_t)ray * S + s]), 1e-10f));
+      trans_s[row] = t;
     }
     consumers_sync();
     float dn[2], trans[2], g3[2][3], gd[2], gsum[2];
@@ -438,19 +454,19 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
     for (int i = 0; i < 2; ++i) {
       const int r = ln.row(i), my = ray0 + r;
       dn[i] = ray_norm(rays_s, r);
-      trans[i] = 1.f;
+      trans[i] = trans_s[r];
       for (int ch = 0; ch < 3; ++ch) g3[i][ch] = my < n ? g_rgb[(size_t)my * 3 + ch] : 0.f;
       gd[i] = my < n ? g_depth[my] : 0.f;
       gsum[i] = __fadd_rn(__fadd_rn(g3[i][0], g3[i][1]), g3[i][2]);
     }
 
-    for (int s = 0; s < S; ++s) {
+    for (int s = s0; s < s1; ++s) {
       // 1. recompute, keeping h1..h8 and f; the direction PE into Y
       dir_pe(ln, rays_s, Y);
       if constexpr ((ABLATE & (ABL_CONST_PE | ABL_CHEAP_PE)) != 0) {
-        if ((ABLATE & ABL_CHEAP_PE) != 0 || s == 0) const_pe(ln, z, ray0, n, S, s, (ABLATE & ABL_CHEAP_PE) != 0, xpe);
+        if ((ABLATE & ABL_CHEAP_PE) != 0 || s == s0) const_pe(ln, z, ray0, n, S, s, (ABLATE & ABL_CHEAP_PE) != 0, xpe);
       } else if constexpr ((ABLATE & PIPE_PE) != 0) {
-        if (s == 0) sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
+        if (s == s0) sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
         else copy_pe_rows(ln, X, xpe);  // formed during the previous sample's layer 1
       } else {
         sample_pe_sw(ln, rays_s, z, ray0, n, S, s, xpe);
@@ -488,7 +504,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
           for (int ch = 0; ch < 3; ++ch) darg_s[r * 3 + ch] = dr[i][ch];
         }
       }
-      dir_delta(ln, o, dr, B, wrgb, new_act != 0, Y, dad, s == 0);
+      dir_delta(ln, o, dr, B, wrgb, new_act != 0, Y, dad, s == s0);
       sm90::fence_proxy_async();
       consumers_sync();  // da_d, d (in X), g_sig and da_rgb of every ray
 
@@ -527,7 +543,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
         if (l == 1) {
           if constexpr ((ABLATE & PIPE_PE) != 0) {  // sample s + 1's PE into X while W1's products run
             wgrad_pe_overlapped(ln, Y, xpe, dW + W1, [&] {
-              if (s + 1 < S) sample_pe_sw(ln, rays_s, z, ray0, n, S, s + 1, X);
+              if (s + 1 < s1) sample_pe_sw(ln, rays_s, z, ray0, n, S, s + 1, X);
             });
           } else {
             for (int ch = 2 * ln.g; do_wgrad && ch < 2 * ln.g + 2; ++ch)
@@ -550,7 +566,7 @@ train_bwd_sm90(const float* __restrict__ rays, const float* __restrict__ z, cons
       consumers_sync();  // every reader of xpe, X and Y is done before the next sample writes them
     }
 
-    dir_pe_wgrad(ln, rays_s, X, dad, dW);
+    dir_pe_wgrad(ln, rays_s, X, dad, dW);  // the unit's part of dwdx
   }
 }
 

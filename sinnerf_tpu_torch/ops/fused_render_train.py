@@ -268,9 +268,9 @@ def _lib_sm90() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.k3_sm90_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
         lib.k3_sm90_fwd.restype = i
-        lib.k3_sm90_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
+        lib.k3_sm90_bwd.argtypes = [p] * 15 + [i] * 6 + [p]
         lib.k3_sm90_bwd.restype = i
-        lib.k3_sm90_bwd_ablated.argtypes = [p] * 15 + [i] * 6 + [p]
+        lib.k3_sm90_bwd_ablated.argtypes = [p] * 15 + [i] * 7 + [p]
         lib.k3_sm90_bwd_ablated.restype = i
         lib.k3_sm90_probe.argtypes = [i] + [p] * 5
         lib.k3_sm90_probe.restype = i
@@ -370,7 +370,8 @@ def _launch_bwd_sm90(entry, extra, packed, rays6, z, noise, weights, alphas, rgb
     """A Hopper K3-bwd entry point (``extra``: its arguments after
     white_back): of ``fused_render_train_sm90.cu`` for bfloat16 weights, of
     ``f32_train_sm90.cu`` for float32, which also reads the packed weights.
-    Returns (dw, db)."""
+    Returns (dw, db) and the sample ranges per ray tile (bfloat16:
+    ``launch_plan``'s ``chunks``; float32: 1)."""
     n, s = z.shape
     dev = z.device
     require_sm90(torch.cuda.get_device_capability(dev))
@@ -378,37 +379,43 @@ def _launch_bwd_sm90(entry, extra, packed, rays6, z, noise, weights, alphas, rgb
     dsig_part, dw, db = _bwd_buffers(n, s, dev)
     slabs = _slabs(packed, slabs)
     lib = _lib_sm90() if bf16 else _lib_f32()
-    if bf16:  # persistent CTAs, one per SM at most
+    if bf16:  # persistent CTAs, one per SM at most, walking (ray tile, sample range) units
         plan, weights_in = sm90_layout.launch_plan(n, s, _sm_count(dev)), ()
+        split = (plan["chunks"],)
     else:
         plan, weights_in = sm90_layout.f32_bwd_launch_plan(n, s, _sm_count(dev), False), (packed.w.data_ptr(),)
+        split = ()
     scratch = torch.empty(max(plan["scratch_bytes"], 1), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             rays6.data_ptr(), z.data_ptr(), _ptr(noise), slabs.data_ptr(), *weights_in, packed.b.data_ptr(),
             weights.data_ptr(), alphas.data_ptr(), rgb_s.data_ptr(), g_rgb.data_ptr(), g_depth.data_ptr(),
             g_w.data_ptr(), dsig_part.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            n, s, plan["ctas"], int(use_new_activation), int(white_back), *extra,
+            n, s, plan["ctas"], *split, int(use_new_activation), int(white_back), *extra,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, f"fused_render_level_train (backward, sm90, {entry})")
-    return dw, db
+    return (dw, db), plan.get("chunks", 1)
 
 
 def launch_train_bwd(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
                      use_new_activation, white_back, slabs=None):
     """K3-bwd on CUDA tensors, the Hopper kernel of the weights' dtype: the
-    packed float32 gradient buffers (dw, db)."""
+    packed float32 gradient buffers (dw, db).  ``split_launches`` counts the
+    bfloat16 launches that cut each ray tile's samples into ranges
+    (``sm90_layout.launch_plan``'s ``chunks`` > 1)."""
     entry = "k3_sm90_bwd" if packed.w.dtype == torch.bfloat16 else "k3_f32_bwd"
-    out = _launch_bwd_sm90(entry, (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
-                           use_new_activation, white_back, slabs)
+    out, chunks = _launch_bwd_sm90(entry, (), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                                   use_new_activation, white_back, slabs)
     launch_train_bwd.launches += 1
     launch_train_bwd.launches_by_dtype["bfloat16" if entry == "k3_sm90_bwd" else "float32"] += 1
+    launch_train_bwd.split_launches += chunks > 1
     return out
 
 
 launch_train_bwd.launches = 0
 launch_train_bwd.launches_by_dtype = {"bfloat16": 0, "float32": 0}
+launch_train_bwd.split_launches = 0
 
 
 def launch_train_bwd_block64(packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
@@ -459,8 +466,8 @@ def launch_train_bwd_ablated(part, packed, rays6, z, noise, weights, alphas, rgb
     returns are wrong by design."""
     bf16 = packed.w.dtype == torch.bfloat16
     entry, code = ("k3_sm90_bwd_ablated", ABLATE[part]) if bf16 else ("k3_f32_bwd_ablated", ABLATE_F32[part])
-    out = _launch_bwd_sm90(entry, (code,), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
-                           use_new_activation, white_back, slabs)
+    out, _ = _launch_bwd_sm90(entry, (code,), packed, rays6, z, noise, weights, alphas, rgb_s, g_rgb, g_depth, g_w,
+                              use_new_activation, white_back, slabs)
     launch_train_bwd_ablated.launches += 1
     return out
 

@@ -192,20 +192,53 @@ BWD_SCRATCH = N_KEPT * ACT_BYTES + TILE_RAYS * HALF * 4
 THREADS = 384  # two consumer warpgroups and one producer warpgroup
 
 
+# A backward unit's work besides its sample passes (the rays, stage A over
+# the samples from the last down to the range's first, the starting
+# transmittance, the unit's dwdx flush), counted in sample passes: the split
+# weighs it, so that a near tie goes to fewer, longer ranges.  On an H100 a
+# unit costs 59-65 us beside 0.357 ms a sample pass (16,384 and 18,776 rays
+# x 64, 1 to 64 ranges).
+BWD_UNIT_PASSES = 0.17
+
+
+def bwd_chunks(tiles: int, s: int, sm_count: int) -> int:
+    """The sample ranges per ray tile of the bf16 backward: 1 when the tiles
+    fit on the SMs; otherwise the divisor c of s whose units (tiles x c, s / c
+    samples each, walked ctas apart) give the least work to the busiest CTA,
+    ceil(tiles c / sm_count) (s / c + BWD_UNIT_PASSES), the fewest ranges on
+    a tie."""
+    if tiles <= sm_count:
+        return 1
+    best, chunks = None, 1
+    for c in range(1, s + 1):
+        if s % c == 0:
+            cost = -(-tiles * c // sm_count) * (s // c + BWD_UNIT_PASSES)
+            if best is None or cost < best:
+                best, chunks = cost, c
+    return chunks
+
+
 def launch_plan(n: int, s: int, sm_count: int) -> Dict[str, int]:
     """What one launch of either kernel runs for n rays x s samples on a card
     of ``sm_count`` SMs: ray tiles, persistent CTAs (one per SM at most, each
     walking tiles ctas apart), the most tiles one CTA runs, slabs streamed per
-    CTA (forward and backward), and the backward's scratch bytes."""
+    CTA (forward and backward), and the backward's scratch bytes.  The bf16
+    backward cuts each tile's samples into ``chunks`` equal ranges
+    (``bwd_chunks``) and its CTAs walk the ``units`` (tile u // chunks, range
+    u % chunks) ctas apart: the most units and sample passes one CTA runs."""
     if n < 0 or s < 1 or sm_count < 1:
         raise ValueError(f"launch_plan: n={n}, s={s}, sm_count={sm_count}")
     tiles = -(-n // TILE_RAYS)
     ctas = min(tiles, sm_count)
     per_cta = -(-tiles // ctas) if ctas else 0
+    chunks = bwd_chunks(tiles, s, sm_count)
+    units_per_cta = -(-tiles * chunks // ctas) if ctas else 0
     return dict(
         tiles=tiles, ctas=ctas, threads=THREADS, tiles_per_cta=per_cta,
         fwd_slabs_per_cta=per_cta * s * len(FWD_SLABS),
-        bwd_slabs_per_cta=per_cta * s * (len(FWD_SLABS) + len(BWD_SLABS)),
+        chunks=chunks, units=tiles * chunks, bwd_units_per_cta=units_per_cta,
+        bwd_passes_per_cta=units_per_cta * (s // chunks),
+        bwd_slabs_per_cta=units_per_cta * (s // chunks) * (len(FWD_SLABS) + len(BWD_SLABS)),
         fwd_smem=FWD_SMEM, bwd_smem=BWD_SMEM, scratch_bytes=ctas * BWD_SCRATCH,
     )
 

@@ -7,11 +7,14 @@ wrong place gives sums that are finite and plausible, so the CPU tests pin the
 byte order the descriptors assume: the 128-byte swizzle, 1,024-byte
 alignment, the slab order of both directions, and a round trip to
 ``pack_weights``' layout bit for bit.  The launch plan's tiles, CTAs, slabs
-and scratch are held at ragged ray counts.
+and scratch are held at ragged ray counts and at the train batches' counts,
+and the backward's walk over (ray tile, sample range) units is played out:
+every (ray, sample) once, no split where the tiles fit on the SMs.
 
 Tests marked ``cuda`` build and launch the kernels and skip without a card:
 the descriptor probe against a plain product, and K3-fwd / K3-bwd in bf16
-against their plain versions under ``chip_smoke.py``'s K3 limits."""
+against their plain versions under ``chip_smoke.py``'s K3 limits, the
+backward also split into sample ranges."""
 
 import math
 import os
@@ -30,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 RAY_COUNTS = (1, 63, 64, 65, 127, 128, 129, 333, 1000, 5292)
+PATH_RAY_COUNTS = (16384, 16032, 18776, 20480)  # the train batches of lego, DTU, LLFF and Blender proj
 SAMPLE_COUNTS = (9, 12, 64, 192)
 H100_SMS = 132
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
@@ -105,13 +109,13 @@ def test_slab_buffer_refuses_float32(packed):
         L.slab_buffer(type(packed)(packed.w.float(), packed.b))
 
 
-@pytest.mark.parametrize("n", RAY_COUNTS)
+@pytest.mark.parametrize("n", RAY_COUNTS + PATH_RAY_COUNTS)
 def test_launch_plan(n):
-    for s in SAMPLE_COUNTS:
+    for s in SAMPLE_COUNTS + (128,):
         plan = L.launch_plan(n, s, H100_SMS)
         tiles = math.ceil(n / 128)
         assert plan["tiles"] == tiles and plan["ctas"] == min(tiles, H100_SMS) and plan["threads"] == 384
-        # the persistent walk (tile = blockIdx + k * ctas) covers every ray once
+        # the forward's persistent walk (tile = blockIdx + k * ctas) covers every ray once
         cover = np.zeros(tiles * 128, dtype=int)
         per_cta = [0] * plan["ctas"]
         for cta in range(plan["ctas"]):
@@ -120,7 +124,26 @@ def test_launch_plan(n):
                 per_cta[cta] += 1
         assert (cover[:n] == 1).all() and max(per_cta) == plan["tiles_per_cta"]
         assert plan["fwd_slabs_per_cta"] == max(per_cta) * s * 39
-        assert plan["bwd_slabs_per_cta"] == max(per_cta) * s * 75
+        # the backward's walk (unit = blockIdx + k * ctas: tile unit // chunks,
+        # samples [span (unit % chunks), + span)) covers every (ray, sample) once
+        chunks = plan["chunks"]
+        span = s // chunks
+        assert span * chunks == s and plan["units"] == tiles * chunks
+        if tiles <= H100_SMS:
+            assert chunks == 1
+        cover = np.zeros((tiles * 128, s), dtype=int)
+        passes, units = [0] * plan["ctas"], [0] * plan["ctas"]
+        for cta in range(plan["ctas"]):
+            for unit in range(cta, plan["units"], plan["ctas"]):
+                tile, s0 = divmod(unit, chunks)
+                cover[tile * 128 : (tile + 1) * 128, s0 * span : (s0 + 1) * span] += 1
+                passes[cta] += span
+                units[cta] += 1
+        assert (cover[:n] == 1).all()
+        assert max(units) == plan["bwd_units_per_cta"] and max(passes) == plan["bwd_passes_per_cta"]
+        assert plan["bwd_slabs_per_cta"] == max(passes) * 75
+        if n == 18776 and s in (64, 128):  # LLFF's 147 tiles: no second wave of whole tiles
+            assert chunks > 1 and max(passes) <= 0.6 * 2 * s
         assert plan["fwd_smem"] <= SMEM_LIMIT and plan["bwd_smem"] <= SMEM_LIMIT
         assert plan["scratch_bytes"] == plan["ctas"] * (9 * 65536 + 128 * 128 * 4)
 
@@ -179,21 +202,40 @@ def test_probe_matches_a_plain_product(cuda_device, mode):
     assert err < 1e-5, (mode, err)
 
 
+SINGLE_RAYS = 64
+CASES = ((9, False, True), (12, True, False))  # (S, white background, noise)
+LLFF_CASES = ((64, False, True), (128, False, True))  # the LLFF cell's levels
+# (n, SMs the plan is told of (None: the card's), cases, whether K3-bwd cuts
+# its tiles into sample ranges): the ragged counts, then the split path on a
+# few SMs at ragged counts, at LLFF's 18,776 rays, and lego's 16,384 unsplit
+MATCH_CASES = ([(n, None, CASES, False) for n in RAY_COUNTS]
+               + [(1000, 3, CASES, True), (5292, 8, CASES, True), (18776, None, LLFF_CASES, True),
+                  (16384, None, LLFF_CASES, False)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", RAY_COUNTS)
-def test_sm90_kernels_match_plain(cuda_device, n):
+@pytest.mark.parametrize("n, sms, cases, split", MATCH_CASES,
+                         ids=[f"{c[0]}" + (f"-sms{c[1]}" if c[1] else "") for c in MATCH_CASES])
+def test_sm90_kernels_match_plain(cuda_device, monkeypatch, n, sms, cases, split):
     """K3-fwd and K3-bwd in bf16 against their plain versions at n rays x
-    S = 9 (noise) and 12 (white background), on each kernel's own residuals
-    as ``chip_smoke.k3_check`` chains them, under ``chip_smoke.py``'s K3
-    limits per shape: the forward's largest and mean error (outputs and
-    residuals) and the backward's worst leaf.  At one ray the mean is that
-    of one ray's ~50 elements, so one rounding that the kernel and the plain
-    version take apart decides it: there the mean limit holds over
-    SINGLE_RAYS launches of one ray each, every one a tile with 127 empty
-    rows.  The earlier (wmma) forward's errors on the same inputs are
-    printed beside the new ones."""
+    S = 9 (noise) and 12 (white background), or the LLFF cell's 64 and 128
+    (noise), on each kernel's own residuals as ``chip_smoke.k3_check`` chains
+    them, under ``chip_smoke.py``'s K3 limits per shape: the forward's
+    largest and mean error (outputs and residuals) and the backward's worst
+    leaf.  With ``sms`` the launch plan is told of that many SMs, so that
+    the backward cuts its tiles into sample ranges; each launch adds to
+    ``launch_train_bwd.split_launches`` exactly when ``split``.  At one ray
+    the mean is that of one ray's ~50 elements, so one rounding that the
+    kernel and the plain version take apart decides it: there the mean limit
+    holds over SINGLE_RAYS launches of one ray each, every one a tile with
+    127 empty rows.  The earlier (wmma) forward's errors on the same inputs
+    are printed beside the new ones."""
+    if sms is not None:
+        monkeypatch.setattr(frt, "_sm_count", lambda dev: sms)
+    for s, _, _ in cases:
+        assert (L.launch_plan(n, s, frt._sm_count(cuda_device))["chunks"] > 1) == split, (n, s)
     fwd_tol, bwd_tol = chip_smoke.K3_FWD_TOL["bfloat16"], chip_smoke.K3_BWD_TOL["bfloat16"]
-    for case, err_f, err_earlier, err_b in _ragged_errors(cuda_device, n):
+    for case, err_f, err_earlier, err_b in _ragged_errors(cuda_device, n, cases, split):
         print(f"n={n} {case}: fwd {err_f}, earlier fwd {err_earlier}, bwd {err_b}")
         assert err_f[0] <= fwd_tol[0], (n, case, err_f)
         assert n == 1 or err_f[1] <= fwd_tol[1], (n, case, err_f)
@@ -204,27 +246,24 @@ def test_sm90_kernels_match_plain(cuda_device, n):
         assert max(means) <= fwd_tol[1], means
 
 
-SINGLE_RAYS = 64
-CASES = ((9, False, True), (12, True, False))  # (S, white background, noise)
-
-
 def _case_inputs(rng, device, n, s, use_noise):
     rays, z = chip_smoke.make_rays(rng, n, s, device)
     noise = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32, device=device) if use_noise else None
     return rays, z, noise
 
 
-def _ragged_errors(device, n):
+def _ragged_errors(device, n, cases=CASES, split=False):
     """Per (S, flags) case at n rays: the new forward's (largest, mean)
     error, the earlier forward's on the same inputs, and the backward's
-    worst leaf."""
+    worst leaf; each backward launch counted as split when ``split``."""
     rng = np.random.default_rng(n)
     packed = pack_weights(chip_smoke.make_model(2, device), torch.bfloat16)
     errs = []
-    for s, white_back, use_noise in CASES:
+    for s, white_back, use_noise in cases:
         rays, z, noise = _case_inputs(rng, device, n, s, use_noise)
         target = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32, device=device)
         before = frt.launch_train_fwd.launches, frt.launch_train_bwd.launches
+        split_before = frt.launch_train_bwd.split_launches
         out = frt.launch_train_fwd(packed, rays, z, noise, True, white_back)
         ref = frt.render_level_train_forward_plain(packed, rays, z, noise, True, white_back)
         earlier = frt.launch_train_fwd_block64(packed, rays, z, noise, True, white_back)
@@ -232,6 +271,7 @@ def _ragged_errors(device, n):
         got = unpack_grads(*frt.launch_train_bwd(*args))
         want = unpack_grads(*frt.render_level_train_backward_plain(*args))
         assert (frt.launch_train_fwd.launches, frt.launch_train_bwd.launches) == (before[0] + 1, before[1] + 1)
+        assert frt.launch_train_bwd.split_launches == split_before + split
         errs.append((f"S={s} white_back={int(white_back)} noise={int(use_noise)}",
                      chip_smoke.k3_fwd_error(out, ref, 6.0), chip_smoke.k3_fwd_error(earlier, ref, 6.0),
                      chip_smoke.grad_errors(got, want)))
